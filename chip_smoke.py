@@ -1,0 +1,315 @@
+#!/usr/bin/env python3
+"""On-card smoke test of the PyTorch/CUDA port (``hashmodnffbanks_idr_tpu_torch``).
+
+Run from the repository root on a machine with one NVIDIA H100:
+
+    python3 chip_smoke.py
+
+It builds the CUDA kernel from ``hashmodnffbanks_idr_tpu_torch/ops/csrc``
+into ``build/``, holds each kernel variant against its plain PyTorch twin at
+the flagship widths, checks one small train step on the card against the
+same step on the CPU, then drives the flagship StyleModNFFB training step
+(2048 rays, 1200x1600 synthetic two-view scene, random weights from a seed)
+in three tracer configurations and times it.  Any failed check raises and
+the script exits non-zero.  The second-to-last line is the kernels' JSON
+record, the last line ``{"ok": true, "device": {...}}``.
+
+It imports nothing of JAX and nothing of the JAX package, and exits non-zero
+without a result when CUDA is unavailable.
+"""
+
+from __future__ import annotations
+
+import json
+import math
+import statistics
+import subprocess
+import sys
+import time
+
+import torch
+
+# H100 SXM peaks (NVIDIA data sheet; dense, at the 700 W limit)
+PEAK_FLOPS = {"f32": 67e12, "bf16": 989e12}
+PEAK_BYTES_PER_S = 3.35e12
+TOL_F32 = 1e-5     # GPU expf/log1pf and the summation order differ from the CPU
+TOL_BF16 = 3e-2    # bf16 operands (tests/test_fused_mlp.py:36-40)
+N_RAYS = 2048
+IMG_RES = (1200, 1600)
+ALPHA = 50.0
+# the kernel's batch sizes on the main path at 2048 rays: secant (2048),
+# march and line search (2 x 2048), exact sweep coarse/fine probes (12 and 24
+# per ray), mixed sweep coarse probes (34 per ray)
+CHECK_N = (1, 513, 2048, 4096, 24576, 49152, 69632)
+# each variant's largest call on the main path, where its time is reported
+TIME_N = {"fused_sdf_raw_f32": 49152, "fused_sdf_raw_bf16": 69632}
+
+
+def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
+    """Mean device time of ``fn`` over ``iters`` back-to-back calls (CUDA
+    events; warm L2, as in the tracer's repeated calls)."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def sdf_mlp_cost(n: int, d_in: int, hidden: int, itemsize: int):
+    """FLOPs and bytes (each input read once, the output written once) of
+    the raw-SDF chain for n points."""
+    skip_w = hidden - d_in
+    macs = d_in * hidden + 6 * hidden * hidden + hidden * skip_w + hidden
+    weights = (d_in * hidden + 6 * hidden * hidden + hidden * skip_w + hidden) * itemsize
+    biases = (8 * hidden + 1) * 4
+    return 2 * n * macs, n * d_in * 4 + weights + biases + n * 4
+
+
+def library_chain(x, packed):
+    """The same nine-layer chain as cuBLAS GEMMs in the weight type with
+    torch's own softplus: the yardstick (the port never calls it)."""
+    import torch.nn.functional as F
+
+    wd = packed["w_in"].dtype
+    skip_cols = packed["w_in"].shape[1] - x.shape[1]
+    xw = x.to(wd)
+    h = F.softplus(torch.addmm(packed["b_in"].to(wd), xw, packed["w_in"]), 100.0, 20.0)
+    for l in range(packed["w_mid"].shape[0]):
+        h = F.softplus(torch.addmm(packed["b_mid"][l].to(wd), h, packed["w_mid"][l]), 100.0, 20.0)
+        if l == 2:
+            h = torch.cat([h[:, :skip_cols], xw], dim=1) * (1.0 / math.sqrt(2.0))
+    return torch.addmm(packed["b_out"].to(wd), h, packed["w_out"][:, None])[:, 0]
+
+
+@torch.no_grad()
+def phase_kernels(dev, fm, model):
+    """Each variant against its plain twin at the tracer's batch sizes."""
+    net = model.implicit_network
+    d_in, hidden = net.dims[0], net.dims[1]
+    gen = torch.Generator(device=dev).manual_seed(1)
+    records = {}
+    for name, dtype, peak_key in (("fused_sdf_raw_f32", torch.float32, "f32"),
+                                  ("fused_sdf_raw_bf16", torch.bfloat16, "bf16")):
+        packed = fm.pack_params(net.lin, d_in, hidden, dtype=dtype)
+        max_err = 0.0
+        for n in CHECK_N:
+            pts = (torch.rand(n, 3, generator=gen, device=dev) * 2 - 1) * 0.6
+            x = net._embed(pts).contiguous()
+            got = fm.fused_sdf_raw(x, packed)
+            want = fm.fused_sdf_raw_plain(x, packed)
+            torch.cuda.synchronize()
+            err = float((got - want).abs().max())
+            max_err = max(max_err, err)
+            tol = TOL_F32 if dtype == torch.float32 else TOL_BF16
+            print(f"[kernel] {name} N={n}: max_abs_err={err:.3e} (tol {tol:g})")
+            if not err <= tol:
+                raise AssertionError(f"{name} N={n}: max abs err {err} > {tol}")
+            if dtype == torch.bfloat16:
+                big = want.abs() > 5e-2
+                if not bool((torch.sign(got[big]) == torch.sign(want[big])).all()):
+                    raise AssertionError(f"{name} N={n}: sign disagreement where |sdf|>5e-2")
+        for n in (4096, TIME_N[name]):
+            pts = (torch.rand(n, 3, generator=gen, device=dev) * 2 - 1) * 0.6
+            x = net._embed(pts).contiguous()
+            ms = cuda_ms(lambda: fm.fused_sdf_raw(x, packed))
+            plain_ms = cuda_ms(lambda: fm.fused_sdf_raw_plain(x, packed))
+            library_ms = cuda_ms(lambda: library_chain(x, packed))
+            flops, nbytes = sdf_mlp_cost(n, d_in, hidden, packed["w_in"].element_size())
+            t_ops, t_bytes = flops / PEAK_FLOPS[peak_key] * 1e3, nbytes / PEAK_BYTES_PER_S * 1e3
+            rec = {"n": n, "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+                   "bound_ms": max(t_ops, t_bytes),
+                   "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+                   "achieved_tflops": flops / (ms * 1e-3) / 1e12}
+            print(f"[kernel] {name} N={n}: " + json.dumps(rec))
+        records[name] = dict(rec, max_abs_err=max_err)
+    fm.reset_launch_counts()
+    return records
+
+
+def phase_reference(dev, fm):
+    """One small exact+fused step on the card against the same step on the
+    CPU (plain twin), same weights and draws: loss and hit masks agree."""
+    from hashmodnffbanks_idr_tpu_torch.models.loss import IDRLossConfig
+    from hashmodnffbanks_idr_tpu_torch.models.ray_tracing import sweep_stride
+    from hashmodnffbanks_idr_tpu_torch.models.renderer import IDRNetwork
+    from hashmodnffbanks_idr_tpu_torch.testing import (flagship_conf, scene_to_device,
+                                                       synthetic_scene)
+    from hashmodnffbanks_idr_tpu_torch.train.trainer import loss_fn
+
+    n_rays = 256
+    conf = flagship_conf(num_pixels=n_rays)
+    conf.put("model.tracer_exact_fused", True)
+    scene_np = synthetic_scene(n_views=2, img_res=(64, 64), seed=0)
+    g = torch.Generator().manual_seed(5)
+    pix = torch.randperm(64 * 64, generator=g)[:n_rays]
+    outs = {}
+    for device in (dev, torch.device("cpu")):
+        model = IDRNetwork(conf.get_config("model"), device=device, seed=0)
+        cfg = model.ray_tracer
+        stride = sweep_stride(cfg, False, on_cuda=device.type == "cuda")
+        g = torch.Generator().manual_seed(6)
+        draws = {"coarse": torch.rand((cfg.n_steps - 1) // stride + 1, generator=g),
+                 "fine": torch.rand(3 * (stride - 1), generator=g),
+                 "eik": torch.rand(n_rays // 2, 3, generator=g) * 2 - 1}
+        captured = {}
+        model.register_forward_hook(lambda m, a, o: captured.update(o))
+        losses = loss_fn(model, IDRLossConfig(0.1, 200.0, ALPHA), scene_to_device(scene_np, device),
+                         torch.tensor([0], device=device), pix.to(device), None, ALPHA,
+                         draws=draws)
+        outs[device.type] = (float(losses["loss"].detach()),
+                             captured["network_object_mask"].cpu())
+    (l_gpu, m_gpu), (l_cpu, m_cpu) = outs["cuda"], outs["cpu"]
+    agree = float((m_gpu == m_cpu).float().mean())
+    print(f"[reference] {n_rays} rays exact+fused: loss cuda={l_gpu:.6f} cpu={l_cpu:.6f} "
+          f"hits cuda={int(m_gpu.sum())} cpu={int(m_cpu.sum())} mask agreement={agree:.4f} "
+          f"(cuda launches {fm.launch_counts['fused_sdf_raw_f32']['launches']})")
+    if not (math.isfinite(l_gpu) and abs(l_gpu - l_cpu) <= 1e-2 * abs(l_cpu)):
+        raise AssertionError(f"loss on the card {l_gpu} vs CPU {l_cpu}")
+    if agree < 0.98:
+        raise AssertionError(f"hit masks agree on {agree:.3f} of rays")
+    fm.reset_launch_counts()
+
+
+@torch.no_grad()
+def time_tracer(model, scene, img_idx, pixel_idx, gen, reps: int = 3) -> float:
+    """Host time of the gradient-free tracer alone on one step's rays (the
+    step's first stage, run the way ``IDRNetwork.forward`` runs it)."""
+    from hashmodnffbanks_idr_tpu_torch.geometry.cameras import get_camera_params
+    from hashmodnffbanks_idr_tpu_torch.models.ray_tracing import ray_trace
+
+    uv = scene["uv"][pixel_idx][None]
+    mask = scene["mask"][img_idx][:, pixel_idx].reshape(-1)
+    dirs, cam = get_camera_params(uv, scene["pose"][img_idx], scene["intrinsics"][img_idx])
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        sdf, guidance = model._tracer_sdfs()
+        ray_trace(model.ray_tracer, sdf, cam, mask, dirs, generator=gen, sdf_guidance=guidance)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
+
+
+def phase_step(dev, fm, scene, label, mode, fused, warmup, steps, expect=None):
+    """The flagship training step through the port's entry points; counts
+    reset just before the timed steps and read just after."""
+    from hashmodnffbanks_idr_tpu_torch.models.loss import IDRLossConfig
+    from hashmodnffbanks_idr_tpu_torch.models.renderer import IDRNetwork
+    from hashmodnffbanks_idr_tpu_torch.testing import flagship_conf
+    from hashmodnffbanks_idr_tpu_torch.train.trainer import build_train_step, make_optimizer
+    from hashmodnffbanks_idr_tpu_torch.utils.sampling import sample_pixels
+
+    conf = flagship_conf(num_pixels=N_RAYS)
+    conf.put("model.tracer_fast", mode)
+    conf.put("model.tracer_exact_fused", fused)
+    model = IDRNetwork(conf.get_config("model"), device=dev, seed=0)
+    step = build_train_step(model, IDRLossConfig(0.1, 200.0, ALPHA), make_optimizer(model))
+    gen = torch.Generator(device=dev).manual_seed(1)
+    img_idx = torch.tensor([0], device=dev)
+    total = IMG_RES[0] * IMG_RES[1]
+    before = [p.detach().clone() for p in model.parameters()]
+
+    for _ in range(warmup):
+        step(scene, img_idx, sample_pixels(gen, total, N_RAYS), gen, ALPHA)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fm.reset_launch_counts()
+    times, per_step, losses = [], [], None
+    for _ in range(steps):
+        seen = {k: v["launches"] for k, v in fm.launch_counts.items()}
+        t0 = time.perf_counter()
+        losses = step(scene, img_idx, sample_pixels(gen, total, N_RAYS), gen, ALPHA)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        per_step.append({k: fm.launch_counts[k]["launches"] - seen[k] for k in seen})
+    counts = {k: dict(v) for k, v in fm.launch_counts.items()}
+    tracer_ms = time_tracer(model, scene, img_idx, sample_pixels(gen, total, N_RAYS), gen)
+
+    loss = float(losses["loss"])
+    if not math.isfinite(loss):
+        raise AssertionError(f"{label}: loss {loss}")
+    if not any(bool((p.detach() != b).any()) for p, b in zip(model.parameters(), before)):
+        raise AssertionError(f"{label}: no parameter changed")
+    if expect is not None and not all(s[expect] > 0 for s in per_step):
+        raise AssertionError(f"{label}: {expect} was not launched in every step: {per_step}")
+    ms = statistics.median(times)
+    rec = {"label": label, "steps": steps, "ms_per_step_median": ms,
+           "ms_per_step_min": min(times), "ms_per_step_max": max(times),
+           "rays_per_s": N_RAYS / (ms * 1e-3), "tracer_ms_median": tracer_ms, "loss": loss,
+           "launches_per_step": {k: v["launches"] / steps for k, v in counts.items()},
+           "points_per_step": {k: v["points"] / steps for k, v in counts.items()},
+           "max_memory_allocated_mib": torch.cuda.max_memory_allocated() / 2**20}
+    print(f"[step] {json.dumps(rec)}")
+    fm.reset_launch_counts()
+    return counts
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("chip_smoke: CUDA is not available; nothing was run", file=sys.stderr)
+        return 2
+
+    from hashmodnffbanks_idr_tpu_torch import resolve_device
+    from hashmodnffbanks_idr_tpu_torch.models.renderer import IDRNetwork
+    from hashmodnffbanks_idr_tpu_torch.ops import fused_mlp as fm
+    from hashmodnffbanks_idr_tpu_torch.testing import (flagship_conf, scene_to_device,
+                                                       synthetic_scene)
+
+    t_start = time.perf_counter()
+    dev = resolve_device(None)
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True, text=True,
+                         check=True).stdout.strip()
+    print(smi)
+    name = torch.cuda.get_device_name(0)
+    print(f"torch {torch.__version__} cuda {torch.version.cuda} device {name}")
+    # the bounds use the H100 SXM data sheet (HBM3 marks the SXM part)
+    sxm = "H100" in name and ("HBM3" in name or "SXM" in name)
+    print(f"[bound] peaks {PEAK_FLOPS} FLOP/s, {PEAK_BYTES_PER_S} B/s are the H100 SXM's: "
+          f"{'this card' if sxm else 'NOT this card; bound_ms is only indicative'}")
+
+    t0 = time.perf_counter()
+    fm.load_library()
+    print(f"[build] fused_mlp.cu built and loaded in {time.perf_counter() - t0:.1f} s")
+    ptxas = fm._BUILD_DIR / "fused_mlp_ptxas.txt"
+    if ptxas.exists():
+        print(ptxas.read_text().strip())
+
+    model = IDRNetwork(flagship_conf(num_pixels=N_RAYS).get_config("model"), device=dev, seed=0)
+    kernels = phase_kernels(dev, fm, model)
+    del model
+    phase_reference(dev, fm)
+
+    scene = scene_to_device(synthetic_scene(n_views=2, img_res=IMG_RES, seed=0), dev)
+    c_f32 = phase_step(dev, fm, scene, "exact+fused", "exact", True, 2, 10,
+                       expect="fused_sdf_raw_f32")
+    c_bf16 = phase_step(dev, fm, scene, "mixed", "mixed", False, 2, 10,
+                        expect="fused_sdf_raw_bf16")
+    phase_step(dev, fm, scene, "exact (unfused)", "exact", False, 1, 3)
+
+    src = "hashmodnffbanks_idr_tpu_torch/ops/csrc/fused_mlp.cu"
+    out = []
+    for name, counts in (("fused_sdf_raw_f32", c_f32), ("fused_sdf_raw_bf16", c_bf16)):
+        r = kernels[name]
+        out.append({"name": name, "route": "cuda", "source": src,
+                    "replaces": "hashmodnffbanks_idr_tpu/ops/fused_mlp.py:104",
+                    "launches": counts[name]["launches"], "points": counts[name]["points"],
+                    "max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
+                    "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+                    "library_ms": r["library_ms"], "n": r["n"]})
+    print(f"[done] {time.perf_counter() - t_start:.1f} s")
+    print(json.dumps({"kernels": out}))
+    print(json.dumps({"ok": True, "device": {"platform": "gpu",
+                                             "kind": torch.cuda.get_device_name(0),
+                                             "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,60 @@
+"""Camera geometry: ray generation and the bounding-sphere intersection.
+
+Counterpart of ``hashmodnffbanks_idr_tpu/geometry/cameras.py`` for fixed
+cameras (4x4 poses).  Still to port: the pose-7 quaternion branch that
+trainable cameras use, and the load-time decomposition helpers.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+
+def lift(x, y, z, intrinsics):
+    """Pixel coords -> homogeneous camera-space points (rend_util.py:87-100)."""
+    fx = intrinsics[:, 0, 0][:, None]
+    fy = intrinsics[:, 1, 1][:, None]
+    cx = intrinsics[:, 0, 2][:, None]
+    cy = intrinsics[:, 1, 2][:, None]
+    sk = intrinsics[:, 0, 1][:, None]
+    x_lift = (x - cx + cy * sk / fy - sk * y / fy) / fx * z
+    y_lift = (y - cy) / fy * z
+    return torch.stack([x_lift, y_lift, z, torch.ones_like(z)], dim=-1)
+
+
+def get_camera_params(uv: torch.Tensor, pose: torch.Tensor, intrinsics: torch.Tensor):
+    """uv (B,P,2), pose (B,4,4) cam-to-world, intrinsics (B,4,4) ->
+    (ray_dirs (B,P,3), cam_loc (B,3)).  rend_util.py:48-75."""
+    if pose.dim() != 3 or pose.shape[-2:] != (4, 4):
+        raise NotImplementedError("only (B, 4, 4) poses are ported; pose-7 comes "
+                                  "with trainable cameras")
+    cam_loc = pose[:, :3, 3]
+    B, P, _ = uv.shape
+    depth = torch.ones((B, P), dtype=uv.dtype, device=uv.device)
+    pixel_points_cam = lift(uv[:, :, 0], uv[:, :, 1], depth, intrinsics)  # (B,P,4)
+    world_coords = torch.einsum("bij,bpj->bpi", pose, pixel_points_cam)[:, :, :3]
+    ray_dirs = world_coords - cam_loc[:, None, :]
+    ray_dirs = ray_dirs / torch.linalg.vector_norm(ray_dirs, dim=-1, keepdim=True)
+    return ray_dirs, cam_loc
+
+
+def get_sphere_intersection(cam_loc: torch.Tensor, ray_directions: torch.Tensor,
+                            r: float = 1.0):
+    """Closed-form ray/sphere(0, r) intersection (rend_util.py:141-162):
+    (near/far (B,P,2) clamped >= 0 and zero on a miss, mask_intersect (B,P))."""
+    ray_cam_dot = torch.einsum("bpi,bi->bp", ray_directions, cam_loc)
+    under_sqrt = ray_cam_dot**2 - ((cam_loc**2).sum(dim=-1)[:, None] - r**2)
+    mask_intersect = under_sqrt > 0
+    sqrt_val = torch.sqrt(torch.clamp_min(under_sqrt, 0.0))
+    si = torch.stack([-ray_cam_dot - sqrt_val, -ray_cam_dot + sqrt_val], dim=-1)
+    si = torch.where(mask_intersect[..., None], si, torch.zeros_like(si))
+    return torch.clamp_min(si, 0.0), mask_intersect
+
+
+def uv_grid(img_res) -> np.ndarray:
+    """Full-image pixel grid, (H*W, 2) float32 with uv[:,0]=x (col), uv[:,1]=y
+    (scene_dataset.py:72-74)."""
+    H, W = img_res
+    yy, xx = np.mgrid[0:H, 0:W].astype(np.float32)
+    return np.stack([xx, yy], axis=-1).reshape(-1, 2)

@@ -1,0 +1,141 @@
+"""IDRNetwork: the full differentiable render pass.
+
+Counterpart of ``hashmodnffbanks_idr_tpu/models/renderer.py``
+(impl..._renderer.py:225-329 of the reference): the tracer runs without
+gradient on the current parameters; the SDF is re-evaluated with gradient
+at the found points; one batched spatial gradient over
+``[detached points, eikonal samples]`` gives both the detached surface
+normals for the sample network and the eikonal term; misses render white.
+
+Tracer precision (``model.tracer_fast``; JAX :49-74):
+  'exact' -- everything float32; with ``model.tracer_exact_fused = true``
+             the tracer's SDF queries go through the fused float32 kernel;
+  'mixed' -- bf16 guidance (march phase A, sweep coarse probes) through the
+             fused bf16 kernel, float32 decisions;
+  'fast'  -- every tracer query through the fused bf16 kernel.
+The fused path is chosen from the config alone: ``fused_sdf_raw`` launches
+the CUDA kernel for a CUDA tensor and runs its plain twin for a CPU one.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Optional
+
+import torch
+from torch import nn
+
+from .. import resolve_device
+from ..config.hocon import Config
+from ..geometry.cameras import get_camera_params
+from .networks import ImplicitNetwork, RenderingNetwork
+from .ray_tracing import RayTracerConfig, ray_trace
+from .sample_network import sample_network
+
+
+class IDRNetwork(nn.Module):
+    def __init__(self, conf: Config, device=None, seed: int = 0):
+        """Builds the model from the ``model`` conf block with random weights
+        drawn from ``seed``, on ``device`` (None -> the CUDA card)."""
+        super().__init__()
+        device = resolve_device(device)
+        self.feature_vector_size = conf.get_int("feature_vector_size")
+        implicit_kwargs = dict(conf.get_config("implicit_network").data)
+        emb = conf.get_config("embedding_network", None)
+        if emb is not None:
+            implicit_kwargs.update(emb.data)  # impl..._renderer.py:229-233
+        self.implicit_network = ImplicitNetwork(self.feature_vector_size, **implicit_kwargs)
+        self.rendering_network = RenderingNetwork(
+            self.feature_vector_size, **conf.get_config("rendering_network").data)
+        self.ray_tracer = RayTracerConfig(**conf.get_config("ray_tracer").data)
+        self.object_bounding_sphere = conf.get_float("ray_tracer.object_bounding_sphere")
+        tf = conf.get("tracer_fast", "exact")
+        self.tracer_mode = {True: "fast", False: "exact"}.get(tf, tf)
+        if self.tracer_mode not in ("fast", "mixed", "exact"):
+            raise ValueError(f"tracer_fast={tf!r}")
+        self.tracer_exact_fused = bool(conf.get("tracer_exact_fused", False))
+
+        gen = torch.Generator().manual_seed(seed)
+        self.implicit_network.reset_parameters(gen)
+        self.rendering_network.reset_parameters(gen)
+        self.to(device)
+
+    def _tracer_sdfs(self):
+        """(decision SDF, guidance dict or None) for the tracer mode
+        (JAX :106-163, without level pruning)."""
+        net = self.implicit_network
+        if self.tracer_mode == "exact":
+            sdf = net.make_fast_sdf(precision="f32") if self.tracer_exact_fused else net.sdf
+            return sdf, None
+        fast = net.make_fast_sdf(precision="bf16")
+        if self.tracer_mode == "fast":
+            return fast, None
+        return net.sdf, {"march": fast, "coarse": fast}
+
+    def forward(self, inputs: Dict[str, torch.Tensor],
+                generator: Optional[torch.Generator] = None, training: bool = True,
+                draws: Optional[Dict[str, torch.Tensor]] = None) -> Dict[str, torch.Tensor]:
+        """``draws`` may inject the tracer's sweep draws (see
+        ``ray_tracing.ray_trace``) and the eikonal samples (``'eik'``,
+        (R//2, 3) in [-r, r]); missing ones come from ``generator``."""
+        object_mask = inputs["object_mask"].reshape(-1).to(torch.bool)
+        ray_dirs, cam_loc = get_camera_params(inputs["uv"], inputs["pose"],
+                                              inputs["intrinsics"])
+        B, P, _ = ray_dirs.shape
+        R = B * P
+
+        with torch.no_grad():
+            sdf, guidance = self._tracer_sdfs()
+            trace = ray_trace(self.ray_tracer, sdf, cam_loc, object_mask, ray_dirs,
+                              generator=generator, training=training,
+                              sdf_guidance=guidance, draws=draws)
+        network_object_mask = trace.network_object_mask
+        dists = trace.dists
+
+        cam_flat = cam_loc[:, None, :].expand(B, P, 3).reshape(R, 3)
+        dirs_flat = ray_dirs.reshape(R, 3)
+        points = cam_flat + dists[:, None] * dirs_flat
+
+        sdf_output = self.implicit_network(points)[:, 0:1]
+
+        grad_theta = None
+        if training:
+            surface_mask = network_object_mask & object_mask
+            bb = self.object_bounding_sphere
+            if draws is not None and "eik" in draws:
+                eik_points = torch.as_tensor(draws["eik"], dtype=points.dtype,
+                                             device=points.device)
+            else:  # impl..._renderer.py:276-284
+                u = torch.rand((R // 2, 3), generator=generator, dtype=points.dtype,
+                               device=points.device)
+                eik_points = -bb + u * (2 * bb)
+            g = self.implicit_network.gradient(torch.cat([points.detach(), eik_points], dim=0))
+            surface_points_grad = g[:R].detach()
+            grad_theta = torch.cat([g[R:], g[:R]], dim=0)
+            differentiable_points = sample_network(
+                sdf_output, sdf_output.detach(), surface_points_grad, dists[:, None],
+                cam_flat, dirs_flat, valid_mask=surface_mask)
+        else:
+            surface_mask = network_object_mask
+            differentiable_points = points
+
+        rgb_raw = self._get_rgb_value(differentiable_points, -dirs_flat)
+        rgb_values = torch.where(surface_mask[:, None], rgb_raw, torch.ones_like(rgb_raw))
+
+        out = {
+            "points": points,
+            "rgb_values": rgb_values,
+            "sdf_output": sdf_output,
+            "network_object_mask": network_object_mask,
+            "object_mask": object_mask,
+            "dists": dists,
+        }
+        if training:
+            out["grad_theta"] = grad_theta
+        return out
+
+    def _get_rgb_value(self, points, view_dirs):
+        """Normals from the SDF gradient feed the appearance net with the
+        feature vector (impl..._renderer.py:321-329)."""
+        output = self.implicit_network(points)
+        normals = self.implicit_network.gradient(points)
+        return self.rendering_network(points, normals, view_dirs, output[:, 1:])

@@ -1,0 +1,230 @@
+"""Fused SDF-MLP forward for the gradient-free sphere tracer.
+
+Counterpart of ``hashmodnffbanks_idr_tpu/ops/fused_mlp.py``, whose Pallas
+``_kernel`` this module's CUDA kernel (``csrc/fused_mlp.cu``) replaces.  It
+computes the raw SDF channel of the IDR MLP (dims 8x512, skip at layer 4),
+forward only, for N embedded points:
+
+  l0: d_in->512, l1..l2: 512->512, l3: 512->(512-d_in),
+  concat(input)/sqrt(2) written into the tail lanes after l3,
+  l4..l7: 512->512, softplus(beta=100) after every hidden layer,
+  l8: only the SDF column (a 512-long dot per point).
+
+Two precisions share one kernel: float32 weights (the 'exact' tracer; FMA
+on the CUDA cores, no TF32) and bfloat16 weights with float32 accumulation
+(the 'mixed'/'fast' tracer's guidance queries; tensor cores).  Biases,
+softplus and the skip scaling stay float32.
+
+``fused_sdf_raw`` launches the kernel for a CUDA tensor and raises if it
+cannot; for a CPU tensor it runs ``fused_sdf_raw_plain``, the same math in
+plain torch ops.  The kernel is built with ``nvcc`` for ``sm_90a`` into
+``build/`` at the repository root on first use and loaded with ctypes.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import math
+import os
+import shutil
+import subprocess
+from pathlib import Path
+from typing import Dict, List, Tuple
+
+import torch
+
+from .linear import Linear, softplus
+
+N_MID = 7              # l1..l7
+SKIP_AFTER_MID = 2     # the skip concat follows l3 = mid layer 2
+KERNEL_HIDDEN = 512    # the CUDA kernel's compiled width
+KERNEL_MAX_D_IN = 64   # the CUDA kernel's first-layer depth
+
+_CSRC = Path(__file__).resolve().parent / "csrc" / "fused_mlp.cu"
+_BUILD_DIR = Path(__file__).resolve().parents[2] / "build"
+
+# Kernel launches and points, per variant, counted by the wrapper only where
+# it launches the CUDA kernel (chip_smoke.py reads them to show that the
+# main path went through the kernel).
+launch_counts: Dict[str, Dict[str, int]] = {
+    "fused_sdf_raw_f32": {"launches": 0, "points": 0},
+    "fused_sdf_raw_bf16": {"launches": 0, "points": 0},
+}
+
+
+def reset_launch_counts() -> None:
+    for c in launch_counts.values():
+        c["launches"] = c["points"] = 0
+
+
+def supports_fusion(dims: List[int], skip_in: Tuple[int, ...]) -> bool:
+    """The standard IDR architecture: uniform hidden width, single skip at 4
+    (JAX :47-54).  The CUDA kernel itself is compiled for hidden 512 and
+    d_in <= 64; ``fused_sdf_raw`` raises on a CUDA tensor outside that."""
+    if len(dims) != 10 or tuple(skip_in) != (4,):
+        return False
+    h = dims[1]
+    if any(d != h for d in dims[1:-1]):
+        return False
+    return dims[0] < h and h % 128 == 0
+
+
+@torch.no_grad()
+def pack_params(lins: List[Linear], d_in: int, hidden: int,
+                dtype: torch.dtype = torch.bfloat16) -> Dict[str, torch.Tensor]:
+    """Effective weights of the nine layers in the kernel's layout
+    (JAX :57-96, without its 128-lane padding):
+
+      w_in  (d_in, hidden)          b_in  (hidden,)
+      w_mid (7, hidden, hidden)     b_mid (7, hidden)    # l3 zero-padded
+      w_out (hidden,)               b_out (1,)           # SDF column only
+
+    Weights are stored input-major (``h @ w``) in ``dtype``; biases float32."""
+    def w_of(l):
+        return lins[l].weight().detach().T  # (in, out)
+
+    mids_w, mids_b = [], []
+    for l in range(1, 1 + N_MID):
+        w, b = w_of(l), lins[l].b.detach()
+        if w.shape[1] != hidden:  # l3: hidden -> hidden - d_in; pad tail columns
+            w = torch.nn.functional.pad(w, (0, hidden - w.shape[1]))
+            b = torch.nn.functional.pad(b, (0, hidden - b.shape[0]))
+        mids_w.append(w)
+        mids_b.append(b)
+    w_last = w_of(1 + N_MID)
+    return {
+        "w_in": w_of(0).to(dtype).contiguous(),
+        "b_in": lins[0].b.detach().float().contiguous(),
+        "w_mid": torch.stack(mids_w).to(dtype).contiguous(),
+        "b_mid": torch.stack(mids_b).float().contiguous(),
+        "w_out": w_last[:, 0].to(dtype).contiguous(),
+        "b_out": lins[1 + N_MID].b.detach()[:1].float().contiguous(),
+    }
+
+
+def fused_sdf_raw_plain(x: torch.Tensor, packed: Dict[str, torch.Tensor]) -> torch.Tensor:
+    """The kernel's math in plain torch ops: x (N, d_in) f32 -> raw SDF (N,).
+    Each layer rounds its input to the weight type and accumulates in
+    float32, as the kernel (and the Pallas kernel) does."""
+    wd = packed["w_in"].dtype
+    d_in = x.shape[1]
+    hidden = packed["w_in"].shape[1]
+    skip_cols = hidden - d_in
+    inv_sqrt2 = 1.0 / math.sqrt(2.0)
+
+    def dot(h, w):
+        return h.to(wd).float() @ w.float()
+
+    h = softplus(dot(x, packed["w_in"]) + packed["b_in"])
+    for l in range(packed["w_mid"].shape[0]):
+        h = softplus(dot(h, packed["w_mid"][l]) + packed["b_mid"][l])
+        if l == SKIP_AFTER_MID:
+            tail = x.to(wd).float() * inv_sqrt2
+            h = torch.cat([h[:, :skip_cols] * inv_sqrt2, tail], dim=1)
+    return dot(h, packed["w_out"][:, None])[:, 0] + packed["b_out"][0]
+
+
+def fused_sdf_raw(x_embedded: torch.Tensor, packed: Dict[str, torch.Tensor]) -> torch.Tensor:
+    """x_embedded (N, d_in) float32 -> raw SDF channel (N,) before the
+    Laplace clamp.  No gradient: the tracer runs under ``no_grad``."""
+    if x_embedded.requires_grad:
+        raise ValueError("fused_sdf_raw has no gradient; call it under torch.no_grad()")
+    if x_embedded.device.type == "cpu":
+        return fused_sdf_raw_plain(x_embedded, packed)
+    with torch.no_grad():
+        return _launch(x_embedded, packed)
+
+
+# ---------------------------------------------------------------------------
+# CUDA build and launch
+# ---------------------------------------------------------------------------
+
+_lib = None
+
+
+def _nvcc() -> str:
+    for cand in (shutil.which("nvcc"),
+                 os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "nvcc")):
+        if cand and os.path.exists(cand):
+            return cand
+    raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH")
+
+
+def load_library() -> ctypes.CDLL:
+    """Build ``csrc/fused_mlp.cu`` (once per source content) and load it."""
+    global _lib
+    if _lib is not None:
+        return _lib
+    src = _CSRC.read_bytes()
+    out = _BUILD_DIR / f"libfused_mlp_{hashlib.sha256(src).hexdigest()[:12]}.so"
+    if not out.exists():
+        _BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = out.with_suffix(f".{os.getpid()}.tmp")
+        cmd = [_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+               "-o", str(tmp), str(_CSRC)]
+        res = subprocess.run(cmd, capture_output=True, text=True)
+        if res.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({res.returncode}):\n{res.stderr}")
+        (_BUILD_DIR / "fused_mlp_ptxas.txt").write_text(res.stderr)
+        os.replace(tmp, out)
+    lib = ctypes.CDLL(str(out))
+    ptr = ctypes.c_void_p
+    for name in ("fused_sdf_raw_f32", "fused_sdf_raw_bf16"):
+        fn = getattr(lib, name)
+        fn.argtypes = [ptr, ctypes.c_int, ctypes.c_int, ptr, ptr, ptr, ptr, ptr, ptr,
+                       ptr, ptr]
+        fn.restype = ctypes.c_int
+    _lib = lib
+    return lib
+
+
+def _check(t: torch.Tensor, name: str, shape, dtype, device) -> None:
+    if t.device != device:
+        raise ValueError(f"{name} is on {t.device}, expected {device}")
+    if t.dtype != dtype:
+        raise ValueError(f"{name} has dtype {t.dtype}, expected {dtype}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {tuple(shape)}")
+    if not t.is_contiguous() or t.data_ptr() % 16:
+        raise ValueError(f"{name} must be contiguous and 16-byte aligned")
+
+
+def _launch(x: torch.Tensor, packed: Dict[str, torch.Tensor]) -> torch.Tensor:
+    n, d_in = x.shape
+    wd = packed["w_in"].dtype
+    if wd == torch.float32:
+        variant = "fused_sdf_raw_f32"
+    elif wd == torch.bfloat16:
+        variant = "fused_sdf_raw_bf16"
+    else:
+        raise ValueError(f"packed weights of dtype {wd} are not supported")
+    hidden = packed["w_in"].shape[1]
+    if hidden != KERNEL_HIDDEN or not 0 < d_in <= KERNEL_MAX_D_IN:
+        raise ValueError(f"the CUDA kernel is compiled for hidden={KERNEL_HIDDEN} and "
+                         f"d_in<={KERNEL_MAX_D_IN}; got hidden={hidden}, d_in={d_in}")
+    dev = x.device
+    if x.dtype != torch.float32 or not x.is_contiguous():
+        raise ValueError("x_embedded must be a contiguous float32 (N, d_in) tensor")
+    _check(packed["w_in"], "w_in", (d_in, hidden), wd, dev)
+    _check(packed["b_in"], "b_in", (hidden,), torch.float32, dev)
+    _check(packed["w_mid"], "w_mid", (N_MID, hidden, hidden), wd, dev)
+    _check(packed["b_mid"], "b_mid", (N_MID, hidden), torch.float32, dev)
+    _check(packed["w_out"], "w_out", (hidden,), wd, dev)
+    _check(packed["b_out"], "b_out", (1,), torch.float32, dev)
+    out = torch.empty(n, dtype=torch.float32, device=dev)
+    if n == 0:
+        return out
+    lib = load_library()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = getattr(lib, variant)(
+            x.data_ptr(), n, d_in, packed["w_in"].data_ptr(), packed["b_in"].data_ptr(),
+            packed["w_mid"].data_ptr(), packed["b_mid"].data_ptr(),
+            packed["w_out"].data_ptr(), packed["b_out"].data_ptr(), out.data_ptr(), stream)
+    if err != 0:
+        raise RuntimeError(f"{variant} launch failed: CUDA error {err}")
+    launch_counts[variant]["launches"] += 1
+    launch_counts[variant]["points"] += n
+    return out

@@ -1,0 +1,58 @@
+"""Weight bridge: the JAX package's params pytree -> a port state dict.
+
+The port's parameter names follow the JAX tree (``lin.<i>.v``,
+``embed.grid.table``, ...), except that the embedders are the modules
+``embedder`` / ``view_embedder``.  Linear weights ``w``/``v`` are
+transposed from JAX's ``(in, out)`` to ``(out, in)``; a hash table may come
+as ``(rows, C)`` or as the JAX package's ``(P, 128)`` page image.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Iterator, Tuple
+
+import numpy as np
+import torch
+from torch import nn
+
+from .ops.hashgrid import as_rows
+
+_RENAME = {"embed": "embedder", "view_embed": "view_embedder"}
+
+
+def _flatten(tree, prefix: str = "") -> Iterator[Tuple[str, np.ndarray]]:
+    if isinstance(tree, dict):
+        items = ((_RENAME.get(k, k), v) for k, v in tree.items())
+    elif isinstance(tree, (list, tuple)):
+        items = ((str(i), v) for i, v in enumerate(tree))
+    else:
+        yield prefix, np.asarray(tree)
+        return
+    for k, v in items:
+        yield from _flatten(v, f"{prefix}.{k}" if prefix else k)
+
+
+def from_jax_params(params_np: dict, model: nn.Module) -> Dict[str, torch.Tensor]:
+    """The JAX params pytree (numpy leaves) of ``model``'s JAX counterpart ->
+    a state dict for ``model.load_state_dict``.  ``model`` supplies the
+    target names and shapes.  Raises on any leaf without a counterpart, any
+    parameter left unset, and any shape that does not match."""
+    target = model.state_dict()
+    out: Dict[str, torch.Tensor] = {}
+    for name, leaf in _flatten(params_np):
+        if name not in target:
+            raise KeyError(f"JAX leaf {name!r} has no counterpart in {type(model).__name__}")
+        want = tuple(target[name].shape)
+        arr = np.asarray(leaf, dtype=np.float32)
+        kind = name.rsplit(".", 1)[-1]
+        if kind == "table":
+            arr = as_rows(arr, *want)
+        elif kind in ("w", "v") and arr.ndim == 2:
+            arr = arr.T
+        if arr.shape != want:
+            raise ValueError(f"{name}: JAX shape {arr.shape} does not fit {want}")
+        out[name] = torch.tensor(arr)  # a copy: JAX's numpy views are read-only
+    missing = sorted(set(target) - set(out))
+    if missing:
+        raise KeyError(f"no JAX leaf for {missing}")
+    return out

@@ -1,0 +1,98 @@
+"""The port's fused SDF-MLP (pack_params + plain twin) against the JAX Pallas
+kernel in interpret mode, at the flagship width 512 and d_in 59.
+
+Tolerances as in tests/test_fused_mlp.py: f32 atol 2e-6; bf16 atol 3e-2
+plus sign agreement where |sdf| > 5e-2.  The CUDA kernel itself is held
+against the plain twin by tests/test_torch_cuda.py (skipped without a card)
+and by chip_smoke.py.
+"""
+
+import numpy as np
+import jax
+import jax.numpy as jnp
+import pytest
+import torch
+
+from hashmodnffbanks_idr_tpu.models.networks import ImplicitNetwork as JImplicitNetwork
+from hashmodnffbanks_idr_tpu.ops import fused_mlp as jfm
+
+from hashmodnffbanks_idr_tpu_torch.models.networks import ImplicitNetwork
+from hashmodnffbanks_idr_tpu_torch.ops import fused_mlp as fm
+from hashmodnffbanks_idr_tpu_torch.weights import from_jax_params
+
+NET_KW = dict(feature_vector_size=256, d_in=3, d_out=1, dims=[512] * 8,
+              geometric_init=True, bias=0.6, skip_in=[4], weight_norm=True,
+              multires=6, embed_type="StyleModNFFB", log2_max_hash_size=5,
+              max_points_per_entry=2, base_resolution=16, desired_resolution=512,
+              bound=0.45)
+
+
+@pytest.fixture(scope="module")
+def nets():
+    jnet = JImplicitNetwork(**NET_KW)
+    params = jax.jit(jnet.init)(jax.random.PRNGKey(0))
+    net = ImplicitNetwork(**NET_KW)
+    net.load_state_dict(from_jax_params(jax.tree_util.tree_map(np.asarray, params), net))
+    return jnet, params, net
+
+
+def _inputs(n, seed):
+    """Embedding-like inputs: the first 3 columns in [0, 1], the rest O(0.1)."""
+    rng = np.random.default_rng(seed)
+    x = rng.normal(scale=0.1, size=(n, 59)).astype(np.float32)
+    x[:, :3] = rng.uniform(0.1, 0.9, size=(n, 3))
+    return x
+
+
+@pytest.mark.parametrize("precision", ["f32", "bf16"])
+@pytest.mark.parametrize("n", [1, 96, 513])
+def test_plain_matches_pallas_kernel(nets, precision, n):
+    jnet, params, net = nets
+    jdt, dt = ((jnp.float32, torch.float32) if precision == "f32"
+               else (jnp.bfloat16, torch.bfloat16))
+    jpacked = jfm.pack_params(params["lin"], 59, 512, dtype=jdt)
+    packed = fm.pack_params(net.lin, 59, 512, dtype=dt)
+    # same weights, the port without the 128-lane padding; the f32 effective
+    # weights may differ in the last ulp, which can move a bf16 rounding
+    rtol = 2e-6 if precision == "f32" else 2.0**-7
+    for k, sl in (("w_in", np.s_[:59]), ("w_mid", np.s_[:]), ("b_in", np.s_[:]),
+                  ("b_mid", np.s_[:]), ("w_out", np.s_[:, 0]), ("b_out", np.s_[:1])):
+        want = np.asarray(jnp.asarray(jpacked[k], jnp.float32))[sl]
+        np.testing.assert_allclose(packed[k].float().numpy(), want, rtol=rtol, atol=1e-7,
+                                   err_msg=k)
+
+    x = _inputs(n, seed=n)
+    want = np.asarray(jfm.fused_sdf_raw(jnp.asarray(x), jpacked, 59, 512, interpret=True))
+    got = fm.fused_sdf_raw(torch.from_numpy(x), packed).numpy()
+    assert got.shape == (n,)
+    if precision == "f32":
+        np.testing.assert_allclose(got, want, rtol=0, atol=2e-6)
+    else:
+        np.testing.assert_allclose(got, want, rtol=0, atol=3e-2)
+        big = np.abs(want) > 5e-2
+        assert (np.sign(got[big]) == np.sign(want[big])).all()
+
+
+def test_fast_sdf_f32_matches_exact_sdf(nets):
+    """``make_fast_sdf('f32')`` (the exact tracer's fused path) is the same
+    math as ``sdf``."""
+    _, _, net = nets
+    x = torch.from_numpy(np.random.default_rng(1).uniform(-0.4, 0.4, (200, 3)).astype(np.float32))
+    with torch.no_grad():
+        np.testing.assert_allclose(net.make_fast_sdf(precision="f32")(x).numpy(),
+                                   net.sdf(x).numpy(), rtol=0, atol=2e-6)
+
+
+def test_supports_fusion_matches_jax():
+    for dims, skip in (([59] + [512] * 8 + [257], (4,)), ([59] + [128] * 8 + [33], (4,)),
+                       ([3, 64, 64, 17], (4,)), ([59] + [512] * 8 + [257], (3,)),
+                       ([59] + [96] * 8 + [257], (4,)), ([600] + [512] * 8 + [257], (4,))):
+        assert fm.supports_fusion(dims, skip) == jfm.supports_fusion(dims, skip)
+
+
+def test_wrapper_refuses_gradients(nets):
+    _, _, net = nets
+    packed = fm.pack_params(net.lin, 59, 512, dtype=torch.float32)
+    x = torch.zeros(4, 59, requires_grad=True)
+    with pytest.raises(ValueError):
+        fm.fused_sdf_raw(x, packed)
