@@ -22,6 +22,7 @@ from __future__ import annotations
 
 import json
 import math
+import re
 import statistics
 import subprocess
 import sys
@@ -29,11 +30,16 @@ import time
 
 import torch
 
-# H100 SXM peaks (NVIDIA data sheet; dense, at the 700 W limit)
-PEAK_FLOPS = {"f32": 67e12, "bf16": 989e12}
+# H100 SXM peaks (NVIDIA data sheet; dense, at the 700 W limit): f32 on the
+# CUDA cores, tf32 and bf16 on the tensor cores
+PEAK_FLOPS = {"f32": 67e12, "tf32": 495e12, "bf16": 989e12}
 PEAK_BYTES_PER_S = 3.35e12
 TOL_F32 = 1e-5     # GPU expf/log1pf and the summation order differ from the CPU
 TOL_BF16 = 3e-2    # bf16 operands (tests/test_fused_mlp.py:36-40)
+# per variant: weight type, tolerance, and the peak and the number of
+# products per product that bound it (f32 runs three TF32 products: split-TF32)
+VARIANTS = (("fused_sdf_raw_f32", torch.float32, TOL_F32, "tf32", 3),
+            ("fused_sdf_raw_bf16", torch.bfloat16, TOL_BF16, "bf16", 1))
 N_RAYS = 2048
 IMG_RES = (1200, 1600)
 ALPHA = 50.0
@@ -41,8 +47,10 @@ ALPHA = 50.0
 # march and line search (2 x 2048), exact sweep coarse/fine probes (12 and 24
 # per ray), mixed sweep coarse probes (34 per ray)
 CHECK_N = (1, 513, 2048, 4096, 24576, 49152, 69632)
-# each variant's largest call on the main path, where its time is reported
+# each variant's largest call on the main path, where its time is reported;
+# it is also timed at the small calls (secant, march), which fill few SMs
 TIME_N = {"fused_sdf_raw_f32": 49152, "fused_sdf_raw_bf16": 69632}
+TIME_SMALL_N = (2048, 4096)
 
 
 def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
@@ -93,8 +101,7 @@ def phase_kernels(dev, fm, model):
     d_in, hidden = net.dims[0], net.dims[1]
     gen = torch.Generator(device=dev).manual_seed(1)
     records = {}
-    for name, dtype, peak_key in (("fused_sdf_raw_f32", torch.float32, "f32"),
-                                  ("fused_sdf_raw_bf16", torch.bfloat16, "bf16")):
+    for name, dtype, tol, peak_key, products in VARIANTS:
         packed = fm.pack_params(net.lin, d_in, hidden, dtype=dtype)
         max_err = 0.0
         for n in CHECK_N:
@@ -105,7 +112,6 @@ def phase_kernels(dev, fm, model):
             torch.cuda.synchronize()
             err = float((got - want).abs().max())
             max_err = max(max_err, err)
-            tol = TOL_F32 if dtype == torch.float32 else TOL_BF16
             print(f"[kernel] {name} N={n}: max_abs_err={err:.3e} (tol {tol:g})")
             if not err <= tol:
                 raise AssertionError(f"{name} N={n}: max abs err {err} > {tol}")
@@ -113,20 +119,25 @@ def phase_kernels(dev, fm, model):
                 big = want.abs() > 5e-2
                 if not bool((torch.sign(got[big]) == torch.sign(want[big])).all()):
                     raise AssertionError(f"{name} N={n}: sign disagreement where |sdf|>5e-2")
-        for n in (4096, TIME_N[name]):
+        timed = []
+        for n in TIME_SMALL_N + (TIME_N[name],):
             pts = (torch.rand(n, 3, generator=gen, device=dev) * 2 - 1) * 0.6
             x = net._embed(pts).contiguous()
             ms = cuda_ms(lambda: fm.fused_sdf_raw(x, packed))
             plain_ms = cuda_ms(lambda: fm.fused_sdf_raw_plain(x, packed))
             library_ms = cuda_ms(lambda: library_chain(x, packed))
             flops, nbytes = sdf_mlp_cost(n, d_in, hidden, packed["w_in"].element_size())
-            t_ops, t_bytes = flops / PEAK_FLOPS[peak_key] * 1e3, nbytes / PEAK_BYTES_PER_S * 1e3
+            t_ops = products * flops / PEAK_FLOPS[peak_key] * 1e3
+            t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
             rec = {"n": n, "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
                    "bound_ms": max(t_ops, t_bytes),
                    "bound_by": "operations" if t_ops >= t_bytes else "bytes",
                    "achieved_tflops": flops / (ms * 1e-3) / 1e12}
+            if dtype == torch.float32:
+                rec["bound_fp32_cores_ms"] = max(flops / PEAK_FLOPS["f32"] * 1e3, t_bytes)
             print(f"[kernel] {name} N={n}: " + json.dumps(rec))
-        records[name] = dict(rec, max_abs_err=max_err)
+            timed.append(rec)
+        records[name] = dict(timed[-1], max_abs_err=max_err, small_calls=timed[:-1])
     fm.reset_launch_counts()
     return records
 
@@ -250,6 +261,21 @@ def phase_step(dev, fm, scene, label, mode, fused, warmup, steps, expect=None):
     return counts
 
 
+def check_f32_spills(ptxas_log: str) -> None:
+    """The f32 kernel (``f32::fused_sdf_kernel``, mangled ``3f32``) must keep
+    its 128 accumulators and split fragments in registers: no spills in the
+    ``-Xptxas -v`` report."""
+    entries = [e for e in ptxas_log.split("Compiling entry function")[1:] if "3f32" in e]
+    if len(entries) != 1:
+        raise AssertionError(f"ptxas report: {len(entries)} entries of the f32 kernel")
+    spills = [int(b) for b in re.findall(r"(\d+) bytes spill (?:stores|loads)", entries[0])]
+    regs = re.search(r"Used (\d+) registers", entries[0])
+    print(f"[ptxas] f32 kernel: {regs.group(1) if regs else '?'} registers, "
+          f"spill stores/loads {spills} bytes")
+    if len(spills) != 2 or any(spills):
+        raise AssertionError(f"f32 kernel spills registers: {entries[0].strip()}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; nothing was run", file=sys.stderr)
@@ -280,6 +306,7 @@ def main() -> int:
     ptxas = fm._BUILD_DIR / "fused_mlp_ptxas.txt"
     if ptxas.exists():
         print(ptxas.read_text().strip())
+        check_f32_spills(ptxas.read_text())
 
     model = IDRNetwork(flagship_conf(num_pixels=N_RAYS).get_config("model"), device=dev, seed=0)
     kernels = phase_kernels(dev, fm, model)
@@ -297,12 +324,13 @@ def main() -> int:
     out = []
     for name, counts in (("fused_sdf_raw_f32", c_f32), ("fused_sdf_raw_bf16", c_bf16)):
         r = kernels[name]
-        out.append({"name": name, "route": "cuda", "source": src,
-                    "replaces": "hashmodnffbanks_idr_tpu/ops/fused_mlp.py:104",
-                    "launches": counts[name]["launches"], "points": counts[name]["points"],
-                    "max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
-                    "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
-                    "library_ms": r["library_ms"], "n": r["n"]})
+        rec = {"name": name, "route": "cuda", "source": src,
+               "replaces": "hashmodnffbanks_idr_tpu/ops/fused_mlp.py:104",
+               "launches": counts[name]["launches"], "points": counts[name]["points"]}
+        rec.update((k, r[k]) for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
+                                        "bound_fp32_cores_ms", "bound_by", "library_ms",
+                                        "n", "small_calls") if k in r)
+        out.append(rec)
     print(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": out}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

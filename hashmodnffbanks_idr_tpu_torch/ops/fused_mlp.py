@@ -10,10 +10,11 @@ forward only, for N embedded points:
   l4..l7: 512->512, softplus(beta=100) after every hidden layer,
   l8: only the SDF column (a 512-long dot per point).
 
-Two precisions share one kernel: float32 weights (the 'exact' tracer; FMA
-on the CUDA cores, no TF32) and bfloat16 weights with float32 accumulation
-(the 'mixed'/'fast' tracer's guidance queries; tensor cores).  Biases,
-softplus and the skip scaling stay float32.
+Two precisions, one kernel each: float32 weights (the 'exact' tracer; tensor
+cores in split-TF32, three TF32 products per float32 product, which keeps
+float32 accuracy) and bfloat16 weights with float32 accumulation (the
+'mixed'/'fast' tracer's guidance queries; WMMA).  Biases, softplus and the
+skip scaling stay float32.
 
 ``fused_sdf_raw`` launches the kernel for a CUDA tensor and raises if it
 cannot; for a CPU tensor it runs ``fused_sdf_raw_plain``, the same math in

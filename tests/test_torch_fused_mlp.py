@@ -2,9 +2,10 @@
 kernel in interpret mode, at the flagship width 512 and d_in 59.
 
 Tolerances as in tests/test_fused_mlp.py: f32 atol 2e-6; bf16 atol 3e-2
-plus sign agreement where |sdf| > 5e-2.  The CUDA kernel itself is held
-against the plain twin by tests/test_torch_cuda.py (skipped without a card)
-and by chip_smoke.py.
+plus sign agreement where |sdf| > 5e-2.  The f32 CUDA kernel's split-TF32
+arithmetic is emulated here and held to the same f32 tolerance.  The CUDA
+kernel itself is held against the plain twin by tests/test_torch_cuda.py
+(skipped without a card) and by chip_smoke.py.
 """
 
 import numpy as np
@@ -18,6 +19,7 @@ from hashmodnffbanks_idr_tpu.ops import fused_mlp as jfm
 
 from hashmodnffbanks_idr_tpu_torch.models.networks import ImplicitNetwork
 from hashmodnffbanks_idr_tpu_torch.ops import fused_mlp as fm
+from hashmodnffbanks_idr_tpu_torch.ops.linear import softplus
 from hashmodnffbanks_idr_tpu_torch.weights import from_jax_params
 
 NET_KW = dict(feature_vector_size=256, d_in=3, d_out=1, dims=[512] * 8,
@@ -71,6 +73,63 @@ def test_plain_matches_pallas_kernel(nets, precision, n):
         np.testing.assert_allclose(got, want, rtol=0, atol=3e-2)
         big = np.abs(want) > 5e-2
         assert (np.sign(got[big]) == np.sign(want[big])).all()
+
+
+def _tf32(t):
+    """float32 -> TF32 (10 mantissa bits), to nearest with ties away from
+    zero: the bits of ``cvt.rna.tf32.f32``, computed on the int32 view as
+    the kernel computes them."""
+    return ((t.contiguous().view(torch.int32) + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def _dot_split_tf32(h, w):
+    """The f32 kernel's product: each operand split as hi + lo, three TF32
+    products in float32, the two small ones first."""
+    h_hi, w_hi = _tf32(h), _tf32(w)
+    h_lo, w_lo = _tf32(h - h_hi), _tf32(w - w_hi)
+    return (h_lo @ w_hi + h_hi @ w_lo) + h_hi @ w_hi
+
+
+def _dot_one_tf32(h, w):
+    return _tf32(h) @ _tf32(w)
+
+
+def _emulated_sdf(x, packed, dot):
+    """fused_sdf_raw_plain with the eight matrix layers' products taken by
+    ``dot``; the last layer stays a float32 dot, as in the kernel."""
+    skip_cols = packed["w_in"].shape[1] - x.shape[1]
+    h = softplus(dot(x, packed["w_in"]) + packed["b_in"])
+    for l in range(packed["w_mid"].shape[0]):
+        h = softplus(dot(h, packed["w_mid"][l]) + packed["b_mid"][l])
+        if l == fm.SKIP_AFTER_MID:
+            h = torch.cat([h[:, :skip_cols], x], dim=1) * (1.0 / np.sqrt(2.0))
+    return h @ packed["w_out"] + packed["b_out"][0]
+
+
+def _pallas_f32(nets, n):
+    _, params, net = nets
+    jpacked = jfm.pack_params(params["lin"], 59, 512, dtype=jnp.float32)
+    x = _inputs(n, seed=n)
+    want = np.asarray(jfm.fused_sdf_raw(jnp.asarray(x), jpacked, 59, 512, interpret=True))
+    return torch.from_numpy(x), fm.pack_params(net.lin, 59, 512, dtype=torch.float32), want
+
+
+@pytest.mark.parametrize("n", [1, 96, 513])
+def test_split_tf32_scheme_matches_pallas_kernel(nets, n):
+    """The CUDA f32 kernel's arithmetic (three TF32 products per float32
+    product on the tensor cores), emulated in torch, holds the f32 Pallas
+    kernel's tolerance."""
+    x, packed, want = _pallas_f32(nets, n)
+    got = _emulated_sdf(x, packed, _dot_split_tf32).numpy()
+    np.testing.assert_allclose(got, want, rtol=0, atol=2e-6)
+
+
+def test_one_tf32_product_misses_the_card_tolerance(nets):
+    """A kernel that took only hi*hi (plain TF32) would fail the card's 1e-5
+    check (chip_smoke.py, tests/test_torch_cuda.py), so that check tells it
+    from the split-TF32 scheme."""
+    x, packed, want = _pallas_f32(nets, 513)
+    assert np.abs(_emulated_sdf(x, packed, _dot_one_tf32).numpy() - want).max() > 1e-5
 
 
 def test_fast_sdf_f32_matches_exact_sdf(nets):
