@@ -10,7 +10,8 @@ into ``build/``, holds each kernel variant against its plain PyTorch twin at
 the flagship widths, checks one small train step on the card against the
 same step on the CPU, then drives the flagship StyleModNFFB training step
 (2048 rays, 1200x1600 synthetic two-view scene, random weights from a seed)
-in three tracer configurations and times it.  Any failed check raises and
+in four tracer configurations and times it.  It fails if ``-Xptxas -v``
+reports a spill in either kernel.  Any failed check raises and
 the script exits non-zero.  The second-to-last line is the kernels' JSON
 record, the last line ``{"ok": true, "device": {...}}``.
 
@@ -43,14 +44,20 @@ VARIANTS = (("fused_sdf_raw_f32", torch.float32, TOL_F32, "tf32", 3),
 N_RAYS = 2048
 IMG_RES = (1200, 1600)
 ALPHA = 50.0
-# the kernel's batch sizes on the main path at 2048 rays: secant (2048),
-# march and line search (2 x 2048), exact sweep coarse/fine probes (12 and 24
-# per ray), mixed sweep coarse probes (34 per ray)
-CHECK_N = (1, 513, 2048, 4096, 24576, 49152, 69632)
+# the edges of both kernels' 64-point tile, and the kernel's batch sizes on
+# the main path at 2048 rays: secant (2048), march and line search
+# (2 x 2048), exact sweep coarse/fine probes (12 and 24 per ray), mixed sweep
+# coarse probes (34 per ray)
+TILE = 64
+CHECK_N = (1, TILE - 1, TILE, TILE + 1, 513, 2048, 4096, 24576, 49152, 69632)
 # each variant's largest call on the main path, where its time is reported;
 # it is also timed at the small calls (secant, march), which fill few SMs
 TIME_N = {"fused_sdf_raw_f32": 49152, "fused_sdf_raw_bf16": 69632}
 TIME_SMALL_N = (2048, 4096)
+# each variant's kernel in the ``-Xptxas -v`` report, by its namespace in the
+# mangled name (csrc/fused_mlp.cu: f32::, bf16k::)
+PTXAS_ENTRY = {"fused_sdf_raw_f32": "3f3216fused_sdf_kernel",
+               "fused_sdf_raw_bf16": "5bf16k16fused_sdf_kernel"}
 
 
 def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
@@ -261,19 +268,23 @@ def phase_step(dev, fm, scene, label, mode, fused, warmup, steps, expect=None):
     return counts
 
 
-def check_f32_spills(ptxas_log: str) -> None:
-    """The f32 kernel (``f32::fused_sdf_kernel``, mangled ``3f32``) must keep
-    its 128 accumulators and split fragments in registers: no spills in the
-    ``-Xptxas -v`` report."""
-    entries = [e for e in ptxas_log.split("Compiling entry function")[1:] if "3f32" in e]
-    if len(entries) != 1:
-        raise AssertionError(f"ptxas report: {len(entries)} entries of the f32 kernel")
-    spills = [int(b) for b in re.findall(r"(\d+) bytes spill (?:stores|loads)", entries[0])]
-    regs = re.search(r"Used (\d+) registers", entries[0])
-    print(f"[ptxas] f32 kernel: {regs.group(1) if regs else '?'} registers, "
-          f"spill stores/loads {spills} bytes")
-    if len(spills) != 2 or any(spills):
-        raise AssertionError(f"f32 kernel spills registers: {entries[0].strip()}")
+def check_spills(ptxas_log: str) -> dict:
+    """Each kernel must keep its 128 float accumulators and its fragments in
+    registers: no spills in the ``-Xptxas -v`` report.  Returns each
+    variant's registers a thread and spill bytes (stores + loads)."""
+    out = {}
+    for name, mangled in PTXAS_ENTRY.items():
+        entries = [e for e in ptxas_log.split("Compiling entry function")[1:] if mangled in e]
+        if len(entries) != 1:
+            raise AssertionError(f"ptxas report: {len(entries)} entries of {name}")
+        spills = [int(b) for b in re.findall(r"(\d+) bytes spill (?:stores|loads)", entries[0])]
+        regs = re.search(r"Used (\d+) registers", entries[0])
+        print(f"[ptxas] {name}: {regs.group(1) if regs else '?'} registers, "
+              f"spill stores/loads {spills} bytes")
+        if len(spills) != 2 or any(spills) or regs is None:
+            raise AssertionError(f"{name} spills registers: {entries[0].strip()}")
+        out[name] = {"registers": int(regs.group(1)), "spill_bytes": sum(spills)}
+    return out
 
 
 def main() -> int:
@@ -303,10 +314,9 @@ def main() -> int:
     t0 = time.perf_counter()
     fm.load_library()
     print(f"[build] fused_mlp.cu built and loaded in {time.perf_counter() - t0:.1f} s")
-    ptxas = fm._BUILD_DIR / "fused_mlp_ptxas.txt"
-    if ptxas.exists():
-        print(ptxas.read_text().strip())
-        check_f32_spills(ptxas.read_text())
+    report = fm.ptxas_report().read_text()
+    print(report.strip())
+    regs = check_spills(report)
 
     model = IDRNetwork(flagship_conf(num_pixels=N_RAYS).get_config("model"), device=dev, seed=0)
     kernels = phase_kernels(dev, fm, model)
@@ -314,22 +324,29 @@ def main() -> int:
     phase_reference(dev, fm)
 
     scene = scene_to_device(synthetic_scene(n_views=2, img_res=IMG_RES, seed=0), dev)
-    c_f32 = phase_step(dev, fm, scene, "exact+fused", "exact", True, 2, 10,
-                       expect="fused_sdf_raw_f32")
-    c_bf16 = phase_step(dev, fm, scene, "mixed", "mixed", False, 2, 10,
-                        expect="fused_sdf_raw_bf16")
-    phase_step(dev, fm, scene, "exact (unfused)", "exact", False, 1, 3)
+    phases = {
+        "exact+fused": phase_step(dev, fm, scene, "exact+fused", "exact", True, 2, 10,
+                                  expect="fused_sdf_raw_f32"),
+        "mixed": phase_step(dev, fm, scene, "mixed", "mixed", False, 2, 10,
+                            expect="fused_sdf_raw_bf16"),
+        "fast": phase_step(dev, fm, scene, "fast", "fast", False, 2, 10,
+                           expect="fused_sdf_raw_bf16"),
+        "exact (unfused)": phase_step(dev, fm, scene, "exact (unfused)", "exact", False, 1, 3),
+    }
 
     src = "hashmodnffbanks_idr_tpu_torch/ops/csrc/fused_mlp.cu"
     out = []
-    for name, counts in (("fused_sdf_raw_f32", c_f32), ("fused_sdf_raw_bf16", c_bf16)):
+    # launches and points: each kernel's run in its first main-path cell
+    for name, cell in (("fused_sdf_raw_f32", "exact+fused"), ("fused_sdf_raw_bf16", "mixed")):
         r = kernels[name]
         rec = {"name": name, "route": "cuda", "source": src,
                "replaces": "hashmodnffbanks_idr_tpu/ops/fused_mlp.py:104",
-               "launches": counts[name]["launches"], "points": counts[name]["points"]}
+               "launches": phases[cell][name]["launches"], "points": phases[cell][name]["points"],
+               "launches_by_phase": {p: c[name]["launches"] for p, c in phases.items()}}
         rec.update((k, r[k]) for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
                                         "bound_fp32_cores_ms", "bound_by", "library_ms",
                                         "n", "small_calls") if k in r)
+        rec.update(regs[name])
         out.append(rec)
     print(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": out}))

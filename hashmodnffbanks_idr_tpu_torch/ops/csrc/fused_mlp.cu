@@ -10,7 +10,7 @@
 //   sdf = h . w_out + b_out                 (only the SDF column)
 //
 // Two variants.  float weights (the 'exact' tracer) run on the tensor cores
-// in split-TF32; bf16 weights (guidance queries) on WMMA with float
+// in split-TF32; bf16 weights (guidance queries) on bf16 mma.sync with float
 // accumulation.  Each layer rounds its input to the weight type, as the
 // Pallas kernel does; biases, softplus and the skip scaling stay float.
 //
@@ -48,13 +48,48 @@
 // cores' full rate (only wgmma does), and the splits, partial-sum adds and
 // softplus compete with it for instruction slots.
 //
-// bf16 variant: bound 0.26 ms at N=69632 (989 TFLOP/s).  A block keeps 64
-// points on chip and streams 64-row weight chunks synchronously into WMMA;
-// no TMA, no wgmma, no double buffering.
+// bf16 variant: bound.  The same 3.67 MFLOP per point, one bf16 product per
+// product, at the H100's 989 TFLOP/s dense bf16: 0.258 ms at N=69632 and
+// 0.0152 ms at N=4096.
+//
+// bf16 variant: design.  The skeleton of the float variant: a tile of 64
+// points stays on chip across all nine layers, as a 64x520 bf16 activation
+// tile (66,560 B), and the weights stream through a cp.async ring of two
+// 64-row bf16 stages (133,120 B; 199,680 B in all, one block per SM): one
+// uniform chunk stream over l0 (K0 rows, rows >= d_in zero-filled) and
+// l1..l7, the next chunk in flight while the current one is multiplied,
+// across layer boundaries too.  Eight warps each own 64 output columns for
+// all 64 rows (128 float accumulators a thread under the 255 cap of 256
+// threads); of the two layouts that fit it reads the least from shared
+// memory (per 16-deep k-step 32 KB through ldmatrix, against 48 KB for
+// sixteen warps of 64x32, which also spill at their 128-register cap).  Per
+// k-step a warp loads 4 A fragments with ldmatrix.x4 and 8 B fragments with
+// ldmatrix.x4.trans straight from the input-major (k, n) weight stage, and
+// issues 32 mma.sync.m16n8k16.bf16 accumulating in float in the tensor
+// cores (their truncating adds stay far below bf16 rounding).  Row strides
+// of 520 elements make both ldmatrix reads free of bank conflicts.  Three
+// choices, each measured on the card by scripts/ablate_fused_mlp_bf16.py:
+// the fragments of k-step s+1 are loaded before k-step s's products; each
+// warp copies exactly the weights it reads, so that it waits for its own
+// copies (wait_group + __syncwarp) and the block meets only around the
+// epilogues, where the shared tile is rewritten (two barriers a layer
+// instead of one a chunk); and softplus is branch free.  The epilogue runs
+// on the accumulators in registers: bias, softplus on MUFU ex2/lg2, after l3
+// bf16(x)/sqrt(2) (x read at its real width from device memory) in the tail
+// columns, rounded to bf16 and stored as pairs into the tile.  The last
+// layer is a 512-long float dot per point with a warp reduction; only (N,)
+// is written.  What bounds it: mma.sync, which alone runs at about 37% of
+// the H100's dense bf16 peak (the ablation's mma_only at N=69632), then the
+// weight copies, softplus and the layer barriers, which no other work
+// overlaps while every warp runs its epilogue.
+//
+// Left for later: wgmma (the only path to the full tensor-core rate, with B
+// read from shared memory without per-warp ldmatrix traffic) and TMA; and
+// the L2 traffic of 64-point tiles: every block re-reads all 3.73 MB of bf16
+// weights, about 4.1 GB from L2 at N=69632 (1088 blocks).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <mma.h>
 
 #include <cstddef>
 #include <cstdint>
@@ -62,7 +97,6 @@
 namespace {
 
 using bf16 = __nv_bfloat16;
-using namespace nvcuda;
 
 constexpr int HIDDEN = 512;
 constexpr int N_MID = 7;           // l1..l7
@@ -71,10 +105,13 @@ constexpr int K0 = 64;             // first-layer depth: d_in <= 64, zero padded
 constexpr float INV_SQRT2 = 0.70710678118654752f;
 constexpr int MAX_SMEM = 232448;   // an sm_90 block's dynamic shared memory
 
-// torch Softplus(beta=100, threshold=20)
-__device__ __forceinline__ float softplus100(float x) {
-  const float bx = 100.f * x;
-  return bx > 20.f ? x : log1pf(expf(fminf(bx, 20.f))) / 100.f;
+// 16 bytes global -> shared without a register round trip; zero-filled when
+// !valid (src must still be a mapped address)
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
+  const uint32_t s = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;" ::"r"(s), "l"(src),
+               "r"(valid ? 16 : 0)
+               : "memory");
 }
 
 // ---------------------------------------------------------------------------
@@ -126,15 +163,6 @@ __device__ __forceinline__ void mma_add(float (&c)[4], const uint32_t (&a)[4],
       "{%8,%9}, {%0,%1,%2,%3};"
       : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-// 16 bytes global -> shared without a register round trip; zero-filled when
-// !valid (src must still be a mapped address)
-__device__ __forceinline__ void cp_async16(float* dst, const float* src, bool valid) {
-  const uint32_t s = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;" ::"r"(s), "l"(src),
-               "r"(valid ? 16 : 0)
-               : "memory");
 }
 
 // chunk c of the whole weight stream (l0's K0 rows, then l1..l7's 512 rows
@@ -343,149 +371,289 @@ int launch(const float* x, int n, int d_in, const float* w_in, const float* b_in
 }  // namespace f32
 
 // ---------------------------------------------------------------------------
-// bf16 weights: WMMA, synchronous weight chunks
+// bf16 weights: bf16 mma.sync fed by a cp.async weight ring
 // ---------------------------------------------------------------------------
 
-template <typename T>
-struct Cfg;
-// bf16: 64 points per block of 16 warps, each warp a 64x32 block of 16x16
-// WMMA tiles (64 accumulator registers a thread); rows padded by 8 elements
-// against shared-memory bank conflicts.
-template <>
-struct Cfg<bf16> {
-  static constexpr int NT = 512, TM = 64, KC = 64, LDA = HIDDEN + 8, LDW = HIDDEN + 8,
-                       WARP_COLS = HIDDEN / (NT / 32), SCRATCH = (NT / 32) * 256;
+namespace bf16k {
+
+constexpr int TM = 64;                  // points per block
+constexpr int NT = 256;                 // 8 warps
+constexpr int WARP_COLS = HIDDEN / (NT / 32);  // 64 output columns a warp
+constexpr int MI = TM / 16, NI = WARP_COLS / 8;  // m16n8 tiles a warp: 4 x 8
+constexpr int KC = 64;                  // weight rows per ring stage
+constexpr int STAGES = 2;
+// row strides of 1040 B (16 mod 128): the eight 16-byte rows an ldmatrix
+// phase reads fall in distinct banks, for A and for B
+constexpr int LDA = HIDDEN + 8;
+constexpr int LDW = HIDDEN + 8;
+constexpr int CHUNKS_IN = K0 / KC;          // l0's chunks
+constexpr int CHUNKS_MID = HIDDEN / KC;     // each of l1..l7's
+constexpr int CHUNKS = CHUNKS_IN + N_MID * CHUNKS_MID;
+constexpr size_t SMEM = sizeof(bf16) * (TM * LDA + STAGES * KC * LDW);
+static_assert(SMEM <= MAX_SMEM, "bf16 tile and weight ring exceed shared memory");
+// an even number of 16-deep k-steps a chunk: the main loop's two fragment
+// buffers then alternate from chunk to chunk
+static_assert(KC % 32 == 0 && K0 % KC == 0 && HIDDEN % KC == 0, "chunking");
+static_assert(NI % 2 == 0, "ldmatrix.x4.trans loads two n8 tiles");
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// four 8x8 b16 matrices; lanes 8i..8i+7 give the row addresses of matrix i
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr));
+}
+
+// the same, each matrix transposed
+__device__ __forceinline__ void ldsm_x4_trans(uint32_t& r0, uint32_t& r1, uint32_t& r2,
+                                              uint32_t& r3, uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];"
+               : "=r"(r0), "=r"(r1), "=r"(r2), "=r"(r3)
+               : "r"(addr));
+}
+
+// c += a b (16x8x16, bf16 operands, float accumulator)
+__device__ __forceinline__ void mma(float (&c)[4], const uint32_t (&a)[4],
+                                    const uint32_t (&b)[2]) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, "
+      "{%8,%9}, {%0,%1,%2,%3};"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// the warp's columns [col0, col0 + WARP_COLS) of chunk c of the whole weight
+// stream (l0's K0 rows, then l1..l7's 512 rows each, KC rows a chunk) into
+// its ring stage, as one commit group; rows at or past d_in in l0 are zero.
+// A warp copies exactly the part of each stage that it reads, so it waits
+// for its own copies only.  Past the end it commits an empty group, so that
+// the group count stays uniform for wait_group.
+__device__ __forceinline__ void prefetch_chunk(bf16* ring, int c, int d_in, int col0, int lane,
+                                               const bf16* __restrict__ w_in,
+                                               const bf16* __restrict__ w_mid) {
+  // lane -> 16-byte piece col of rows r0, r0 + ROW_STEP, ...
+  constexpr int PER_ROW = WARP_COLS / 8;  // 16-byte copies a row
+  constexpr int ROW_STEP = 32 / PER_ROW;
+  static_assert(32 % PER_ROW == 0 && KC % ROW_STEP == 0, "copies per lane");
+  const int r0 = lane / PER_ROW, col = col0 + (lane % PER_ROW) * 8;
+  bf16* dst = ring + (c % STAGES) * KC * LDW + r0 * LDW + col;
+  if (c < CHUNKS_IN) {
+    const int k0 = c * KC;
+#pragma unroll
+    for (int r = 0; r < KC; r += ROW_STEP) {
+      const bool valid = k0 + r0 + r < d_in;
+      cp_async16(dst + r * LDW, valid ? w_in + (size_t)(k0 + r0 + r) * HIDDEN + col : w_in,
+                 valid);
+    }
+  } else if (c < CHUNKS) {
+    // l1..l7 are one contiguous stream of full rows
+    const bf16* src = w_mid + ((size_t)(c - CHUNKS_IN) * KC + r0) * HIDDEN + col;
+#pragma unroll
+    for (int r = 0; r < KC; r += ROW_STEP) cp_async16(dst + r * LDW, src + r * HIDDEN, true);
+  }
+  asm volatile("cp.async.commit_group;" ::: "memory");
+}
+
+// one 16-deep k-step's fragments of the warp's 64 x 64 block
+struct Frags {
+  uint32_t a[MI][4];
+  uint32_t b[NI][2];
 };
 
-template <typename T>
-constexpr size_t smem_bytes() {
-  using C = Cfg<T>;
-  return sizeof(T) * (C::TM * C::LDA + C::KC * C::LDW) +
-         sizeof(float) * (C::TM * K0 + C::SCRATCH);
+// a_addr: the thread's ldmatrix address in the tile at the k-step's first
+// column; w_addr: its address in the stage at the k-step's first row and the
+// warp's first column
+__device__ __forceinline__ void load_frags(Frags& f, uint32_t a_addr, uint32_t w_addr) {
+  // A: matrices (rows 0-7, k 0-7), (8-15, 0-7), (0-7, 8-15), (8-15, 8-15)
+  // give a0..a3 of m16n8k16
+#pragma unroll
+  for (int mi = 0; mi < MI; ++mi) ldsm_x4(f.a[mi], a_addr + sizeof(bf16) * mi * 16 * LDA);
+  // B from (k, n) rows, transposed: (k 0-7, n 0-7), (8-15, 0-7),
+  // (0-7, 8-15), (8-15, 8-15) give b0, b1 of two n8 tiles
+#pragma unroll
+  for (int nj = 0; nj < NI / 2; ++nj)
+    ldsm_x4_trans(f.b[2 * nj][0], f.b[2 * nj][1], f.b[2 * nj + 1][0], f.b[2 * nj + 1][1],
+                  w_addr + sizeof(bf16) * nj * 16);
 }
 
-__device__ __forceinline__ float to_f(bf16 v) { return __bfloat162float(v); }
-
-template <typename T>
-__device__ __forceinline__ T from_f(float v);
-template <>
-__device__ __forceinline__ bf16 from_f<bf16>(float v) { return __float2bfloat16_rn(v); }
-
-// bias + softplus, and after l3 the scaled skip input in the tail columns
-template <typename T>
-__device__ __forceinline__ T epilogue(float acc, float bias, bool skip, int col,
-                                      int skip_cols, const float* xrow) {
-  float v = softplus100(acc + bias);
-  if (skip) v = (col < skip_cols ? v : to_f(from_f<T>(xrow[col - skip_cols]))) * INV_SQRT2;
-  return from_f<T>(v);
+// acc += the k-step's 64 x 16 by 16 x 64 product
+__device__ __forceinline__ void mma_step(float (&acc)[MI][NI][4], const Frags& f) {
+#pragma unroll
+  for (int mi = 0; mi < MI; ++mi)
+#pragma unroll
+    for (int ni = 0; ni < NI; ++ni) mma(acc[mi][ni], f.a[mi], f.b[ni]);
 }
 
-// rows [k0, k0+KC) of a (k_real, HIDDEN) weight into shared memory; rows at or
-// past k_real are zero
-template <typename T>
-__device__ __forceinline__ void load_chunk(T* wbuf, const T* __restrict__ W, int k0,
-                                           int k_real) {
-  using C = Cfg<T>;
-  constexpr int VEC = 16 / sizeof(T);
-  constexpr int PER_ROW = HIDDEN / VEC;
-  for (int i = threadIdx.x; i < C::KC * PER_ROW; i += C::NT) {
-    const int r = i / PER_ROW, c = (i % PER_ROW) * VEC;
-    uint4 v = make_uint4(0u, 0u, 0u, 0u);
-    if (k0 + r < k_real) v = *reinterpret_cast<const uint4*>(W + (size_t)(k0 + r) * HIDDEN + c);
-    *reinterpret_cast<uint4*>(wbuf + r * C::LDW + c) = v;
-  }
+// chunk c's first column in its layer's input
+__device__ __forceinline__ int chunk_col(int c) {
+  return c < CHUNKS_IN ? c * KC : (c - CHUNKS_IN) % CHUNKS_MID * KC;
 }
 
-// one layer, bf16: warp w owns output columns [32w, 32w+32) for all 64 rows
-__device__ void layer_bf16(bf16* act, bf16* wbuf, float* scratch, const bf16* __restrict__ W,
-                           int k_real, int k_loop, const float* __restrict__ bias, bool skip,
-                           int skip_cols, const float* xs) {
-  using C = Cfg<bf16>;
-  constexpr int NI = C::WARP_COLS / 16;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> c[4][NI];
-#pragma unroll
-  for (int mi = 0; mi < 4; ++mi)
-#pragma unroll
-    for (int ni = 0; ni < NI; ++ni) wmma::fill_fragment(c[mi][ni], 0.f);
-
-  for (int k0 = 0; k0 < k_loop; k0 += C::KC) {
-    load_chunk<bf16>(wbuf, W, k0, k_real);
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < C::KC; kk += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a[4];
-#pragma unroll
-      for (int mi = 0; mi < 4; ++mi)
-        wmma::load_matrix_sync(a[mi], act + mi * 16 * C::LDA + k0 + kk, C::LDA);
-#pragma unroll
-      for (int ni = 0; ni < NI; ++ni) {
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> b;
-        wmma::load_matrix_sync(b, wbuf + kk * C::LDW + warp * C::WARP_COLS + ni * 16, C::LDW);
-#pragma unroll
-        for (int mi = 0; mi < 4; ++mi) wmma::mma_sync(c[mi][ni], a[mi], b, c[mi][ni]);
-      }
-    }
-    __syncthreads();
-  }
-  // every warp has finished reading act: write this layer's output over it
-  float* sc = scratch + warp * 256;
-#pragma unroll
-  for (int mi = 0; mi < 4; ++mi)
-#pragma unroll
-    for (int ni = 0; ni < NI; ++ni) {
-      wmma::store_matrix_sync(sc, c[mi][ni], 16, wmma::mem_row_major);
-      __syncwarp();
-      for (int e = lane; e < 256; e += 32) {
-        const int r = mi * 16 + e / 16, col = warp * C::WARP_COLS + ni * 16 + e % 16;
-        act[r * C::LDA + col] =
-            epilogue<bf16>(sc[e], bias[col], skip, col, skip_cols, xs + r * K0);
-      }
-      __syncwarp();
-    }
-  __syncthreads();
+// torch Softplus(beta=100, threshold=20) on MUFU ex2 and lg2: within ~5e-8
+// of log1pf(expf()) (their errors, scaled down by beta), far below bf16
+// rounding.  Branch free: both sides are computed and one is selected.  A
+// C++ ternary evaluates only its taken side and compiles to a branch per
+// element, which keeps ptxas from interleaving a thread's 128 exp-log chains
+// (the epilogue is then latency bound).
+__device__ __forceinline__ float softplus100(float x) {
+  constexpr float LOG2E_100 = 144.269504088896341f;  // 100 log2(e)
+  constexpr float LN2_100 = 0.00693147180559945309f;  // ln(2) / 100
+  float e, l;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(e) : "f"(fminf(x * LOG2E_100, 20.f * 1.44269504f)));
+  asm("lg2.approx.ftz.f32 %0, %1;" : "=f"(l) : "f"(1.f + e));
+  return 100.f * x > 20.f ? x : l * LN2_100;
 }
 
-template <typename T>
-__global__ void __launch_bounds__(Cfg<T>::NT)
-    fused_sdf_kernel(const float* __restrict__ x, int n, int d_in, const T* __restrict__ w_in,
-                     const float* __restrict__ b_in, const T* __restrict__ w_mid,
-                     const float* __restrict__ b_mid, const T* __restrict__ w_out,
-                     const float* __restrict__ b_out, float* __restrict__ out) {
-  using C = Cfg<T>;
-  extern __shared__ __align__(128) unsigned char smem[];
-  T* act = reinterpret_cast<T*>(smem);                           // (TM, LDA)
-  T* wbuf = act + C::TM * C::LDA;                                // (KC, LDW)
-  float* xs = reinterpret_cast<float*>(wbuf + C::KC * C::LDW);   // (TM, K0)
-  float* scratch = xs + C::TM * K0;
-  const int row0 = blockIdx.x * C::TM;
+// the skip input of row `row`, column j, as the tile holds it: bf16(x)
+__device__ __forceinline__ float skip_input(const float* __restrict__ x, int row, int n,
+                                            int d_in, int j) {
+  return row < n ? __bfloat162float(__float2bfloat16_rn(x[(size_t)row * d_in + j])) : 0.f;
+}
+
+// tile <- bf16(softplus(acc + bias)) for the warp's 64 x 64 block, from the
+// accumulators in registers; after l3 (SKIP) the tail columns take
+// bf16(bf16(x)/sqrt(2)) and the rest bf16(softplus/sqrt(2)).  Zeroes acc
+// for the next layer.  SKIP is a template parameter, so that the common
+// epilogue is one basic block.
+template <bool SKIP>
+__device__ __forceinline__ void epilogue(float (&acc)[MI][NI][4], bf16* act,
+                                         const float* __restrict__ bias,
+                                         const float* __restrict__ x, int row0, int n,
+                                         int d_in, int col0, int g, int t) {
   const int skip_cols = HIDDEN - d_in;
-
-  // the point tile at its real width, zero padded to K0 columns and TM rows
-  for (int i = threadIdx.x; i < C::TM * K0; i += C::NT) {
-    const int r = i / K0, col = i % K0, row = row0 + r;
-    const float v = (row < n && col < d_in) ? x[(size_t)row * d_in + col] : 0.f;
-    xs[i] = v;
-    act[r * C::LDA + col] = from_f<T>(v);
+#pragma unroll
+  for (int ni = 0; ni < NI; ++ni) {
+    const int col = col0 + ni * 8 + 2 * t;  // accumulator columns col, col+1
+    const float2 b = *reinterpret_cast<const float2*>(bias + col);
+#pragma unroll
+    for (int mi = 0; mi < MI; ++mi)
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {  // rows g and g+8
+        const int r = mi * 16 + g + 8 * half;
+        float v0 = softplus100(acc[mi][ni][2 * half] + b.x);
+        float v1 = softplus100(acc[mi][ni][2 * half + 1] + b.y);
+        if (SKIP) {
+          if (col >= skip_cols) v0 = skip_input(x, row0 + r, n, d_in, col - skip_cols);
+          if (col + 1 >= skip_cols) v1 = skip_input(x, row0 + r, n, d_in, col + 1 - skip_cols);
+          v0 *= INV_SQRT2;
+          v1 *= INV_SQRT2;
+        }
+        *reinterpret_cast<__nv_bfloat162*>(act + r * LDA + col) = __floats2bfloat162_rn(v0, v1);
+        acc[mi][ni][2 * half] = acc[mi][ni][2 * half + 1] = 0.f;
+      }
   }
+}
+
+__global__ void __launch_bounds__(NT, 1)
+    fused_sdf_kernel(const float* __restrict__ x, int n, int d_in,
+                     const bf16* __restrict__ w_in, const float* __restrict__ b_in,
+                     const bf16* __restrict__ w_mid, const float* __restrict__ b_mid,
+                     const bf16* __restrict__ w_out, const float* __restrict__ b_out,
+                     float* __restrict__ out) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  bf16* act = reinterpret_cast<bf16*>(smem);  // (TM, LDA)
+  bf16* ring = act + TM * LDA;                // STAGES x (KC, LDW)
+  const int row0 = blockIdx.x * TM;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane / 4, t = lane % 4;  // mma fragment coordinates
+  const int col0 = warp * WARP_COLS;
+  // ldmatrix row addresses: lanes 0-15 rows 0-15 at column 0, lanes 16-31
+  // the same rows at column 8
+  const int lrow = lane % 16, lcol = lane / 16 * 8;
+  const uint32_t a_base = smem_addr(act + lrow * LDA + lcol);
+  const uint32_t w_base = smem_addr(ring + lrow * LDW + col0 + lcol);
+
+#pragma unroll
+  for (int c = 0; c < STAGES - 1; ++c) prefetch_chunk(ring, c, d_in, col0, lane, w_in, w_mid);
+
+  // the point tile at its real width in bf16, zero padded to K0 columns and
+  // TM rows
+  for (int i = threadIdx.x; i < TM * K0; i += NT) {
+    const int r = i / K0, col = i % K0, row = row0 + r;
+    act[r * LDA + col] =
+        __float2bfloat16_rn((row < n && col < d_in) ? x[(size_t)row * d_in + col] : 0.f);
+  }
+
+  float acc[MI][NI][4];
+#pragma unroll
+  for (int mi = 0; mi < MI; ++mi)
+#pragma unroll
+    for (int ni = 0; ni < NI; ++ni)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[mi][ni][e] = 0.f;
+
+  // The main loop is software pipelined: a warp loads k-step s+1's fragments
+  // before it issues k-step s's products, and the wait for the next chunk
+  // sits between the loads of a chunk's last k-step and its products.  A
+  // warp reads only the weights it copied, so the wait is its own: its
+  // copies of chunk j have landed, and __syncwarp makes them visible to all
+  // its lanes.  The copy of chunk j+STAGES-1 goes into chunk j-1's stage,
+  // which the warp finished reading before, after k-step 0's products of
+  // chunk j.  Only the tile, which every warp reads and each warp writes in
+  // part, needs the block: one barrier before an epilogue overwrites it and
+  // one after.
+  constexpr int KSTEPS = KC / 16, LAST = (KSTEPS - 1) % 2;
+  const auto wait_chunk = [&]() {
+    asm volatile("cp.async.wait_group %0;" ::"n"(STAGES - 2) : "memory");
+    __syncwarp();
+  };
+  const auto frag_addr = [&](int j, int s, uint32_t& a, uint32_t& w) {
+    a = a_base + sizeof(bf16) * (chunk_col(j) + s * 16);
+    w = w_base + sizeof(bf16) * ((j % STAGES) * KC + s * 16) * LDW;
+  };
+  Frags f[2];
+  uint32_t a_addr, w_addr;
+  __syncthreads();  // the point tile
+  wait_chunk();
+  frag_addr(0, 0, a_addr, w_addr);
+  load_frags(f[0], a_addr, w_addr);
+
+  for (int c = 0; c < CHUNKS; ++c) {
+#pragma unroll
+    for (int s = 0; s + 1 < KSTEPS; ++s) {
+      frag_addr(c, s + 1, a_addr, w_addr);
+      load_frags(f[(s + 1) % 2], a_addr, w_addr);
+      mma_step(acc, f[s % 2]);
+      if (s == 0) prefetch_chunk(ring, c + STAGES - 1, d_in, col0, lane, w_in, w_mid);
+    }
+    const bool first = c < CHUNKS_IN;
+    const bool layer_end = chunk_col(c) == (first ? K0 : HIDDEN) - KC;
+    if (layer_end) {
+      __syncthreads();  // every warp has loaded its last fragments of the tile
+      mma_step(acc, f[LAST]);
+      const int layer = first ? 0 : 1 + (c - CHUNKS_IN) / CHUNKS_MID;
+      const float* bias = layer == 0 ? b_in : b_mid + (layer - 1) * HIDDEN;
+      if (layer == 1 + SKIP_AFTER_MID)
+        epilogue<true>(acc, act, bias, x, row0, n, d_in, col0, g, t);
+      else
+        epilogue<false>(acc, act, bias, x, row0, n, d_in, col0, g, t);
+      __syncthreads();  // the new tile
+    }
+    if (c + 1 < CHUNKS) {
+      wait_chunk();
+      frag_addr(c + 1, 0, a_addr, w_addr);
+      load_frags(f[(LAST + 1) % 2], a_addr, w_addr);
+    }
+    if (!layer_end) mma_step(acc, f[LAST]);
+  }
+  asm volatile("cp.async.wait_group 0;" ::: "memory");
   __syncthreads();
 
-  for (int layer = 0; layer <= N_MID; ++layer) {
-    const T* W = layer == 0 ? w_in : w_mid + (size_t)(layer - 1) * HIDDEN * HIDDEN;
-    const float* bias = layer == 0 ? b_in : b_mid + (layer - 1) * HIDDEN;
-    const int k_real = layer == 0 ? d_in : HIDDEN;
-    const int k_loop = layer == 0 ? K0 : HIDDEN;
-    const bool skip = layer == 1 + SKIP_AFTER_MID;
-    layer_bf16(act, wbuf, scratch, W, k_real, k_loop, bias, skip, skip_cols, xs);
-  }
-
-  // last layer: the SDF column only, one 512-long dot per point
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  constexpr int ROWS_PER_WARP = C::TM / (C::NT / 32);
+  // last layer: the SDF column only, one 512-long float dot per point
+  constexpr int ROWS_PER_WARP = TM / (NT / 32);
   for (int rr = 0; rr < ROWS_PER_WARP; ++rr) {
     const int r = warp * ROWS_PER_WARP + rr;
     float s = 0.f;
-    for (int k = lane; k < HIDDEN; k += 32) s = fmaf(to_f(act[r * C::LDA + k]), to_f(w_out[k]), s);
+#pragma unroll
+    for (int k = 2 * lane; k < HIDDEN; k += 64) {
+      const float2 a =
+          __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(act + r * LDA + k));
+      const float2 w = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(w_out + k));
+      s = fmaf(a.x, w.x, s);
+      s = fmaf(a.y, w.y, s);
+    }
 #pragma unroll
     for (int off = 16; off > 0; off >>= 1) s += __shfl_xor_sync(0xffffffffu, s, off);
     const int row = row0 + r;
@@ -493,27 +661,23 @@ __global__ void __launch_bounds__(Cfg<T>::NT)
   }
 }
 
-template <typename T>
-int launch(const void* x, int n, int d_in, const void* w_in, const void* b_in,
-           const void* w_mid, const void* b_mid, const void* w_out, const void* b_out,
-           void* out, void* stream) {
+int launch(const float* x, int n, int d_in, const bf16* w_in, const float* b_in,
+           const bf16* w_mid, const float* b_mid, const bf16* w_out, const float* b_out,
+           float* out, cudaStream_t stream) {
   if (n <= 0 || d_in <= 0 || d_in > K0) return (int)cudaErrorInvalidValue;
-  constexpr size_t smem = smem_bytes<T>();
   static bool attr_set = false;
   if (!attr_set) {
     const cudaError_t err = cudaFuncSetAttribute(
-        fused_sdf_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+        fused_sdf_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)SMEM);
     if (err != cudaSuccess) return (int)err;
     attr_set = true;
   }
-  const int blocks = (n + Cfg<T>::TM - 1) / Cfg<T>::TM;
-  fused_sdf_kernel<T><<<blocks, Cfg<T>::NT, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(x), n, d_in, static_cast<const T*>(w_in),
-      static_cast<const float*>(b_in), static_cast<const T*>(w_mid),
-      static_cast<const float*>(b_mid), static_cast<const T*>(w_out),
-      static_cast<const float*>(b_out), static_cast<float*>(out));
+  fused_sdf_kernel<<<(n + TM - 1) / TM, NT, SMEM, stream>>>(x, n, d_in, w_in, b_in, w_mid,
+                                                           b_mid, w_out, b_out, out);
   return (int)cudaGetLastError();
 }
+
+}  // namespace bf16k
 
 }  // namespace
 
@@ -534,5 +698,9 @@ extern "C" int fused_sdf_raw_bf16(const void* x, int n, int d_in, const void* w_
                                   const void* b_in, const void* w_mid, const void* b_mid,
                                   const void* w_out, const void* b_out, void* out,
                                   void* stream) {
-  return launch<bf16>(x, n, d_in, w_in, b_in, w_mid, b_mid, w_out, b_out, out, stream);
+  return bf16k::launch(static_cast<const float*>(x), n, d_in, static_cast<const bf16*>(w_in),
+                       static_cast<const float*>(b_in), static_cast<const bf16*>(w_mid),
+                       static_cast<const float*>(b_mid), static_cast<const bf16*>(w_out),
+                       static_cast<const float*>(b_out), static_cast<float*>(out),
+                       static_cast<cudaStream_t>(stream));
 }

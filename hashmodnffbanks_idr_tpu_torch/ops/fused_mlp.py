@@ -13,8 +13,9 @@ forward only, for N embedded points:
 Two precisions, one kernel each: float32 weights (the 'exact' tracer; tensor
 cores in split-TF32, three TF32 products per float32 product, which keeps
 float32 accuracy) and bfloat16 weights with float32 accumulation (the
-'mixed'/'fast' tracer's guidance queries; WMMA).  Biases, softplus and the
-skip scaling stay float32.
+'mixed'/'fast' tracer's guidance queries; bf16 ``mma.sync``).  Both stream
+the weights through a ``cp.async`` ring.  Biases, softplus and the skip
+scaling stay float32.
 
 ``fused_sdf_raw`` launches the kernel for a CUDA tensor and raises if it
 cannot; for a CPU tensor it runs ``fused_sdf_raw_plain``, the same math in
@@ -152,13 +153,23 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH")
 
 
+def _lib_path() -> Path:
+    """The built library of the current source (one per source content)."""
+    return _BUILD_DIR / f"libfused_mlp_{hashlib.sha256(_CSRC.read_bytes()).hexdigest()[:12]}.so"
+
+
+def ptxas_report() -> Path:
+    """Where the build of the current source left ``-Xptxas -v``'s report
+    (registers, spills and shared memory of each kernel)."""
+    return _lib_path().with_suffix(".ptxas.txt")
+
+
 def load_library() -> ctypes.CDLL:
     """Build ``csrc/fused_mlp.cu`` (once per source content) and load it."""
     global _lib
     if _lib is not None:
         return _lib
-    src = _CSRC.read_bytes()
-    out = _BUILD_DIR / f"libfused_mlp_{hashlib.sha256(src).hexdigest()[:12]}.so"
+    out = _lib_path()
     if not out.exists():
         _BUILD_DIR.mkdir(parents=True, exist_ok=True)
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
@@ -168,7 +179,7 @@ def load_library() -> ctypes.CDLL:
         res = subprocess.run(cmd, capture_output=True, text=True)
         if res.returncode != 0:
             raise RuntimeError(f"nvcc failed ({res.returncode}):\n{res.stderr}")
-        (_BUILD_DIR / "fused_mlp_ptxas.txt").write_text(res.stderr)
+        ptxas_report().write_text(res.stderr)
         os.replace(tmp, out)
     lib = ctypes.CDLL(str(out))
     ptr = ctypes.c_void_p

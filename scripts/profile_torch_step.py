@@ -3,10 +3,10 @@
 
     python3 scripts/profile_torch_step.py [--steps 2]
 
-For each tracer configuration of chip_smoke.py (exact+fused, mixed, exact
-unfused) it runs two warm-up steps, then measures ``--steps`` training steps
-and as many runs of the tracer alone (see ``measure``), and prints one JSON
-line per configuration.  Needs one CUDA card; imports nothing of JAX.
+For each tracer configuration of chip_smoke.py (exact+fused, mixed, fast,
+exact unfused) it runs two warm-up steps, then measures ``--steps``
+training steps and as many runs of the tracer alone (see ``measure``), and
+prints one JSON line per configuration.  Needs one CUDA card; imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -80,7 +80,7 @@ def main() -> int:
     scene = scene_to_device(synthetic_scene(n_views=2, img_res=IMG_RES, seed=0), dev)
     total = IMG_RES[0] * IMG_RES[1]
     for label, mode, fused in (("exact+fused", "exact", True), ("mixed", "mixed", False),
-                               ("exact (unfused)", "exact", False)):
+                               ("fast", "fast", False), ("exact (unfused)", "exact", False)):
         conf = flagship_conf(num_pixels=N_RAYS)
         conf.put("model.tracer_fast", mode)
         conf.put("model.tracer_exact_fused", fused)

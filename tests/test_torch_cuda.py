@@ -26,11 +26,12 @@ NET_KW = dict(feature_vector_size=256, d_in=3, d_out=1, dims=[512] * 8,
 # GPU expf/log1pf and the summation order differ from the CPU's; bf16 operands
 TOL = {"f32": 1e-5, "bf16": 3e-2}
 DTYPE = {"f32": torch.float32, "bf16": torch.bfloat16}
-# f32: the edges of its 64-point tile (csrc/fused_mlp.cu, f32::TM) and the
-# tracer's batch sizes up to its largest call
+# each variant: the edges of its 64-point tile (csrc/fused_mlp.cu, f32::TM
+# and bf16k::TM) and the tracer's batch sizes up to its largest call
 F32_TILE = 64
+BF16_TILE = 64
 CHECK_N = {"f32": (1, F32_TILE - 1, F32_TILE, F32_TILE + 1, 513, 4096, 49152),
-           "bf16": (1, 513, 4096)}
+           "bf16": (1, BF16_TILE - 1, BF16_TILE, BF16_TILE + 1, 513, 4096, 69632)}
 
 
 @pytest.fixture

@@ -47,7 +47,8 @@ def _inputs(n, seed):
 
 
 @pytest.mark.parametrize("precision", ["f32", "bf16"])
-@pytest.mark.parametrize("n", [1, 96, 513])
+# 63-65: the edges of the CUDA kernels' 64-point tile
+@pytest.mark.parametrize("n", [1, 63, 64, 65, 96, 513])
 def test_plain_matches_pallas_kernel(nets, precision, n):
     jnet, params, net = nets
     jdt, dt = ((jnp.float32, torch.float32) if precision == "f32"
