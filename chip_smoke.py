@@ -10,7 +10,11 @@ into ``build/``, holds each kernel variant against its plain PyTorch twin at
 the flagship widths, checks one small train step on the card against the
 same step on the CPU, then drives the flagship StyleModNFFB training step
 (2048 rays, 1200x1600 synthetic two-view scene, random weights from a seed)
-in four tracer configurations and times it.  It fails if ``-Xptxas -v``
+in four tracer configurations and times it.  Then it runs the user's path:
+the port's ``dummy_cli`` writes the dummy scene, ``exp_runner`` trains the
+repo's ``dummy_stylemodnffb.conf`` (with the ``mixed`` tracer) for 30 epochs
+and resumes it to epoch 32, and a DTU-size scan is decoded through
+``SceneDataset``.  It fails if ``-Xptxas -v``
 reports a spill in either kernel.  Any failed check raises and
 the script exits non-zero.  The second-to-last line is the kernels' JSON
 record, the last line ``{"ok": true, "device": {...}}``.
@@ -23,12 +27,17 @@ from __future__ import annotations
 
 import json
 import math
+import os
 import re
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
+from pathlib import Path
 
+import numpy as np
 import torch
 
 # H100 SXM peaks (NVIDIA data sheet; dense, at the 700 W limit): f32 on the
@@ -58,6 +67,10 @@ TIME_SMALL_N = (2048, 4096)
 # mangled name (csrc/fused_mlp.cu: f32::, bf16k::)
 PTXAS_ENTRY = {"fused_sdf_raw_f32": "3f3216fused_sdf_kernel",
                "fused_sdf_raw_bf16": "5bf16k16fused_sdf_kernel"}
+# the runner phase: the repo's dummy check (read in place, not imported)
+DUMMY_CONF = Path(__file__).resolve().parent / "hashmodnffbanks_idr_tpu/config/confs/dummy_stylemodnffb.conf"
+RUNNER_EPOCHS = 30
+DTU_RES = (1200, 1600)
 
 
 def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
@@ -268,6 +281,114 @@ def phase_step(dev, fm, scene, label, mode, fused, warmup, steps, expect=None):
     return counts
 
 
+def read_scalars(rundir: str) -> list:
+    with open(os.path.join(rundir, "logs", "scalars.jsonl")) as f:
+        return [json.loads(line) for line in f]
+
+
+def phase_runner(fm, smi: str, workdir: str) -> dict:
+    """The user's path: the dummy scene written by the port's ``dummy_cli``,
+    then ``exp_runner`` on the dummy StyleModNFFB conf (8x512 SDF MLP, 4x512
+    rendering MLP, SH view encoder, 2048 rays, 10 steps an epoch) with the
+    ``mixed`` tracer for 30 epochs, then ``--is_continue`` to epoch 32.
+    Counts reset just before the first run and read just after the second."""
+    from hashmodnffbanks_idr_tpu_torch.config.hocon import parse_file
+    from hashmodnffbanks_idr_tpu_torch.data import dummy_cli
+    from hashmodnffbanks_idr_tpu_torch.data.scene_dataset import SceneDataset
+    from hashmodnffbanks_idr_tpu_torch.train import exp_runner
+
+    data_root = os.path.join(workdir, "data")
+    dummy_cli.main(["--out", os.path.join(data_root, "dummy", "scan0")])
+    conf = parse_file(str(DUMMY_CONF))
+    conf.put("model.tracer_fast", "mixed")
+    conf_path = os.path.join(workdir, "dummy_stylemodnffb_mixed.conf")
+    with open(conf_path, "w") as f:
+        f.write(conf.dump())
+    t0 = time.perf_counter()
+    SceneDataset(False, "dummy", conf.get_list("dataset.img_res"), 0, data_root=data_root)
+    decode_ms = (time.perf_counter() - t0) * 1e3
+
+    common = ["--conf", conf_path, "--exps_folder_name", os.path.join(workdir, "exps"),
+              "--data_root", data_root, "--no_tensorboard"]
+    fm.reset_launch_counts()
+    t0 = time.perf_counter()
+    first = exp_runner.main(common + ["--nepoch", str(RUNNER_EPOCHS)])
+    t_first = time.perf_counter() - t0
+    second = exp_runner.main(common + ["--nepoch", str(RUNNER_EPOCHS + 2), "--is_continue"])
+    counts = {k: dict(v) for k, v in fm.launch_counts.items()}
+
+    missing = [f"{n}.pt" for n in (0, 25, RUNNER_EPOCHS, "latest")
+               if not os.path.exists(os.path.join(first.checkpoints_path, f"{n}.pt"))]
+    if missing:
+        raise AssertionError(f"runner: checkpoints {missing} missing")
+    if second.start_epoch != RUNNER_EPOCHS:
+        raise AssertionError(f"runner: resumed at epoch {second.start_epoch}, "
+                             f"not {RUNNER_EPOCHS}")
+    rows = read_scalars(first.rundir) + read_scalars(second.rundir)
+    epochs = [r["step"] for r in rows]
+    if epochs != list(range(RUNNER_EPOCHS + 1)) + [RUNNER_EPOCHS, RUNNER_EPOCHS + 1,
+                                                     RUNNER_EPOCHS + 2]:
+        raise AssertionError(f"runner: logged epochs {epochs}")
+    keys = ("loss", "rgb_loss", "eikonal_loss", "mask_loss")
+    if not all(math.isfinite(r[k]) for r in rows for k in keys):
+        raise AssertionError("runner: a logged loss is not finite")
+    bf16 = [r["fused_sdf_raw_bf16_launches"] for r in rows]
+    if min(bf16) <= 0 or sum(bf16) != counts["fused_sdf_raw_bf16"]["launches"]:
+        raise AssertionError(f"runner: bf16 kernel launches per epoch {bf16}, "
+                             f"counted {counts['fused_sdf_raw_bf16']['launches']}")
+    loss0, loss30, loss_end = rows[0]["loss"], rows[RUNNER_EPOCHS]["loss"], rows[-1]["loss"]
+    if not loss_end <= 0.5 * loss0:
+        raise AssertionError(f"runner: loss {loss0} at epoch 0, {loss_end} at the end")
+    rays = statistics.median(r["rays_per_s"] for r in rows[2:RUNNER_EPOCHS + 1])
+    rec = {"card": smi, "epochs": RUNNER_EPOCHS, "steps_per_epoch": first.steps_per_epoch,
+           "loss_epoch0": loss0, f"loss_epoch{RUNNER_EPOCHS}": loss30,
+           f"loss_epoch{RUNNER_EPOCHS + 2}": loss_end,
+           "skill_target_loss_below_0.1_by_epoch_30": loss30 < 0.1,
+           "rays_per_s_median_epochs_2_on": rays, "first_run_s": t_first,
+           "dummy_scene_decode_ms": decode_ms,
+           "bf16_launches_per_epoch": bf16, "bf16_launches": sum(bf16),
+           "bf16_points": counts["fused_sdf_raw_bf16"]["points"]}
+    print(f"[runner] {json.dumps(rec)}")
+    return counts
+
+
+def phase_decode(smi: str, workdir: str, views: int = 49) -> None:
+    """A DTU-size scan (49 views at 1200x1600, image and mask) through
+    ``SceneDataset``.  Every row is Paeth-filtered, the slow case of the
+    reader: one file of each is written and copied to every view."""
+    from hashmodnffbanks_idr_tpu_torch.data.image_io import write_png
+    from hashmodnffbanks_idr_tpu_torch.data.scene_dataset import SceneDataset
+
+    H, W = DTU_RES
+    scan = os.path.join(workdir, "dtu", "scan0")
+    for sub in ("image", "mask"):
+        os.makedirs(os.path.join(scan, sub))
+    rng = np.random.default_rng(0)
+    yy, xx = np.mgrid[0:H, 0:W]
+    shade = 128 + 60 * np.sin(xx / 97.0)[..., None] * np.cos(yy / 61.0)[..., None]
+    img = np.clip(shade + rng.normal(0, 12, (H, W, 3)), 0, 255).astype(np.uint8)
+    mask = (((xx - W / 2) ** 2 + (yy - H / 2) ** 2) < (H / 3) ** 2).astype(np.uint8) * 255
+    write_png(os.path.join(scan, "image", "000.png"), img, filters=4)
+    write_png(os.path.join(scan, "mask", "000.png"), mask, filters=4)
+    wm = np.eye(4)  # K [I | t]: a camera 2.5 in front of the origin
+    wm[:3, :3] = [[1.2 * W, 0, W / 2], [0, 1.2 * W, H / 2], [0, 0, 1]]
+    wm[:3, 3] = wm[:3, :3] @ [0.0, 0.0, 2.5]
+    np.savez(os.path.join(scan, "cameras.npz"),
+             **{f"{m}_{i}": a for i in range(views)
+                for m, a in (("world_mat", wm), ("scale_mat", np.eye(4)))})
+    for i in range(1, views):
+        for sub in ("image", "mask"):
+            shutil.copyfile(os.path.join(scan, sub, "000.png"),
+                            os.path.join(scan, sub, f"{i:03d}.png"))
+    t0 = time.perf_counter()
+    ds = SceneDataset(False, "dtu", DTU_RES, 0, data_root=workdir)
+    dt = time.perf_counter() - t0
+    if not (np.array_equal(ds.rgb_images[-1], img.reshape(-1, 3))
+            and np.array_equal(ds.object_masks[-1], mask.reshape(-1) > 127)):
+        raise AssertionError("decode: the scan's pixels differ from those written")
+    print(f"[decode] {json.dumps({'card': smi, 'views': views, 'res': list(DTU_RES), 'filters': 'paeth', 'scan_s': dt, 'per_view_ms': dt / views * 1e3})}")
+
+
 def check_spills(ptxas_log: str) -> dict:
     """Each kernel must keep its 128 float accumulators and its fragments in
     registers: no spills in the ``-Xptxas -v`` report.  Returns each
@@ -333,6 +454,10 @@ def main() -> int:
                            expect="fused_sdf_raw_bf16"),
         "exact (unfused)": phase_step(dev, fm, scene, "exact (unfused)", "exact", False, 1, 3),
     }
+    del scene
+    with tempfile.TemporaryDirectory() as workdir:
+        phases["runner"] = phase_runner(fm, smi, workdir)
+        phase_decode(smi, workdir)
 
     src = "hashmodnffbanks_idr_tpu_torch/ops/csrc/fused_mlp.cu"
     out = []

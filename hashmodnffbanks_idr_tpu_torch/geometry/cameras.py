@@ -1,14 +1,71 @@
-"""Camera geometry: ray generation and the bounding-sphere intersection.
+"""Camera geometry: load-time projection decomposition, ray generation and
+the bounding-sphere intersection.
 
 Counterpart of ``hashmodnffbanks_idr_tpu/geometry/cameras.py`` for fixed
-cameras (4x4 poses).  Still to port: the pose-7 quaternion branch that
-trainable cameras use, and the load-time decomposition helpers.
+cameras (4x4 poses).  The numpy helpers ``decompose_projection``,
+``load_K_Rt_from_P`` and ``rot_to_quat`` are copies of the JAX module's
+(:28-98).  Still to port: the pose-7 quaternion branch that trainable
+cameras use.
 """
 
 from __future__ import annotations
 
 import numpy as np
 import torch
+
+
+def decompose_projection(P: np.ndarray):
+    """Decompose a 3x4 projection P = K [R | t] into intrinsics and c2w pose.
+
+    Matches cv2.decomposeProjectionMatrix semantics as used by the reference
+    (rend_util.py:25-46): returns (intrinsics 4x4, pose 4x4) where pose is the
+    camera-to-world transform and K is normalized so K[2,2] == 1 with positive
+    focal lengths.
+    """
+    P = np.asarray(P, dtype=np.float64)[:3, :4]
+    M = P[:, :3]
+    # RQ decomposition of M: M = K R with K upper-triangular.
+    # Use QR of the reversed/transposed matrix.
+    rev = np.eye(3)[::-1]
+    Q, U = np.linalg.qr((rev @ M).T)
+    K = rev @ U.T @ rev
+    R = rev @ Q.T
+    # Fix signs so diag(K) > 0 (S is its own inverse, so K S S R = K R = M).
+    s = np.sign(np.diag(K))
+    s[s == 0] = 1.0
+    S = np.diag(s)
+    K = K @ S
+    R = S @ R
+    if np.linalg.det(R) < 0:
+        R = -R  # cv2 convention: rotation proper; K R = -M, scale washes out
+    K = K / K[2, 2]
+    # camera center: P c = 0 (homogeneous)
+    _, _, Vt = np.linalg.svd(np.concatenate([P, [[0, 0, 0, 1]]], axis=0)[:3])
+    c = Vt[-1]
+    c = c[:3] / c[3]
+
+    intrinsics = np.eye(4, dtype=np.float32)
+    intrinsics[:3, :3] = K.astype(np.float32)
+    pose = np.eye(4, dtype=np.float32)
+    pose[:3, :3] = R.T.astype(np.float32)  # cam-to-world rotation
+    pose[:3, 3] = c.astype(np.float32)
+    return intrinsics, pose
+
+
+def load_K_Rt_from_P(P: np.ndarray):
+    """Alias keeping the reference's name (rend_util.py:25)."""
+    return decompose_projection(P)
+
+
+def rot_to_quat(R: np.ndarray) -> np.ndarray:
+    """(B,3,3) -> (B,4) wxyz. NumPy, load-time only (rend_util.py:121-139)."""
+    R = np.asarray(R)
+    q = np.ones(R.shape[:-2] + (4,), dtype=R.dtype)
+    q[..., 0] = np.sqrt(np.maximum(1.0 + R[..., 0, 0] + R[..., 1, 1] + R[..., 2, 2], 1e-12)) / 2
+    q[..., 1] = (R[..., 2, 1] - R[..., 1, 2]) / (4 * q[..., 0])
+    q[..., 2] = (R[..., 0, 2] - R[..., 2, 0]) / (4 * q[..., 0])
+    q[..., 3] = (R[..., 1, 0] - R[..., 0, 1]) / (4 * q[..., 0])
+    return q
 
 
 def lift(x, y, z, intrinsics):

@@ -1,8 +1,9 @@
 """Encoders of the flagship path: the pure-torch hash grid with its Fourier
-aux features, the style-attention block, and Neural Fourier Filter Banks.
+aux features, the style-attention block, Neural Fourier Filter Banks, and
+the spherical-harmonics view encoder.
 
 Counterpart of ``hashmodnffbanks_idr_tpu/models/embedders.py`` for the
-``FFB`` and ``StyleModNFFB`` presets.  Parameter names follow the JAX
+``FFB``, ``StyleModNFFB`` and ``SHEncoder`` presets.  Parameter names follow the JAX
 params tree (``grid.table``, ``grid.ff.B``, ``ff_lin.<i>``, ``out_layer``,
 ``style.linear_transform``, ``style.attention``) so the weight bridge is a
 rename plus transposes.
@@ -13,7 +14,7 @@ round their operands to bfloat16 with float32 accumulation; normalisation
 statistics stay float32.
 
 Still to port: the ``HashGrid``/``HashGridNGP``/``PosEnc``/
-``FourierFeatures``/``SH`` embedders.
+``FourierFeatures`` embedders.
 """
 
 from __future__ import annotations
@@ -217,12 +218,33 @@ class NFFBEmbedder(nn.Module):
         return torch.cat([input01, acc], dim=-1)
 
 
+class SHEmbedder(nn.Module):
+    """Spherical-harmonics view-direction encoder (frequency_enc.py:70-152;
+    JAX :101-110): ``degree**2`` outputs, no parameters."""
+
+    def __init__(self, input_dims: int = 3, degree: int = 4):
+        super().__init__()
+        if input_dims != 3:
+            raise ValueError(f"SH encodes 3-d directions, got input_dims={input_dims}")
+        self.degree = degree
+        self.embeddings_dim = degree**2
+
+    def reset_parameters(self, gen: torch.Generator):
+        pass
+
+    def forward(self, x, fast: bool = False):
+        return enc.spherical_harmonics(x, self.degree)
+
+
 def build_embedder(embed_type: str, input_dims: int, multires: int,
                    log2_max_hash_size: int, max_points_per_entry: int,
                    base_resolution: int, desired_resolution: int, bound: float,
-                   **overrides) -> NFFBEmbedder:
+                   **overrides) -> nn.Module:
     """The reference factory's ``FFB``/``StyleModNFFB`` presets
-    (custom_embedder_decoder.py:147-155; JAX :560-592)."""
+    (custom_embedder_decoder.py:147-155; JAX :560-592) and ``SHEncoder``
+    with its preset degree 4 (JAX :637-638)."""
+    if embed_type == "SHEncoder":
+        return SHEmbedder(input_dims, degree=overrides.get("degree", 4))
     if embed_type not in ("FFB", "StyleModNFFB"):
         raise NotImplementedError(f"embedder {embed_type!r} is not ported yet")
     if overrides.get("grid_interpolation") not in (None, "floor"):

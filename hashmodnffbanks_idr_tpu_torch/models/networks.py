@@ -15,7 +15,7 @@ from torch import nn
 
 from ..ops import fused_mlp as fm
 from ..ops.linear import Linear, softplus
-from .embedders import build_embedder
+from .embedders import SHEmbedder, build_embedder
 
 
 class LaplaceDensity(nn.Module):
@@ -153,9 +153,11 @@ class ImplicitNetwork(nn.Module):
 
 
 class RenderingNetwork(nn.Module):
-    """Appearance MLP (impl..._renderer.py:130-223) in 'idr' mode with the
-    deep view-direction embedder the flagship uses; the embedder's settings
-    are hard-coded as in the reference (impl..._renderer.py:163-184)."""
+    """Appearance MLP (impl..._renderer.py:130-223) in 'idr' mode.  View
+    directions go through SH of degree ``multires_view`` for
+    ``SHEncoder`` (built directly, not through the factory, as JAX
+    models/networks.py:355-358 does), else through a deep embedder whose
+    settings are hard-coded as in the reference (impl..._renderer.py:163-184)."""
 
     def __init__(self, feature_vector_size: int, mode: str, d_in: int, d_out: int,
                  dims: Sequence[int], weight_norm: bool = True, multires_view: int = 0,
@@ -165,7 +167,10 @@ class RenderingNetwork(nn.Module):
             raise NotImplementedError(f"rendering mode {mode!r} is not ported yet")
         dims = [d_in + feature_vector_size] + list(dims) + [d_out]
         self.view_embedder = None
-        if multires_view > 0:
+        if multires_view > 0 and viewdirs_embed_type == "SHEncoder":
+            self.view_embedder = SHEmbedder(3, degree=multires_view)
+            dims[0] += self.view_embedder.embeddings_dim - 3
+        elif multires_view > 0:
             self.view_embedder = build_embedder(
                 viewdirs_embed_type, input_dims=3, multires=multires_view,
                 log2_max_hash_size=multires_view - 1, max_points_per_entry=2,

@@ -15,6 +15,10 @@ Tracer precision (``model.tracer_fast``; JAX :49-74):
   'fast'  -- every tracer query through the fused bf16 kernel.
 The fused path is chosen from the config alone: ``fused_sdf_raw`` launches
 the CUDA kernel for a CUDA tensor and runs its plain twin for a CPU one.
+``tracer_exact_fused`` is read from the conf only.  The JAX package also
+takes its default from the ``HMNFFB_EXACT_FUSED`` environment variable
+(JAX :72-74); the port ignores that variable, so a run is reproduced from
+its ``runconf.conf`` alone.
 """
 
 from __future__ import annotations

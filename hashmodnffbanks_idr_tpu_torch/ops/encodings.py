@@ -2,8 +2,8 @@
 
 Counterpart of ``hashmodnffbanks_idr_tpu/ops/encodings.py`` for what the
 flagship path uses: the log-spaced frequency bands, the positional
-encoding's *declared* width (which sizes the NFFB trunk), and random Fourier
-features.
+encoding's *declared* width (which sizes the NFFB trunk), random Fourier
+features, and the real spherical harmonics of the view directions.
 """
 
 from __future__ import annotations
@@ -52,3 +52,51 @@ def fourier_features(x: torch.Tensor, B: torch.Tensor, include_input: bool = Tru
 def fourier_features_dim(input_dims: int, num_channels: int, include_input: bool) -> int:
     """The reference declares 2C+3 whatever input_dims is (frequency_enc.py:60)."""
     return 2 * int(num_channels) + 3 if include_input else 2 * int(num_channels)
+
+
+# real spherical harmonics constants (JAX ops/encodings.py:117-126)
+_C0 = 0.28209479177387814
+_C1 = 0.4886025119029199
+_C2 = [1.0925484305920792, -1.0925484305920792, 0.31539156525252005,
+       -1.0925484305920792, 0.5462742152960396]
+_C3 = [-0.5900435899266435, 2.890611442640554, -0.4570457994644658,
+       0.3731763325901154, -0.4570457994644658, 1.445305721320277,
+       -0.5900435899266435]
+_C4 = [2.5033429417967046, -1.7701307697799304, 0.9461746957575601,
+       -0.6690465435572892, 0.10578554691520431, -0.6690465435572892,
+       0.47308734787878004, -1.7701307697799304, 0.6258357354491761]
+
+
+def spherical_harmonics(d: torch.Tensor, degree: int = 4) -> torch.Tensor:
+    """[..., 3] unit directions -> [..., degree**2] real SH basis values, in
+    the JAX package's component order (ops/encodings.py:129-159)."""
+    if not 1 <= degree <= 5:
+        raise ValueError(f"SH degree must be in 1..5, got {degree}")
+    x, y, z = d[..., 0], d[..., 1], d[..., 2]
+    comps = [torch.full_like(x, _C0)]
+    if degree > 1:
+        comps += [-_C1 * y, _C1 * z, -_C1 * x]
+    if degree > 2:
+        xx, yy, zz = x * x, y * y, z * z
+        xy, yz, xz = x * y, y * z, x * z
+        comps += [
+            _C2[0] * xy, _C2[1] * yz, _C2[2] * (2.0 * zz - xx - yy),
+            _C2[3] * xz, _C2[4] * (xx - yy),
+        ]
+    if degree > 3:
+        comps += [
+            _C3[0] * y * (3 * xx - yy), _C3[1] * xy * z,
+            _C3[2] * y * (4 * zz - xx - yy),
+            _C3[3] * z * (2 * zz - 3 * xx - 3 * yy),
+            _C3[4] * x * (4 * zz - xx - yy), _C3[5] * z * (xx - yy),
+            _C3[6] * x * (xx - 3 * yy),
+        ]
+    if degree > 4:
+        comps += [
+            _C4[0] * xy * (xx - yy), _C4[1] * yz * (3 * xx - yy),
+            _C4[2] * xy * (7 * zz - 1), _C4[3] * yz * (7 * zz - 3),
+            _C4[4] * (zz * (35 * zz - 30) + 3), _C4[5] * xz * (7 * zz - 3),
+            _C4[6] * (xx - yy) * (7 * zz - 1), _C4[7] * xz * (xx - 3 * yy),
+            _C4[8] * (xx * (xx - 3 * yy) - yy * (3 * xx - yy)),
+        ]
+    return torch.stack(comps, dim=-1)

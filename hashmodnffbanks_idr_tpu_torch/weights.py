@@ -4,7 +4,8 @@ The port's parameter names follow the JAX tree (``lin.<i>.v``,
 ``embed.grid.table``, ...), except that the embedders are the modules
 ``embedder`` / ``view_embedder``.  Linear weights ``w``/``v`` are
 transposed from JAX's ``(in, out)`` to ``(out, in)``; a hash table may come
-as ``(rows, C)`` or as the JAX package's ``(P, 128)`` page image.
+as ``(rows, C)`` or as the JAX package's ``(P, 128)`` page image.  Adam's
+moment trees have the params' structure and map the same way.
 """
 
 from __future__ import annotations
@@ -56,3 +57,20 @@ def from_jax_params(params_np: dict, model: nn.Module) -> Dict[str, torch.Tensor
     if missing:
         raise KeyError(f"no JAX leaf for {missing}")
     return out
+
+
+def load_jax_adam_state(mu: dict, nu: dict, count: int, model: nn.Module,
+                        optimizer: torch.optim.Optimizer) -> None:
+    """Set ``optimizer`` (a ``torch.optim.Adam`` over ``model``'s
+    parameters) from optax's ``ScaleByAdamState``: ``exp_avg``/``exp_avg_sq``
+    from the moment trees ``mu``/``nu`` (mapped like the params, so ``w``/
+    ``v`` are transposed and page-image tables become rows) and every
+    parameter's ``step`` from ``count``."""
+    exp_avg, exp_avg_sq = from_jax_params(mu, model), from_jax_params(nu, model)
+    for name, p in model.named_parameters():
+        optimizer.state[p] = {
+            # torch keeps a non-capturable Adam's step as a CPU float32 scalar
+            "step": torch.tensor(float(count), dtype=torch.float32),
+            "exp_avg": exp_avg[name].to(p.device),
+            "exp_avg_sq": exp_avg_sq[name].to(p.device),
+        }

@@ -11,6 +11,7 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 import optax
+import pytest
 import torch
 
 from hashmodnffbanks_idr_tpu.models.loss import IDRLossConfig as JLossConfig
@@ -32,21 +33,22 @@ N_RAYS = 64
 ALPHA = 50.0
 
 
-def _patch(conf, mode):
+def _patch(conf, mode, view):
     conf.put("model.implicit_network.dims", [128] * 8)
     conf.put("model.rendering_network.dims", [64, 64])
     conf.put("model.feature_vector_size", 32)
     conf.put("model.ray_tracer.n_steps", 28)      # hierarchical stride 9
     conf.put("model.tracer_fast", mode)
     conf.put("model.tracer_exact_fused", True)
+    conf.put("model.rendering_network.viewdirs_embed_type", view)
     return conf
 
 
-def _setup(mode):
-    jconf = _patch(j_flagship_conf(num_pixels=N_RAYS), mode).get_config("model")
+def _setup(mode, view="StyleModNFFB"):
+    jconf = _patch(j_flagship_conf(num_pixels=N_RAYS), mode, view).get_config("model")
     jmodel = JIDRNetwork(jconf)
     params = jax.jit(jmodel.init)(jax.random.PRNGKey(0))
-    model = IDRNetwork(_patch(flagship_conf(num_pixels=N_RAYS), mode).get_config("model"),
+    model = IDRNetwork(_patch(flagship_conf(num_pixels=N_RAYS), mode, view).get_config("model"),
                        device="cpu")
     params_np = jax.tree_util.tree_map(np.asarray, params)
     model.load_state_dict(from_jax_params(params_np, model))
@@ -79,11 +81,13 @@ def _jax_inputs(scene, img_idx, pixel_idx):
             j_rgb_to_pm1(scene["rgb"][img_idx][:, pixel_idx]))
 
 
-def test_exact_fused_step_matches_jax():
-    """Loss, clipped gradients and Adam-updated parameters of one step.  The
+@pytest.mark.parametrize("view", ["StyleModNFFB", "SHEncoder"])
+def test_exact_fused_step_matches_jax(view):
+    """Loss, clipped gradients and Adam-updated parameters of one step, with
+    the flagship's deep view embedder and with SH (every conf's).  The
     JAX gradients are read back from its Adam state: after one step
     ``mu = (1 - b1) * clipped_grad``."""
-    jmodel, params, model, scene_np, pixel_idx = _setup("exact")
+    jmodel, params, model, scene_np, pixel_idx = _setup("exact", view)
     rng = jax.random.PRNGKey(7)
     img_idx = np.asarray([0], np.int32)
     jloss_cfg = JLossConfig(eikonal_weight=0.1, mask_weight=200.0, alpha=ALPHA)
