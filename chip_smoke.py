@@ -14,7 +14,13 @@ in four tracer configurations and times it.  Then it runs the user's path:
 the port's ``dummy_cli`` writes the dummy scene, ``exp_runner`` trains the
 repo's ``dummy_stylemodnffb.conf`` (with the ``mixed`` tracer) for 30 epochs
 and resumes it to epoch 32, and a DTU-size scan is decoded through
-``SceneDataset``.  It fails if ``-Xptxas -v``
+``SceneDataset``.  Last comes the eval path: the port's ``dtu_shaped``
+generates the anchor scene on the card, ``exp_runner`` trains the repo's
+``headtohead_ours_400_f32.conf`` for 20 epochs with plots every 10,
+``run_eval`` and ``dtu_chamfer`` score it, and one view is rendered
+unfused, through the f32 kernel and through the bf16 kernel (``mixed``)
+and compared, and each kernel is held against its plain twin on the
+largest call that render gave it.  It fails if ``-Xptxas -v``
 reports a spill in either kernel.  Any failed check raises and
 the script exits non-zero.  The second-to-last line is the kernels' JSON
 record, the last line ``{"ok": true, "device": {...}}``.
@@ -25,6 +31,7 @@ without a result when CUDA is unavailable.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import os
@@ -71,6 +78,18 @@ PTXAS_ENTRY = {"fused_sdf_raw_f32": "3f3216fused_sdf_kernel",
 DUMMY_CONF = Path(__file__).resolve().parent / "hashmodnffbanks_idr_tpu/config/confs/dummy_stylemodnffb.conf"
 RUNNER_EPOCHS = 30
 DTU_RES = (1200, 1600)
+# the eval phase: the 400-epoch anchor's conf and scene shape (8 views of
+# 240x320, scan 0, GT mesh at 320), cut to 20 epochs with plots every 10
+ANCHOR_CONF = DUMMY_CONF.parent / "headtohead_ours_400_f32.conf"
+EVAL_EPOCHS, EVAL_PLOT_FREQ = 20, 10
+# each eval-render variant against the unfused f32 render of the same view
+# and checkpoint: (label, tracer_fast, tracer_exact_fused, kernel, least
+# share of equal hit-mask pixels, |dPSNR| bound in dB).  The f32 kernel's
+# bounds sit near its measured 100% / 2e-6 dB, so a kernel that ran at bf16
+# precision (mixed reads 99.988% / 0.017 dB) fails them
+EVAL_VARIANTS = (("exact+fused", "exact", True, "fused_sdf_raw_f32", 0.999, 1e-3),
+                 ("mixed", "mixed", False, "fused_sdf_raw_bf16", 0.98, 1.5))
+KERNEL_TOL = {"fused_sdf_raw_f32": TOL_F32, "fused_sdf_raw_bf16": TOL_BF16}
 
 
 def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
@@ -115,30 +134,40 @@ def library_chain(x, packed):
 
 
 @torch.no_grad()
+def hold_against_plain(fm, name, x, packed, where="") -> float:
+    """One kernel call against its plain twin on the same inputs: max abs
+    error within the variant's tolerance, and for bf16 the same sign where
+    |sdf| > 5e-2.  Returns the error."""
+    tol = KERNEL_TOL[name]
+    got = fm.fused_sdf_raw(x, packed)
+    want = fm.fused_sdf_raw_plain(x, packed)
+    torch.cuda.synchronize()
+    err = float((got - want).abs().max())
+    print(f"[kernel] {name} N={x.shape[0]}{where}: max_abs_err={err:.3e} (tol {tol:g})")
+    if not err <= tol:
+        raise AssertionError(f"{name} N={x.shape[0]}{where}: max abs err {err} > {tol}")
+    if packed["w_in"].dtype == torch.bfloat16:
+        big = want.abs() > 5e-2
+        if not bool((torch.sign(got[big]) == torch.sign(want[big])).all()):
+            raise AssertionError(f"{name} N={x.shape[0]}{where}: sign disagreement "
+                                 "where |sdf|>5e-2")
+    return err
+
+
+@torch.no_grad()
 def phase_kernels(dev, fm, model):
     """Each variant against its plain twin at the tracer's batch sizes."""
     net = model.implicit_network
     d_in, hidden = net.dims[0], net.dims[1]
     gen = torch.Generator(device=dev).manual_seed(1)
     records = {}
-    for name, dtype, tol, peak_key, products in VARIANTS:
+    for name, dtype, _, peak_key, products in VARIANTS:
         packed = fm.pack_params(net.lin, d_in, hidden, dtype=dtype)
         max_err = 0.0
         for n in CHECK_N:
             pts = (torch.rand(n, 3, generator=gen, device=dev) * 2 - 1) * 0.6
             x = net._embed(pts).contiguous()
-            got = fm.fused_sdf_raw(x, packed)
-            want = fm.fused_sdf_raw_plain(x, packed)
-            torch.cuda.synchronize()
-            err = float((got - want).abs().max())
-            max_err = max(max_err, err)
-            print(f"[kernel] {name} N={n}: max_abs_err={err:.3e} (tol {tol:g})")
-            if not err <= tol:
-                raise AssertionError(f"{name} N={n}: max abs err {err} > {tol}")
-            if dtype == torch.bfloat16:
-                big = want.abs() > 5e-2
-                if not bool((torch.sign(got[big]) == torch.sign(want[big])).all()):
-                    raise AssertionError(f"{name} N={n}: sign disagreement where |sdf|>5e-2")
+            max_err = max(max_err, hold_against_plain(fm, name, x, packed))
         timed = []
         for n in TIME_SMALL_N + (TIME_N[name],):
             pts = (torch.rand(n, 3, generator=gen, device=dev) * 2 - 1) * 0.6
@@ -389,6 +418,162 @@ def phase_decode(smi: str, workdir: str, views: int = 49) -> None:
     print(f"[decode] {json.dumps({'card': smi, 'views': views, 'res': list(DTU_RES), 'filters': 'paeth', 'scan_s': dt, 'per_view_ms': dt / views * 1e3})}")
 
 
+@contextlib.contextmanager
+def keep_largest_call(fm, kept: dict):
+    """While open, ``fm.fused_sdf_raw`` keeps in ``kept[variant]`` a copy of
+    the largest input it was given, with its weights, then launches as
+    always; the launch counts are the wrapper's own."""
+    launch = fm.fused_sdf_raw
+    variant = {dtype: name for name, dtype, *_ in VARIANTS}
+
+    def keeping(x, packed):
+        name = variant[packed["w_in"].dtype]
+        if name not in kept or x.shape[0] > kept[name][0].shape[0]:
+            kept[name] = (x.clone(), packed)
+        return launch(x, packed)
+
+    fm.fused_sdf_raw = keeping
+    try:
+        yield kept
+    finally:
+        fm.fused_sdf_raw = launch
+
+
+def phase_eval(fm, smi: str, workdir: str):
+    """The eval path, through the entry points a user calls: the anchor
+    scene generated on the card, 20 epochs of the anchor conf with plots at
+    epochs 10 and 20, ``run_eval`` (mesh at resolution 100, all 8 views
+    scored) and ``dtu_chamfer``; then view 0 rendered unfused, exact+fused
+    and mixed from the same checkpoint.  Counts reset just before the phase
+    and read just after.  Then each kernel is held against its plain twin
+    on the largest call the view's render gave it.  Returns the counts and
+    that check."""
+    from hashmodnffbanks_idr_tpu_torch.config.hocon import parse_file
+    from hashmodnffbanks_idr_tpu_torch.data import dtu_shaped
+    from hashmodnffbanks_idr_tpu_torch.eval import dtu_chamfer, run_eval
+    from hashmodnffbanks_idr_tpu_torch.eval.evaluator import Evaluator
+    from hashmodnffbanks_idr_tpu_torch.models.metrics import masked_psnr
+    from hashmodnffbanks_idr_tpu_torch.models.renderer import IDRNetwork
+    from hashmodnffbanks_idr_tpu_torch.train import checkpoints as ckpt
+    from hashmodnffbanks_idr_tpu_torch.train import exp_runner
+    from hashmodnffbanks_idr_tpu_torch.utils.ply import read_ply
+
+    fm.reset_launch_counts()
+    data_root = os.path.join(workdir, "data")
+    t0 = time.perf_counter()
+    gen_dir = dtu_shaped.main(["--out", os.path.join(workdir, "gen"), "--n_views", "8",
+                               "--img_res", "240", "320", "--scan_id", "0",
+                               "--mesh_resolution", "320"])
+    generate_s = time.perf_counter() - t0
+    scene = os.path.join(data_root, "dtu_shaped_small", "scan0")
+    os.makedirs(os.path.dirname(scene))
+    shutil.move(gen_dir, scene)
+
+    conf = parse_file(str(ANCHOR_CONF))
+    conf.put("train.plot_freq", EVAL_PLOT_FREQ)
+    conf_path = os.path.join(workdir, "headtohead_ours_400_f32_plots.conf")
+    with open(conf_path, "w") as f:
+        f.write(conf.dump())
+    exps, evals = os.path.join(workdir, "exps_eval"), os.path.join(workdir, "evals")
+    t0 = time.perf_counter()
+    runner = exp_runner.main(["--conf", conf_path, "--nepoch", str(EVAL_EPOCHS),
+                               "--data_root", data_root, "--exps_folder_name", exps,
+                               "--no_tensorboard"])
+    train_s = time.perf_counter() - t0
+    plots = sorted(os.listdir(runner.plots_dir))
+    want = [f"{k}_{e}.{x}" for e in range(EVAL_PLOT_FREQ, EVAL_EPOCHS + 1, EVAL_PLOT_FREQ)
+            for k, x in (("rendering", "png"), ("depth", "png"), ("surface", "ply"),
+                         ("surface", "html"), ("cameras", "ply"))]
+    if sorted(want) != plots:
+        raise AssertionError(f"eval: plots {plots}, expected {sorted(want)}")
+
+    t0 = time.perf_counter()
+    res = run_eval.main(["--conf", conf_path, "--data_root", data_root, "--resolution", "100",
+                         "--eval_rendering", "--exps_folder", exps, "--evals_folder", evals])
+    eval_s = time.perf_counter() - t0
+    metrics_dir = os.path.join(res["eval_dir"], "metrics")
+    for name in ("psnrs.csv", "ssims.csv", "lpips.csv", "summary.json"):
+        if not os.path.exists(os.path.join(metrics_dir, name)):
+            raise AssertionError(f"eval: {name} missing")
+    with open(os.path.join(metrics_dir, "summary.json")) as f:
+        summary = json.load(f)
+    verts, faces = read_ply(res["mesh"])
+    chamfer_log = os.path.join(res["eval_dir"], "chamfer_log.txt")
+    t0 = time.perf_counter()
+    dtu_chamfer.main(["--data", res["mesh"], "--gt", os.path.join(scene, "gt_mesh.ply"),
+                      "--downsample_density", "0.005", "--log", chamfer_log])
+    chamfer_s = time.perf_counter() - t0
+    with open(chamfer_log) as f:
+        chamfer = json.loads(f.read().splitlines()[-1])
+    scores = [summary[k] for k in ("psnr_mean", "ssim_mean", "lpips_mean")] + [
+        chamfer[k] for k in ("mean_d2s", "mean_s2d", "over_all")]
+    if not (len(faces) > 0 and all(math.isfinite(v) for v in scores)):
+        raise AssertionError(f"eval: {len(faces)} faces, scores {scores}")
+
+    # one view, one checkpoint, three tracer settings
+    renders, kept = {}, {}
+    settings = (("exact (unfused)", "exact", False, None, None, None),) + EVAL_VARIANTS
+    for label, mode, fused, kernel, _, _ in settings:
+        vconf = parse_file(conf_path)
+        vconf.put("model.tracer_fast", mode)
+        vconf.put("model.tracer_exact_fused", fused)
+        model = IDRNetwork(vconf.get_config("model"))
+        ckpt.load_checkpoint(runner.checkpoints_path, "latest", model)
+        ev = Evaluator(vconf, model, dataset=runner.train_dataset)
+        seen = {k: dict(v) for k, v in fm.launch_counts.items()}
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        with keep_largest_call(fm, kept):
+            t0 = time.perf_counter()
+            view = ev.render_view(0)
+            render_s = time.perf_counter() - t0
+        m3 = view["gt_mask"][..., None].astype(np.float32)
+        renders[label] = {
+            "view": view, "render_s": render_s,
+            "peak_mib": torch.cuda.max_memory_allocated() / 2**20,
+            "psnr": masked_psnr((view["rgb"] + 1) / 2 * m3, (view["gt_rgb"] + 1) / 2 * m3,
+                                view["gt_mask"], data_range=1.0),
+            "launches": {k: fm.launch_counts[k]["launches"] - seen[k]["launches"] for k in seen},
+            "points": {k: fm.launch_counts[k]["points"] - seen[k]["points"] for k in seen}}
+        if kernel is not None and renders[label]["launches"][kernel] <= 0:
+            raise AssertionError(f"eval render {label}: {kernel} was not launched")
+    counts = {k: dict(v) for k, v in fm.launch_counts.items()}
+    # each kernel on the largest input the render gave it (launches made
+    # here are comparisons and are not counted)
+    largest = {name: {"n": x.shape[0], "max_abs_err": hold_against_plain(
+                   fm, name, x, packed, " (the eval render's largest call)")}
+               for name, (x, packed) in kept.items()}
+    kept.clear()
+    fm.reset_launch_counts()
+    base = renders["exact (unfused)"]
+    held = {}
+    for label, _, _, kernel, agree_bound, dpsnr_bound in EVAL_VARIANTS:
+        r = renders[label]
+        agree = float((r["view"]["mask"] == base["view"]["mask"]).mean())
+        dpsnr = r["psnr"] - base["psnr"]
+        held[label] = {"kernel": kernel, "mask_agreement": agree,
+                       "mask_agreement_bound": agree_bound, "dpsnr_db": dpsnr,
+                       "dpsnr_bound_db": dpsnr_bound, "render_s": r["render_s"],
+                       "launches": r["launches"][kernel], "points": r["points"][kernel],
+                       "largest_call": largest[kernel]}
+        if agree < agree_bound or not abs(dpsnr) <= dpsnr_bound:
+            raise AssertionError(f"eval render {label}: mask agreement {agree:.6f} "
+                                 f"(bound {agree_bound}), dPSNR {dpsnr:.3e} dB "
+                                 f"(bound {dpsnr_bound})")
+    rec = {"card": smi, "generate_s": generate_s, "train_s": train_s, "epochs": EVAL_EPOCHS,
+           "run_eval_s": eval_s, "mesh_s": summary["mesh_s"], "render_8_views_s": summary["render_s"],
+           "render_s_per_view": summary["render_s"] / 8, "chamfer_s": chamfer_s,
+           "psnr": summary["psnr_mean"], "ssim": summary["ssim_mean"],
+           "lpips": summary["lpips_mean"], "lpips_weights": summary["lpips_weights"],
+           "chamfer_d2s": chamfer["mean_d2s"], "chamfer_s2d": chamfer["mean_s2d"],
+           "chamfer_overall": chamfer["over_all"], "mesh_faces": len(faces),
+           "view0_unfused": {"psnr": base["psnr"], "render_s": base["render_s"],
+                             "peak_mib_tile_32768": base["peak_mib"]},
+           "view0_held": held}
+    print(f"[eval] {json.dumps(rec)}")
+    return counts, largest
+
+
 def check_spills(ptxas_log: str) -> dict:
     """Each kernel must keep its 128 float accumulators and its fragments in
     registers: no spills in the ``-Xptxas -v`` report.  Returns each
@@ -458,6 +643,7 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as workdir:
         phases["runner"] = phase_runner(fm, smi, workdir)
         phase_decode(smi, workdir)
+        phases["eval"], eval_largest = phase_eval(fm, smi, workdir)
 
     src = "hashmodnffbanks_idr_tpu_torch/ops/csrc/fused_mlp.cu"
     out = []
@@ -468,9 +654,13 @@ def main() -> int:
                "replaces": "hashmodnffbanks_idr_tpu/ops/fused_mlp.py:104",
                "launches": phases[cell][name]["launches"], "points": phases[cell][name]["points"],
                "launches_by_phase": {p: c[name]["launches"] for p, c in phases.items()}}
-        rec.update((k, r[k]) for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
+        rec.update((k, r[k]) for k in ("ms", "plain_ms", "bound_ms",
                                         "bound_fp32_cores_ms", "bound_by", "library_ms",
                                         "n", "small_calls") if k in r)
+        # the largest error of every check: the tracer's batch sizes and the
+        # eval render's largest call
+        rec["max_abs_err"] = max(r["max_abs_err"], eval_largest[name]["max_abs_err"])
+        rec["eval_largest_call"] = eval_largest[name]
         rec.update(regs[name])
         out.append(rec)
     print(f"[done] {time.perf_counter() - t_start:.1f} s")

@@ -4,8 +4,9 @@ the bounding-sphere intersection.
 Counterpart of ``hashmodnffbanks_idr_tpu/geometry/cameras.py`` for fixed
 cameras (4x4 poses).  The numpy helpers ``decompose_projection``,
 ``load_K_Rt_from_P`` and ``rot_to_quat`` are copies of the JAX module's
-(:28-98).  Still to port: the pose-7 quaternion branch that trainable
-cameras use.
+(:28-98); ``quat_to_rot`` is its torch counterpart (JAX :75-87), used by
+the eval's camera report and orbit.  Still to port: the pose-7 quaternion
+branch that trainable cameras use.
 """
 
 from __future__ import annotations
@@ -66,6 +67,21 @@ def rot_to_quat(R: np.ndarray) -> np.ndarray:
     q[..., 2] = (R[..., 0, 2] - R[..., 2, 0]) / (4 * q[..., 0])
     q[..., 3] = (R[..., 1, 0] - R[..., 0, 1]) / (4 * q[..., 0])
     return q
+
+
+def quat_to_rot(q: torch.Tensor) -> torch.Tensor:
+    """(B,4) wxyz quaternion, normalised here -> (B,3,3). rend_util.py:102-119."""
+    q = q / torch.linalg.vector_norm(q, dim=-1, keepdim=True)
+    qr, qi, qj, qk = q[..., 0], q[..., 1], q[..., 2], q[..., 3]
+    r = torch.stack(
+        [
+            1 - 2 * (qj**2 + qk**2), 2 * (qj * qi - qk * qr), 2 * (qi * qk + qr * qj),
+            2 * (qj * qi + qk * qr), 1 - 2 * (qi**2 + qk**2), 2 * (qj * qk - qi * qr),
+            2 * (qk * qi - qj * qr), 2 * (qj * qk + qi * qr), 1 - 2 * (qi**2 + qj**2),
+        ],
+        dim=-1,
+    )
+    return r.reshape(q.shape[:-1] + (3, 3))
 
 
 def lift(x, y, z, intrinsics):

@@ -142,13 +142,17 @@ class ImplicitNetwork(nn.Module):
         return sdf_fused
 
     def gradient(self, x: torch.Tensor) -> torch.Tensor:
-        """Per-point d sdf / d x, differentiable again (create_graph) for the
-        second-order eikonal term (JAX :322-328)."""
-        if not x.requires_grad:
-            x = x.detach().requires_grad_(True)
-        y = self.sdf(x)
-        (g,) = torch.autograd.grad(y, x, grad_outputs=torch.ones_like(y),
-                                   create_graph=True)
+        """Per-point d sdf / d x, differentiable again for the second-order
+        eikonal term (JAX :322-328).  Under ``torch.no_grad()`` (the eval
+        render) it still takes the gradient, but keeps no graph past this
+        call; the numbers are the same."""
+        create_graph = torch.is_grad_enabled()
+        with torch.enable_grad():
+            if not x.requires_grad:
+                x = x.detach().requires_grad_(True)
+            y = self.sdf(x)
+            (g,) = torch.autograd.grad(y, x, grad_outputs=torch.ones_like(y),
+                                       create_graph=create_graph)
         return g
 
 

@@ -12,7 +12,7 @@ from __future__ import annotations
 
 import io
 import os
-from typing import Dict
+from typing import Dict, Optional
 
 import numpy as np
 import torch
@@ -38,13 +38,15 @@ def save_checkpoint(ckpt_dir: str, epoch: int, model: nn.Module,
 
 
 def load_checkpoint(ckpt_dir: str, name: str, model: nn.Module,
-                    optimizer: torch.optim.Optimizer) -> Dict[str, int]:
-    """Restore ``model`` and ``optimizer`` in place from ``<name>.pt``;
-    returns the saved ``epoch`` and the runner's ``step`` count."""
+                    optimizer: Optional[torch.optim.Optimizer] = None) -> Dict[str, int]:
+    """Restore ``model`` (and ``optimizer``, when given: the eval loads the
+    model alone) in place from ``<name>.pt``; returns the saved ``epoch``
+    and the runner's ``step`` count."""
     payload = torch.load(os.path.join(ckpt_dir, f"{name}{SUFFIX}"), map_location="cpu",
                          weights_only=True)
     model.load_state_dict(payload["model"])
-    optimizer.load_state_dict(payload["optimizer"])
+    if optimizer is not None:
+        optimizer.load_state_dict(payload["optimizer"])
     return {"epoch": int(payload["epoch"]), "step": int(payload["step"])}
 
 

@@ -6,11 +6,12 @@ the gradient is clipped to a global norm of 1.0 exactly as
 ``optax.clip_by_global_norm`` does (idr_train.py:306), then a
 ``torch.optim.Adam`` step is taken (its update is algebraically optax's).
 
-``IDRTrainRunner`` keeps the JAX runner's semantics (JAX :159-393): run
+``IDRTrainRunner`` keeps the JAX runner's semantics (JAX :159-419): run
 directories, one pixel subset per epoch, checkpoints every 25 epochs and at
 the end, MultiStep LR on the optimizer's step count, per-epoch alpha
-annealing, JSONL scalars.  Still to port: per-epoch plots (they need the
-eval stack) and trainable cameras (SparseAdam).
+annealing, JSONL scalars, and every ``plot_freq`` epochs (never at epoch 0)
+the plots of ``eval/plots.py:plot_epoch``.  Still to port: trainable
+cameras (SparseAdam).
 """
 
 from __future__ import annotations
@@ -18,6 +19,7 @@ from __future__ import annotations
 import json
 import os
 import time
+import traceback
 from datetime import datetime
 from typing import Callable, Dict, Optional
 
@@ -186,6 +188,8 @@ class IDRTrainRunner:
         self.alpha_factor = self.conf.get_float("train.alpha_factor", 0.0)
         self.num_pixels = self.conf.get_int("train.num_pixels")
         self.plot_freq = self.conf.get_int("train.plot_freq")
+        self.plot_conf = self.conf.get_config("plot")
+        self._plot_ev = None
         self.steps_per_epoch = max(self.n_images // self.batch_size, 1)
         self.milestone_steps = [int(m) * self.steps_per_epoch for m in self.sched_milestones]
 
@@ -218,9 +222,6 @@ class IDRTrainRunner:
         print(f"training {self.expname} for {self.nepochs} epochs "
               f"({self.steps_per_epoch} steps/epoch, {self.num_pixels} rays/step) "
               f"on {self.device}")
-        if self.plot_freq:
-            print(f"[plot] per-epoch plots (plot_freq={self.plot_freq}) need the eval "
-                  f"stack, which is not ported yet: no plots are written")
         B = self.batch_size
         for epoch in range(self.start_epoch, self.nepochs + 1):
             alpha = annealed_alpha(self.loss_cfg.alpha, self.alpha_milestones,
@@ -228,6 +229,12 @@ class IDRTrainRunner:
             if epoch % CHECKPOINT_EVERY == 0:
                 ckpt.save_checkpoint(self.checkpoints_path, epoch, self.model,
                                      self.optimizer, self.step_count)
+            if self.plot_freq and epoch % self.plot_freq == 0 and epoch > 0:
+                try:
+                    self._plot(epoch)
+                except Exception:  # plotting never stops training (JAX :313-317)
+                    print(f"[plot @{epoch}] failed:")
+                    traceback.print_exc()
 
             # one pixel subset per epoch, shared by its steps (idr_train.py:278)
             pixel_idx = sample_pixels(self.generator, self.total_pixels, self.num_pixels)
@@ -258,6 +265,22 @@ class IDRTrainRunner:
         ckpt.save_checkpoint(self.checkpoints_path, self.nepochs, self.model,
                              self.optimizer, self.step_count)
         self.logger.close()
+
+    def _plot(self, epoch: int):
+        """Per-plot-epoch artifacts (idr_train.py:231-273 role; JAX
+        :396-419): one view, drawn from the image-order generator, rendered
+        at eval tiles by one reused ``Evaluator``, and the mesh at
+        ``plot.resolution``."""
+        from ..eval.evaluator import Evaluator
+        from ..eval.plots import plot_epoch
+
+        if self._plot_ev is None:
+            self._plot_ev = Evaluator(self.conf, self.model, dataset=self.train_dataset)
+        idx = int(torch.randint(0, self.n_images, (), generator=self.order_generator))
+        view = self._plot_ev.render_view(idx)
+        plot_epoch(self.plots_dir, epoch, view, self.model.implicit_network.sdf,
+                   self.train_dataset.pose_all,
+                   resolution=self.plot_conf.get_int("resolution", 100), device=self.device)
 
     def validation_loss_slope(self, out_path: Optional[str] = None):
         """Mean-loss-per-epoch slope plot (idr_train.py:340-359 role), from

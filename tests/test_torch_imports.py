@@ -1,5 +1,6 @@
 """The PyTorch port stands alone: a static scan of its sources (and of
-chip_smoke.py) finds no import of JAX, optax, flax or the JAX package.
+chip_smoke.py) finds no import of JAX, optax, flax or the JAX package, nor
+of OpenCV, which the card's machine does not have.
 
 A ``sys.modules`` check cannot show this here: the test environment
 imports JAX at start-up (tests/conftest.py).
@@ -15,7 +16,7 @@ import pytest
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PORT = ROOT / "hashmodnffbanks_idr_tpu_torch"
 SOURCES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
-FORBIDDEN = re.compile(r"^(jax|jaxlib|optax|flax)(\.|$)|^hashmodnffbanks_idr_tpu(\.|$)")
+FORBIDDEN = re.compile(r"^(jax|jaxlib|optax|flax|cv2)(\.|$)|^hashmodnffbanks_idr_tpu(\.|$)")
 
 
 def _imports(path):
@@ -35,6 +36,7 @@ def test_port_imports_no_jax(path):
 def test_forbidden_pattern_spares_the_port():
     assert FORBIDDEN.search("hashmodnffbanks_idr_tpu.ops.fused_mlp")
     assert FORBIDDEN.search("jax.numpy") and FORBIDDEN.search("optax")
+    assert FORBIDDEN.search("cv2") and not FORBIDDEN.search("cv2x")
     assert not FORBIDDEN.search("hashmodnffbanks_idr_tpu_torch.ops.fused_mlp")
 
 

@@ -2,9 +2,11 @@
 
 A small fusion-eligible conf (implicit dims [128]*8 so ``supports_fusion``
 holds and the port's tracer goes through ``fused_sdf_raw``, here its plain
-twin on the CPU), the same weights (``from_jax_params``), the same pixels
-and the same random draws: the JAX step's draws are regenerated from its key
-and injected into the port.
+twin on the CPU), and the flagship itself at full width (8x512 SDF MLP,
+4x512 rendering MLP, 256 features, 100 tracer steps) on a few rays: the
+same weights (``from_jax_params``), the same pixels and the same random
+draws: the JAX step's draws are regenerated from its key and injected into
+the port.
 """
 
 import numpy as np
@@ -33,31 +35,32 @@ N_RAYS = 64
 ALPHA = 50.0
 
 
-def _patch(conf, mode, view):
-    conf.put("model.implicit_network.dims", [128] * 8)
-    conf.put("model.rendering_network.dims", [64, 64])
-    conf.put("model.feature_vector_size", 32)
-    conf.put("model.ray_tracer.n_steps", 28)      # hierarchical stride 9
+def _patch(conf, mode, view, narrow=True):
+    if narrow:
+        conf.put("model.implicit_network.dims", [128] * 8)
+        conf.put("model.rendering_network.dims", [64, 64])
+        conf.put("model.feature_vector_size", 32)
+        conf.put("model.ray_tracer.n_steps", 28)      # hierarchical stride 9
     conf.put("model.tracer_fast", mode)
     conf.put("model.tracer_exact_fused", True)
     conf.put("model.rendering_network.viewdirs_embed_type", view)
     return conf
 
 
-def _setup(mode, view="StyleModNFFB"):
-    jconf = _patch(j_flagship_conf(num_pixels=N_RAYS), mode, view).get_config("model")
+def _setup(mode, view="StyleModNFFB", narrow=True, n_rays=N_RAYS):
+    jconf = _patch(j_flagship_conf(num_pixels=n_rays), mode, view, narrow).get_config("model")
     jmodel = JIDRNetwork(jconf)
     params = jax.jit(jmodel.init)(jax.random.PRNGKey(0))
-    model = IDRNetwork(_patch(flagship_conf(num_pixels=N_RAYS), mode, view).get_config("model"),
-                       device="cpu")
+    model = IDRNetwork(_patch(flagship_conf(num_pixels=n_rays), mode, view,
+                              narrow).get_config("model"), device="cpu")
     params_np = jax.tree_util.tree_map(np.asarray, params)
     model.load_state_dict(from_jax_params(params_np, model))
     scene_np = synthetic_scene(n_views=2, img_res=(32, 32), seed=0)
-    pixel_idx = np.random.default_rng(3).permutation(32 * 32)[:N_RAYS]
+    pixel_idx = np.random.default_rng(3).permutation(32 * 32)[:n_rays]
     return jmodel, params, model, scene_np, pixel_idx
 
 
-def _draws(model, rng, guided):
+def _draws(model, rng, guided, n_rays=N_RAYS):
     """The uniform draws the JAX step takes from ``rng`` (renderer.py:165,
     ray_tracing.py:368-393, renderer.py:189-191), for injection."""
     rng_trace, rng_eik = jax.random.split(rng)
@@ -69,7 +72,7 @@ def _draws(model, rng, guided):
     return {
         "coarse": np.array(jax.random.uniform(rng_c, (n_c,))),
         "fine": np.array(jax.random.uniform(rng_f, (n_f,))),
-        "eik": np.array(jax.random.uniform(rng_eik, (N_RAYS // 2, 3), minval=-bb, maxval=bb)),
+        "eik": np.array(jax.random.uniform(rng_eik, (n_rays // 2, 3), minval=-bb, maxval=bb)),
     }
 
 
@@ -84,10 +87,20 @@ def _jax_inputs(scene, img_idx, pixel_idx):
 @pytest.mark.parametrize("view", ["StyleModNFFB", "SHEncoder"])
 def test_exact_fused_step_matches_jax(view):
     """Loss, clipped gradients and Adam-updated parameters of one step, with
-    the flagship's deep view embedder and with SH (every conf's).  The
-    JAX gradients are read back from its Adam state: after one step
-    ``mu = (1 - b1) * clipped_grad``."""
-    jmodel, params, model, scene_np, pixel_idx = _setup("exact", view)
+    the flagship's deep view embedder and with SH (every conf's)."""
+    _check_exact_step(*_setup("exact", view), n_rays=N_RAYS)
+
+
+def test_full_width_step_matches_jax():
+    """The flagship step at its published widths (``flagship_conf``
+    unnarrowed) on 16 rays, at the width-128 case's tolerances."""
+    n_rays = 16
+    _check_exact_step(*_setup("exact", narrow=False, n_rays=n_rays), n_rays=n_rays)
+
+
+def _check_exact_step(jmodel, params, model, scene_np, pixel_idx, n_rays):
+    """One step on both sides.  The JAX gradients are read back from its
+    Adam state: after one step ``mu = (1 - b1) * clipped_grad``."""
     rng = jax.random.PRNGKey(7)
     img_idx = np.asarray([0], np.int32)
     jloss_cfg = JLossConfig(eikonal_weight=0.1, mask_weight=200.0, alpha=ALPHA)
@@ -104,7 +117,8 @@ def test_exact_fused_step_matches_jax(view):
     fm.reset_launch_counts()
     losses = build_train_step(model, IDRLossConfig(0.1, 200.0, ALPHA), make_optimizer(model))(
         scene_to_device(scene_np, "cpu"), torch.as_tensor(img_idx).long(),
-        torch.as_tensor(pixel_idx).long(), None, ALPHA, draws=_draws(model, rng, guided=False))
+        torch.as_tensor(pixel_idx).long(), None, ALPHA,
+        draws=_draws(model, rng, guided=False, n_rays=n_rays))
     for k in ("loss", "rgb_loss", "eikonal_loss", "mask_loss"):
         np.testing.assert_allclose(float(losses[k]), float(jlosses[k]), rtol=1e-4, err_msg=k)
 
