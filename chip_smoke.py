@@ -20,8 +20,18 @@ generates the anchor scene on the card, ``exp_runner`` trains the repo's
 ``run_eval`` and ``dtu_chamfer`` score it, and one view is rendered
 unfused, through the f32 kernel and through the bf16 kernel (``mixed``)
 and compared, and each kernel is held against its plain twin on the
-largest call that render gave it.  It fails if ``-Xptxas -v``
-reports a spill in either kernel.  Any failed check raises and
+largest call that render gave it.  The ``[ngp]`` phase holds both kernels
+against their plain twins at every encoder's first-layer depth (d_in 9, 15,
+27, 59, 102, and 198 and 510 for the K0 256 and 512 builds, at N=4096,
+timed), checks a 256-ray HashGridTcnn step on the
+card against the CPU, times the instant-ngp presets' step (log2=15 in
+exact+fused and mixed, log2=19 in mixed, the K=3 pruned variant in both;
+each cell must launch its kernel), holds each kernel on the largest call
+those steps gave it, and trains the repo's ``dtu_shaped_hashgridtcnn.conf``
+and ``dtu_shaped_posenc.conf`` for 30 epochs each through ``exp_runner``
+on the eval phase's scene (the loss must fall by a fifth, the bf16 kernel
+run every epoch).  It fails if ``-Xptxas -v`` reports a spill in either kernel at any
+compiled first-layer depth.  Any failed check raises and
 the script exits non-zero.  The second-to-last line is the kernels' JSON
 record, the last line ``{"ok": true, "device": {...}}``.
 
@@ -90,6 +100,34 @@ EVAL_EPOCHS, EVAL_PLOT_FREQ = 20, 10
 EVAL_VARIANTS = (("exact+fused", "exact", True, "fused_sdf_raw_f32", 0.999, 1e-3),
                  ("mixed", "mixed", False, "fused_sdf_raw_bf16", 0.98, 1.5))
 KERNEL_TOL = {"fused_sdf_raw_f32": TOL_F32, "fused_sdf_raw_bf16": TOL_BF16}
+# the [ngp] phase.  Each encoder's first-layer depth, from the flagship conf
+# with that SDF encoder: FourierFeatures 9, HashGridTcnn 15, HashGrid 27,
+# StyleModNFFB 59, NerfPos at multires 16 (dtu_shaped_posenc.conf) 102.  No
+# conf gives a depth past 128; NerfPos at multires 32 (198) and 84 (510)
+# holds the kernels compiled for K0 256 and 512
+CHECK_D_IN = {9: ("FourierFeatures", {}), 15: ("HashGridTcnn", {}), 27: ("HashGrid", {}),
+              59: ("StyleModNFFB", {}), 102: ("NerfPos", {"model.implicit_network.multires": 16}),
+              198: ("NerfPos", {"model.implicit_network.multires": 32}),
+              510: ("NerfPos", {"model.implicit_network.multires": 84})}
+DEPTH_N = 4096
+# the bench.py ngp presets (testing.NGP_PRESETS) at 2048 rays: (preset,
+# label, tracer_fast, tracer_exact_fused, the kernel the cell must launch)
+NGP_CELLS = (("ngp_log2_15", "exact+fused", "exact", True, "fused_sdf_raw_f32"),
+             ("ngp_log2_15", "mixed", "mixed", False, "fused_sdf_raw_bf16"),
+             ("ngp_log2_19", "mixed", "mixed", False, "fused_sdf_raw_bf16"),
+             ("ngp_log2_15_k3", "exact+fused", "exact", True, "fused_sdf_raw_f32"),
+             ("ngp_log2_15_k3", "mixed", "mixed", False, "fused_sdf_raw_bf16"))
+# the repo's hash-grid and positional-encoding confs, read in place, trained
+# on the eval phase's scene (only img_res and data_dir overridden).  An
+# epoch logs the loss of its last step, which swings by +-50% from epoch to
+# epoch at these confs' learning rate (1e-4), so the loss must fall
+# as a median: the median of the last 5 epochs' losses below
+# NGP_RUNNER_FALL x the median of the first 5.  In 10 epochs the fall is
+# within that noise; by 30 the median has roughly halved
+NGP_RUNNER_CONFS = ("dtu_shaped_hashgridtcnn.conf", "dtu_shaped_posenc.conf")
+NGP_RUNNER_EPOCHS = 30
+NGP_RUNNER_WINDOW = 5
+NGP_RUNNER_FALL = 0.8
 
 
 def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
@@ -191,9 +229,10 @@ def phase_kernels(dev, fm, model):
     return records
 
 
-def phase_reference(dev, fm):
-    """One small exact+fused step on the card against the same step on the
-    CPU (plain twin), same weights and draws: loss and hit masks agree."""
+def phase_reference(dev, fm, conf=None, label="exact+fused"):
+    """One small step on the card against the same step on the CPU (plain
+    twin), same weights and draws: loss and hit masks agree.  By default the
+    flagship in exact+fused; ``conf`` (a 256-ray conf) replaces it."""
     from hashmodnffbanks_idr_tpu_torch.models.loss import IDRLossConfig
     from hashmodnffbanks_idr_tpu_torch.models.ray_tracing import sweep_stride
     from hashmodnffbanks_idr_tpu_torch.models.renderer import IDRNetwork
@@ -202,8 +241,9 @@ def phase_reference(dev, fm):
     from hashmodnffbanks_idr_tpu_torch.train.trainer import loss_fn
 
     n_rays = 256
-    conf = flagship_conf(num_pixels=n_rays)
-    conf.put("model.tracer_exact_fused", True)
+    if conf is None:
+        conf = flagship_conf(num_pixels=n_rays)
+        conf.put("model.tracer_exact_fused", True)
     scene_np = synthetic_scene(n_views=2, img_res=(64, 64), seed=0)
     g = torch.Generator().manual_seed(5)
     pix = torch.randperm(64 * 64, generator=g)[:n_rays]
@@ -211,7 +251,10 @@ def phase_reference(dev, fm):
     for device in (dev, torch.device("cpu")):
         model = IDRNetwork(conf.get_config("model"), device=device, seed=0)
         cfg = model.ray_tracer
-        stride = sweep_stride(cfg, False, on_cuda=device.type == "cuda")
+        with torch.no_grad():
+            guidance = model._tracer_sdfs()[1]
+        stride = sweep_stride(cfg, bool(guidance and guidance.get("coarse")),
+                              on_cuda=device.type == "cuda")
         g = torch.Generator().manual_seed(6)
         draws = {"coarse": torch.rand((cfg.n_steps - 1) // stride + 1, generator=g),
                  "fine": torch.rand(3 * (stride - 1), generator=g),
@@ -225,9 +268,10 @@ def phase_reference(dev, fm):
                              captured["network_object_mask"].cpu())
     (l_gpu, m_gpu), (l_cpu, m_cpu) = outs["cuda"], outs["cpu"]
     agree = float((m_gpu == m_cpu).float().mean())
-    print(f"[reference] {n_rays} rays exact+fused: loss cuda={l_gpu:.6f} cpu={l_cpu:.6f} "
+    print(f"[reference] {n_rays} rays {label}: loss cuda={l_gpu:.6f} cpu={l_cpu:.6f} "
           f"hits cuda={int(m_gpu.sum())} cpu={int(m_cpu.sum())} mask agreement={agree:.4f} "
-          f"(cuda launches {fm.launch_counts['fused_sdf_raw_f32']['launches']})")
+          f"(cuda launches {fm.launch_counts['fused_sdf_raw_f32']['launches']} f32, "
+          f"{fm.launch_counts['fused_sdf_raw_bf16']['launches']} bf16)")
     if not (math.isfinite(l_gpu) and abs(l_gpu - l_cpu) <= 1e-2 * abs(l_cpu)):
         raise AssertionError(f"loss on the card {l_gpu} vs CPU {l_cpu}")
     if agree < 0.98:
@@ -256,16 +300,18 @@ def time_tracer(model, scene, img_idx, pixel_idx, gen, reps: int = 3) -> float:
     return statistics.median(times)
 
 
-def phase_step(dev, fm, scene, label, mode, fused, warmup, steps, expect=None):
-    """The flagship training step through the port's entry points; counts
-    reset just before the timed steps and read just after."""
+def phase_step(dev, fm, scene, label, mode, fused, warmup, steps, expect=None, conf=None,
+               tag="step"):
+    """A training step through the port's entry points, the flagship's by
+    default (``conf`` replaces it); counts reset just before the timed steps
+    and read just after."""
     from hashmodnffbanks_idr_tpu_torch.models.loss import IDRLossConfig
     from hashmodnffbanks_idr_tpu_torch.models.renderer import IDRNetwork
     from hashmodnffbanks_idr_tpu_torch.testing import flagship_conf
     from hashmodnffbanks_idr_tpu_torch.train.trainer import build_train_step, make_optimizer
     from hashmodnffbanks_idr_tpu_torch.utils.sampling import sample_pixels
 
-    conf = flagship_conf(num_pixels=N_RAYS)
+    conf = flagship_conf(num_pixels=N_RAYS) if conf is None else conf
     conf.put("model.tracer_fast", mode)
     conf.put("model.tracer_exact_fused", fused)
     model = IDRNetwork(conf.get_config("model"), device=dev, seed=0)
@@ -305,7 +351,7 @@ def phase_step(dev, fm, scene, label, mode, fused, warmup, steps, expect=None):
            "launches_per_step": {k: v["launches"] / steps for k, v in counts.items()},
            "points_per_step": {k: v["points"] / steps for k, v in counts.items()},
            "max_memory_allocated_mib": torch.cuda.max_memory_allocated() / 2**20}
-    print(f"[step] {json.dumps(rec)}")
+    print(f"[{tag}] {json.dumps(rec)}")
     fm.reset_launch_counts()
     return counts
 
@@ -574,22 +620,168 @@ def phase_eval(fm, smi: str, workdir: str):
     return counts, largest
 
 
-def check_spills(ptxas_log: str) -> dict:
-    """Each kernel must keep its 128 float accumulators and its fragments in
-    registers: no spills in the ``-Xptxas -v`` report.  Returns each
-    variant's registers a thread and spill bytes (stores + loads)."""
+def kernel_record(fm, name, x, packed, where=""):
+    """One variant on one input: held against its plain twin, then timed
+    beside the plain twin and the cuBLAS chain, with its bound."""
+    products, peak_key = {n: (p, k) for n, _, _, k, p in VARIANTS}[name]
+    err = hold_against_plain(fm, name, x, packed, where)
+    n, d_in = x.shape
+    hidden = packed["w_in"].shape[1]
+    ms = cuda_ms(lambda: fm.fused_sdf_raw(x, packed))
+    plain_ms = cuda_ms(lambda: fm.fused_sdf_raw_plain(x, packed))
+    library_ms = cuda_ms(lambda: library_chain(x, packed))
+    flops, nbytes = sdf_mlp_cost(n, d_in, hidden, packed["w_in"].element_size())
+    t_ops = products * flops / PEAK_FLOPS[peak_key] * 1e3
+    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+    return {"d_in": d_in, "k0": fm.kernel_depth(d_in), "n": n, "ms": ms, "plain_ms": plain_ms,
+            "library_ms": library_ms, "bound_ms": max(t_ops, t_bytes),
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes", "max_abs_err": err}
+
+
+@torch.no_grad()
+def spread_input_weights(net, gen):
+    """Add N(0, 0.03^2) to the first layer's and the skip layers' weights, as
+    training would spread them: the geometric init leaves their columns past
+    the 3 coordinates at zero, where a kernel that dropped those columns of
+    x would still agree with its plain twin."""
+    for l in (0, *net.skip_in):
+        lin = net.lin[l]
+        p = lin.v if lin.weight_norm else lin.w
+        p.add_(0.03 * torch.randn(p.shape, generator=gen, device=p.device))
+
+
+@torch.no_grad()
+def phase_depths(dev, fm):
+    """Each variant against its plain twin at every encoder's first-layer
+    depth (``CHECK_D_IN``), on that encoder's embedding of N=4096 points,
+    timed.  The geometric init zeroes the first layer's and the skip's
+    weights past the 3 coordinates, so each depth is held a second time with
+    those weights spread (``spread_input_weights``), where every input
+    column counts.  Launches made here are comparisons and are not counted."""
+    from hashmodnffbanks_idr_tpu_torch.models.renderer import IDRNetwork
+    from hashmodnffbanks_idr_tpu_torch.testing import flagship_conf
+
+    gen = torch.Generator(device=dev).manual_seed(2)
+    records = {name: [] for name, *_ in VARIANTS}
+    for d_in, (embed_type, puts) in CHECK_D_IN.items():
+        conf = flagship_conf(num_pixels=N_RAYS, embed_type=embed_type)
+        for k, v in puts.items():
+            conf.put(k, v)
+        net = IDRNetwork(conf.get_config("model"), device=dev, seed=0).implicit_network
+        if net.dims[0] != d_in:
+            raise AssertionError(f"{embed_type}: d_in {net.dims[0]}, expected {d_in}")
+        pts = (torch.rand(DEPTH_N, 3, generator=gen, device=dev) * 2 - 1) * 0.6
+        x = net._embed(pts).contiguous()
+        packed = {name: fm.pack_params(net.lin, d_in, net.dims[1], dtype=dtype)
+                  for name, dtype, *_ in VARIANTS}
+        spread_input_weights(net, gen)
+        for name, dtype, *_ in VARIANTS:
+            rec = kernel_record(fm, name, x, packed[name], f" d_in={d_in} ({embed_type})")
+            rec["max_abs_err_spread"] = hold_against_plain(
+                fm, name, x, fm.pack_params(net.lin, d_in, net.dims[1], dtype=dtype),
+                f" d_in={d_in} ({embed_type}, input weights spread)")
+            rec["max_abs_err"] = max(rec["max_abs_err"], rec["max_abs_err_spread"])
+            print(f"[ngp] kernel {name} {embed_type}: {json.dumps(rec)}")
+            records[name].append(rec)
+    fm.reset_launch_counts()
+    return records
+
+
+def phase_ngp_steps(dev, fm, scene):
+    """The ngp presets' training step at full width (``NGP_CELLS``), each
+    cell through ``phase_step`` (counts reset just before its timed steps and
+    read just after; the cell fails if its kernel was not launched in every
+    step); then each variant held against its plain twin on the largest
+    call the cells gave it, and timed there."""
+    from hashmodnffbanks_idr_tpu_torch.testing import ngp_conf
+
+    counts, kept = {}, {}
+    with keep_largest_call(fm, kept):
+        for preset, label, mode, fused, expect in NGP_CELLS:
+            cell = f"{preset} {label}"
+            counts[cell] = phase_step(dev, fm, scene, cell, mode, fused, 2, 10, expect=expect,
+                                      conf=ngp_conf(preset, num_pixels=N_RAYS), tag="ngp")
+    largest = {}
+    for name, (x, packed) in kept.items():
+        largest[name] = kernel_record(fm, name, x, packed, " (the ngp step's largest call)")
+        print(f"[ngp] largest call {name}: {json.dumps(largest[name])}")
+    kept.clear()
+    fm.reset_launch_counts()
+    return counts, largest
+
+
+def phase_ngp_runner(fm, smi: str, workdir: str, data_root: str) -> dict:
+    """The repo's hash-grid and positional-encoding confs through
+    ``exp_runner`` for ``NGP_RUNNER_EPOCHS`` epochs each, on the scene the
+    eval phase generated.  Counts reset just before each run and read just
+    after; the loss must fall (``NGP_RUNNER_FALL``) and the bf16 kernel run
+    every epoch."""
+    from hashmodnffbanks_idr_tpu_torch.config.hocon import parse_file
+    from hashmodnffbanks_idr_tpu_torch.train import exp_runner
+
+    counts = {}
+    for conf_name in NGP_RUNNER_CONFS:
+        conf = parse_file(str(DUMMY_CONF.parent / conf_name))
+        conf.put("dataset.img_res", [240, 320])
+        conf.put("dataset.data_dir", "dtu_shaped_small")
+        conf_path = os.path.join(workdir, conf_name)
+        with open(conf_path, "w") as f:
+            f.write(conf.dump())
+        fm.reset_launch_counts()
+        t0 = time.perf_counter()
+        runner = exp_runner.main(["--conf", conf_path, "--nepoch", str(NGP_RUNNER_EPOCHS),
+                                  "--data_root", data_root, "--no_tensorboard",
+                                  "--exps_folder_name", os.path.join(workdir, "exps_ngp")])
+        train_s = time.perf_counter() - t0
+        counts[conf_name] = {k: dict(v) for k, v in fm.launch_counts.items()}
+        rows = read_scalars(runner.rundir)
+        bf16 = [r["fused_sdf_raw_bf16_launches"] for r in rows]
+        losses = [r["loss"] for r in rows]
+        rec = {"card": smi, "conf": conf_name, "d_in": runner.model.implicit_network.dims[0],
+               "embed_type": conf.get_string("model.embedding_network.embed_type"),
+               "tracer_fast": conf.get_string("model.tracer_fast"), "epochs": NGP_RUNNER_EPOCHS,
+               "steps_per_epoch": runner.steps_per_epoch, "train_s": train_s,
+               "loss_epoch0": losses[0], f"loss_epoch{NGP_RUNNER_EPOCHS}": losses[-1],
+               "loss_median_first": statistics.median(losses[:NGP_RUNNER_WINDOW]),
+               "loss_median_last": statistics.median(losses[-NGP_RUNNER_WINDOW:]),
+               "losses": losses,
+               "rays_per_s_median_epochs_2_on": statistics.median(
+                   r["rays_per_s"] for r in rows[2:]),
+               "bf16_launches_per_epoch": bf16,
+               "bf16_points": counts[conf_name]["fused_sdf_raw_bf16"]["points"]}
+        print(f"[ngp] runner {json.dumps(rec)}")
+        if [r["step"] for r in rows] != list(range(NGP_RUNNER_EPOCHS + 1)):
+            raise AssertionError(f"{conf_name}: logged epochs {[r['step'] for r in rows]}")
+        if not all(math.isfinite(v) for v in losses) or not (
+                rec["loss_median_last"] < NGP_RUNNER_FALL * rec["loss_median_first"]):
+            raise AssertionError(f"{conf_name}: the loss did not fall: {losses}")
+        if min(bf16) <= 0 or sum(bf16) != counts[conf_name]["fused_sdf_raw_bf16"]["launches"]:
+            raise AssertionError(f"{conf_name}: bf16 kernel launches per epoch {bf16}")
+    fm.reset_launch_counts()
+    return counts
+
+
+def check_spills(ptxas_log: str, depths) -> dict:
+    """Each kernel, at every compiled first-layer depth, must keep its 128
+    float accumulators and its fragments in registers: no spills in the
+    ``-Xptxas -v`` report.  Returns each variant's registers a thread and
+    spill bytes (stores + loads) by depth."""
     out = {}
     for name, mangled in PTXAS_ENTRY.items():
-        entries = [e for e in ptxas_log.split("Compiling entry function")[1:] if mangled in e]
-        if len(entries) != 1:
-            raise AssertionError(f"ptxas report: {len(entries)} entries of {name}")
-        spills = [int(b) for b in re.findall(r"(\d+) bytes spill (?:stores|loads)", entries[0])]
-        regs = re.search(r"Used (\d+) registers", entries[0])
-        print(f"[ptxas] {name}: {regs.group(1) if regs else '?'} registers, "
-              f"spill stores/loads {spills} bytes")
-        if len(spills) != 2 or any(spills) or regs is None:
-            raise AssertionError(f"{name} spills registers: {entries[0].strip()}")
-        out[name] = {"registers": int(regs.group(1)), "spill_bytes": sum(spills)}
+        out[name] = {}
+        for k0 in depths:
+            entries = [e for e in ptxas_log.split("Compiling entry function")[1:]
+                       if f"{mangled}ILi{k0}E" in e]
+            if len(entries) != 1:
+                raise AssertionError(f"ptxas report: {len(entries)} entries of {name} K0={k0}")
+            spills = [int(b) for b in re.findall(r"(\d+) bytes spill (?:stores|loads)",
+                                                 entries[0])]
+            regs = re.search(r"Used (\d+) registers", entries[0])
+            print(f"[ptxas] {name} K0={k0}: {regs.group(1) if regs else '?'} registers, "
+                  f"spill stores/loads {spills} bytes")
+            if len(spills) != 2 or any(spills) or regs is None:
+                raise AssertionError(f"{name} K0={k0} spills registers: {entries[0].strip()}")
+            out[name][k0] = {"registers": int(regs.group(1)), "spill_bytes": sum(spills)}
     return out
 
 
@@ -601,8 +793,8 @@ def main() -> int:
     from hashmodnffbanks_idr_tpu_torch import resolve_device
     from hashmodnffbanks_idr_tpu_torch.models.renderer import IDRNetwork
     from hashmodnffbanks_idr_tpu_torch.ops import fused_mlp as fm
-    from hashmodnffbanks_idr_tpu_torch.testing import (flagship_conf, scene_to_device,
-                                                       synthetic_scene)
+    from hashmodnffbanks_idr_tpu_torch.testing import (flagship_conf, ngp_conf,
+                                                       scene_to_device, synthetic_scene)
 
     t_start = time.perf_counter()
     dev = resolve_device(None)
@@ -622,12 +814,16 @@ def main() -> int:
     print(f"[build] fused_mlp.cu built and loaded in {time.perf_counter() - t0:.1f} s")
     report = fm.ptxas_report().read_text()
     print(report.strip())
-    regs = check_spills(report)
+    regs = check_spills(report, fm.KERNEL_DEPTHS)
 
     model = IDRNetwork(flagship_conf(num_pixels=N_RAYS).get_config("model"), device=dev, seed=0)
     kernels = phase_kernels(dev, fm, model)
     del model
+    depth_records = phase_depths(dev, fm)
     phase_reference(dev, fm)
+    ngp_ref = ngp_conf("ngp_log2_15", num_pixels=256)
+    ngp_ref.put("model.tracer_exact_fused", False)
+    phase_reference(dev, fm, conf=ngp_ref, label="ngp log2=15 exact (unfused)")
 
     scene = scene_to_device(synthetic_scene(n_views=2, img_res=IMG_RES, seed=0), dev)
     phases = {
@@ -639,11 +835,14 @@ def main() -> int:
                            expect="fused_sdf_raw_bf16"),
         "exact (unfused)": phase_step(dev, fm, scene, "exact (unfused)", "exact", False, 1, 3),
     }
+    ngp_counts, ngp_largest = phase_ngp_steps(dev, fm, scene)
+    phases.update(ngp_counts)
     del scene
     with tempfile.TemporaryDirectory() as workdir:
         phases["runner"] = phase_runner(fm, smi, workdir)
         phase_decode(smi, workdir)
         phases["eval"], eval_largest = phase_eval(fm, smi, workdir)
+        phases.update(phase_ngp_runner(fm, smi, workdir, os.path.join(workdir, "data")))
 
     src = "hashmodnffbanks_idr_tpu_torch/ops/csrc/fused_mlp.cu"
     out = []
@@ -661,7 +860,16 @@ def main() -> int:
         # eval render's largest call
         rec["max_abs_err"] = max(r["max_abs_err"], eval_largest[name]["max_abs_err"])
         rec["eval_largest_call"] = eval_largest[name]
-        rec.update(regs[name])
+        rec["registers"] = max(r["registers"] for r in regs[name].values())
+        rec["spill_bytes"] = sum(r["spill_bytes"] for r in regs[name].values())
+        rec["registers_by_depth"] = {k: r["registers"] for k, r in regs[name].items()}
+        # the [ngp] phase: every encoder's first-layer depth at N=4096, and
+        # the ngp step's largest call
+        rec["held_d_in"] = sorted(set(CHECK_D_IN) | {ngp_largest[name]["d_in"]})
+        rec["depths"] = depth_records[name]
+        rec["ngp_largest_call"] = ngp_largest[name]
+        rec["max_abs_err"] = max([rec["max_abs_err"], ngp_largest[name]["max_abs_err"]]
+                                 + [r["max_abs_err"] for r in depth_records[name]])
         out.append(rec)
     print(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": out}))

@@ -1,25 +1,29 @@
-"""Encoders of the flagship path: the pure-torch hash grid with its Fourier
-aux features, the style-attention block, Neural Fourier Filter Banks, and
-the spherical-harmonics view encoder.
+"""The encoder family and its factory: positional encoding, random Fourier
+features, the pure-torch and the instant-ngp hash grids, the style-attention
+block, Neural Fourier Filter Banks on either grid, and spherical harmonics.
 
-Counterpart of ``hashmodnffbanks_idr_tpu/models/embedders.py`` for the
-``FFB``, ``StyleModNFFB`` and ``SHEncoder`` presets.  Parameter names follow the JAX
-params tree (``grid.table``, ``grid.ff.B``, ``ff_lin.<i>``, ``out_layer``,
-``style.linear_transform``, ``style.attention``) so the weight bridge is a
-rename plus transposes.
+Counterpart of ``hashmodnffbanks_idr_tpu/models/embedders.py``; ``build_embedder``
+takes every ``embed_type`` the JAX factory takes, with its presets and
+overrides.  Parameter names follow the JAX params tree (``grid.table``,
+``grid.ff.B``, ``ff_lin.<i>``, ``out_layer``, ``style.linear_transform``,
+``style.attention``, ``table``, ``B``) so the weight bridge is a rename plus
+transposes.
 
-``fast=True`` is the tracer's mixed-precision path: the grid features and
-their frequency encoding are carried in bfloat16, and the small matmuls
-round their operands to bfloat16 with float32 accumulation; normalisation
-statistics stay float32.
-
-Still to port: the ``HashGrid``/``HashGridNGP``/``PosEnc``/
-``FourierFeatures`` embedders.
+Every embedder's ``forward`` takes ``fast``: the tracer's mixed-precision
+path.  The NFFB grid features and their frequency encoding are then carried
+in bfloat16 and its small matmuls round their operands to bfloat16 with
+float32 accumulation (normalisation statistics stay float32); a hash grid
+rounds its looked-up values to bfloat16 where the JAX package's page path
+does.  Encoders without a grid ignore it, as the JAX package's ``_embed``
+does for those whose ``apply`` takes no ``fast``.  ``tv_loss(x)`` is the grid
+total variation, or None for encoders without a grid.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import math
+from typing import Optional, Sequence
 
 import numpy as np
 import torch
@@ -30,10 +34,31 @@ from ..ops import hashgrid as hg
 from ..ops.linear import Linear
 
 
+class PosEncEmbedder(nn.Module):
+    """'NerfPos' preset (custom_embedder_decoder.py:74-81; JAX :64-79):
+    ``[x, x, sin/cos bands]`` with ``num_freqs = multires`` bands up to
+    ``2^max_freq_log2``; the declared width sizes the first layer."""
+
+    def __init__(self, input_dims: int, num_freqs: int, max_freq_log2: float):
+        super().__init__()
+        self.num_freqs = num_freqs
+        self.max_freq_log2 = max_freq_log2
+        self.embeddings_dim = enc.posenc_declared_dim(input_dims, num_freqs, True)
+
+    def reset_parameters(self, gen: torch.Generator):
+        pass
+
+    def forward(self, x, fast: bool = False):
+        return enc.positional_encoding(x, self.num_freqs, self.max_freq_log2)
+
+    def tv_loss(self, x):
+        return None
+
+
 class FourierFeatureEmbedder(nn.Module):
-    """Random Fourier features ``[x, sin(2 pi x B), cos(2 pi x B)]``.  ``B``
-    is a trained parameter: it sits in the JAX params tree that the
-    optimizer updates."""
+    """Random Fourier features ``[x, sin(2 pi x B), cos(2 pi x B)]`` (JAX
+    :82-98).  ``B`` is a trained parameter: it sits in the JAX params tree
+    that the optimizer updates."""
 
     def __init__(self, input_dims: int, num_channels: int, sigma: float,
                  include_input: bool = True):
@@ -47,43 +72,121 @@ class FourierFeatureEmbedder(nn.Module):
     def reset_parameters(self, gen: torch.Generator):
         self.B.copy_(enc.fourier_features_init(gen, *self.B.shape, self.sigma))
 
-    def forward(self, x):
+    def forward(self, x, fast: bool = False):
         return enc.fourier_features(x, self.B, self.include_input)
 
+    def tv_loss(self, x):
+        return None
 
-class HashGridTorchEmbedder(nn.Module):
-    """'HashGrid' type, pure-torch semantics (hashGridEmbedding.py:105-155):
-    output ``[ff(x) (3 + 2L), levels (L*F)]`` (JAX :117-176)."""
+
+class _GridEmbedder(nn.Module):
+    """A hash table ``table`` of ``spec`` with the spec's per-level constants
+    kept as buffers (one host-to-device copy at build time)."""
+
+    def _init_grid(self, spec: hg.HashGridSpec):
+        self.spec = spec
+        self.table = nn.Parameter(torch.empty(spec.padded_total_rows(), spec.level_dim))
+        for name, t in zip(hg.GridConstants._fields, hg.level_constants(spec)):
+            self.register_buffer(f"_grid_{name}", t, persistent=False)
+
+    def _consts(self) -> hg.GridConstants:
+        return hg.GridConstants(*(getattr(self, f"_grid_{name}")
+                                  for name in hg.GridConstants._fields))
+
+
+class HashGridTorchEmbedder(_GridEmbedder):
+    """'HashGrid' type, pure-torch semantics (hashGridEmbedding.py:105-155;
+    JAX :117-176): output ``[ff(x) (3 + 2L), levels (L*F)]`` (the factory
+    and NFFB always include the input).  ``interpolation='floor'`` is the
+    reference's degenerate floor-corner lookup, 'linear' the corrected
+    trilinear one."""
 
     def __init__(self, in_dim: int, n_levels: int, max_points_per_level: int,
-                 log2_hashmap_size: int, base_resolution: int, desired_resolution: int):
+                 log2_hashmap_size: int, base_resolution: int, desired_resolution: int,
+                 interpolation: str = "floor"):
         super().__init__()
-        self.spec = hg.HashGridSpec(
+        self._init_grid(hg.HashGridSpec(
             input_dim=in_dim, num_levels=n_levels, level_dim=max_points_per_level,
             base_resolution=base_resolution, log2_hashmap_size=log2_hashmap_size,
             desired_resolution=desired_resolution, variant="torch",
-            interpolation="floor", init_std=1e-4)
+            interpolation=interpolation, init_std=1e-4))
         self.ff = FourierFeatureEmbedder(
             in_dim, num_channels=n_levels,
             sigma=(math.log(desired_resolution) - math.log(base_resolution))
             / (base_resolution - 1))
-        self.table = nn.Parameter(torch.empty(self.spec.padded_total_rows(),
-                                              max_points_per_level))
         output_dim = n_levels * max_points_per_level + (self.ff.embeddings_dim - in_dim)
         self.embeddings_dim = in_dim + output_dim
-        for name, t in zip(("_level_scales", "_level_sizes", "_level_offsets"),
-                           hg.level_constants(self.spec)):
-            self.register_buffer(name, t, persistent=False)
 
     @torch.no_grad()
     def reset_parameters(self, gen: torch.Generator):
         self.table.copy_(hg.init_table(gen, self.spec))
         self.ff.reset_parameters(gen)
 
-    def forward(self, x):
-        grid = hg.hash_encode(x, self.table, self.spec, consts=(
-            self._level_scales, self._level_sizes, self._level_offsets))
+    def forward(self, x, fast: bool = False):
+        grid = hg.hash_encode(x, self.table, self.spec, zero_oob=False, inference=fast,
+                              consts=self._consts())
         return torch.cat([self.ff(x), grid], dim=-1)
+
+    def tv_loss(self, x):
+        return hg.total_variation_loss(x, self.table, self.spec, self._consts())
+
+
+class HashGridNGPEmbedder(_GridEmbedder):
+    """instant-ngp-semantics grid behind 'HashGridTcnn' and 'HashGridCUDA'
+    (JAX :178-261).  ``input_range='raw'`` feeds x unmapped (the Tcnn
+    wrapper, hashGridEncoderTcnn.py:89-93); 'unit' maps [-size, size] to
+    [0, 1] and zeroes out-of-bound samples (hashgridencoder.py:126-142).
+    Output ``[head (D), levels (L*F)]``, ``head`` being the (mapped) input
+    (the factory and NFFB always include it).  Every preset of the factory
+    sets ``per_level_scale`` 2 (read when ``desired_resolution`` is None)
+    and draws the table from U(+-1e-4)."""
+
+    def __init__(self, in_dim: int, n_levels: int, max_points_per_level: int,
+                 log2_hashmap_size: int, base_resolution: int,
+                 desired_resolution: Optional[int], input_range: str = "raw",
+                 size: float = 0.5, gridtype: str = "hash", interpolation: str = "linear",
+                 align_corners: bool = False):
+        super().__init__()
+        if input_range not in ("raw", "unit"):
+            raise ValueError(f"input_range={input_range!r}")
+        self.input_range = input_range
+        self.size = size
+        self._init_grid(hg.HashGridSpec(
+            input_dim=in_dim, num_levels=n_levels, level_dim=max_points_per_level,
+            base_resolution=base_resolution, log2_hashmap_size=log2_hashmap_size,
+            per_level_scale=2.0, desired_resolution=desired_resolution, variant="ngp",
+            gridtype=gridtype, interpolation=interpolation, align_corners=align_corners,
+            init_std=1e-4))
+        self.embeddings_dim = n_levels * max_points_per_level + in_dim
+
+    @torch.no_grad()
+    def reset_parameters(self, gen: torch.Generator):
+        self.table.copy_(hg.init_table(gen, self.spec))
+
+    def forward(self, x, fast: bool = False, max_level: Optional[int] = None,
+                fill: Optional[torch.Tensor] = None, floor_interp: bool = False):
+        """``max_level``/``fill``: the level-pruned guidance encode (the
+        ``max_level`` coarsest levels, the rest ``fill``); ``floor_interp``:
+        the floor corner only.  Both serve approximate tracer guidance."""
+        spec = self.spec
+        if floor_interp and spec.interpolation != "floor":
+            spec = dataclasses.replace(spec, interpolation="floor")
+        if max_level is not None and max_level >= spec.num_levels:
+            max_level = None
+        head = (x + self.size) / (2 * self.size) if self.input_range == "unit" else x
+        grid = hg.hash_encode(head, self.table, spec, zero_oob=self.input_range == "unit",
+                              inference=fast, max_level=max_level, fill=fill,
+                              consts=self._consts())
+        return torch.cat([head, grid], dim=-1)
+
+    def level_fill(self) -> torch.Tensor:
+        """Per-level mean features (L, C), the fill of pruned levels."""
+        return hg.level_means(self.table, self.spec)
+
+    def tv_loss(self, x):
+        if self.input_range == "unit":
+            x = torch.clamp((x + self.size) / (2 * self.size), 0.0, 1.0)
+        return hg.total_variation_loss(x, self.table, self.spec, self._consts())
 
 
 def _instance_norm_rows(x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
@@ -113,31 +216,44 @@ class StyleAttentionBlock(nn.Module):
 
 
 class NFFBEmbedder(nn.Module):
-    """Neural Fourier Filter Banks on the pure-torch grid, SIREN trunk,
-    PositionalEncodingNET frequency encoder, shared out-layer
-    (nffb3d.py:24-194; JAX :302-553 with ``grid_backend='torch'``).
+    """Neural Fourier Filter Banks, SIREN trunk, PositionalEncodingNET
+    frequency encoder, shared out-layer (nffb3d.py:24-194; JAX :302-553).
 
-    Reference quirks kept: the per-level grid output is 2F wide because the
-    ``(N, L, 2F)`` reshape interleaves the Fourier-aux and hash columns (the
-    first ``in_dim`` aux columns are dropped); the include-input slot is
-    duplicated; the trunk width is twice the encoder's declared width;
-    SIREN ``w0 = L^F - L``; the output is divided by L, not by the L-2
-    levels used."""
+    ``grid_backend='torch'`` ('FFB'/'StyleModNFFB'): the pure-torch grid; its
+    per-level output is 2F wide because the ``(N, L, 2F)`` reshape interleaves
+    the Fourier-aux and hash columns (the first ``in_dim`` aux columns are
+    dropped), and the trunk width is twice the encoder's declared width.
+    ``grid_backend='ngp'`` ('FFBTcnn', FFB_encoder.py:23-255): the ngp grid,
+    per-level width F, no doubling.  Quirks kept: the include-input slot is
+    duplicated; SIREN ``w0 = L^F - L``; the output is divided by L, not by
+    the L-2 levels used."""
 
     def __init__(self, *, in_dim: int, n_levels: int, max_points_per_level: int,
                  log2_hashmap_size: int, base_resolution: int,
-                 desired_resolution: int, bound: float, style_modulation: bool):
+                 desired_resolution: int, bound: float, style_modulation: bool,
+                 grid_backend: str = "torch", grid_interpolation: Optional[str] = None):
         super().__init__()
         self.bound = bound
         self.n_levels = n_levels
         self.F = max_points_per_level
         self.style_modulation = style_modulation
-        self.grid = HashGridTorchEmbedder(
-            in_dim, n_levels, max_points_per_level, log2_hashmap_size,
-            base_resolution, desired_resolution)
-        self.level_width = 2 * max_points_per_level            # nffb3d.py:138
+        if grid_backend == "torch":
+            self.grid = HashGridTorchEmbedder(
+                in_dim, n_levels, max_points_per_level, log2_hashmap_size,
+                base_resolution, desired_resolution,
+                interpolation=grid_interpolation or "floor")
+            self.level_width = 2 * max_points_per_level        # nffb3d.py:138
+        elif grid_backend == "ngp":
+            self.grid = HashGridNGPEmbedder(
+                in_dim, n_levels, max_points_per_level, log2_hashmap_size,
+                base_resolution, desired_resolution, input_range="raw",
+                interpolation=grid_interpolation or "linear")
+            self.level_width = max_points_per_level            # FFB_encoder.py:146
+        else:
+            raise ValueError(f"grid_backend={grid_backend!r}")
         declared = enc.posenc_declared_dim(max_points_per_level, n_levels, True)
-        self.nffb_lin_dims = [in_dim] + [2 * declared] * (n_levels - 1)  # nffb3d.py:67-69
+        mult = 2 if grid_backend == "torch" else 1  # nffb3d.py:67-69 vs FFB_encoder.py:74-77
+        self.nffb_lin_dims = [in_dim] + [mult * declared] * (n_levels - 1)
         self.n_nffb_layers = len(self.nffb_lin_dims)
         if self.n_nffb_layers < 3:
             raise ValueError(f"NFFB needs multires >= 3, got {n_levels}")
@@ -184,11 +300,14 @@ class NFFBEmbedder(nn.Module):
         emb = torch.where(self._identity[:, None], pre, torch.sin(pre + phase))
         return emb.reshape(n, L, -1)
 
+    def tv_loss(self, inp):
+        return self.grid.tv_loss((inp + self.bound) / (2 * self.bound))  # nffb3d.py:132
+
     def forward(self, inp, fast: bool = False):
         x = inp / self.bound                                   # nffb3d.py:131
         input01 = (inp + self.bound) / (2 * self.bound)
 
-        augmented = self.grid(input01)
+        augmented = self.grid(input01, fast=fast)
         grid_x = augmented[..., inp.shape[-1]:].reshape(-1, self.n_levels, self.level_width)
         if fast:
             grid_x = grid_x.to(torch.bfloat16)
@@ -235,22 +354,53 @@ class SHEmbedder(nn.Module):
     def forward(self, x, fast: bool = False):
         return enc.spherical_harmonics(x, self.degree)
 
+    def tv_loss(self, x):
+        return None
+
 
 def build_embedder(embed_type: str, input_dims: int, multires: int,
                    log2_max_hash_size: int, max_points_per_entry: int,
-                   base_resolution: int, desired_resolution: int, bound: float,
-                   **overrides) -> nn.Module:
-    """The reference factory's ``FFB``/``StyleModNFFB`` presets
-    (custom_embedder_decoder.py:147-155; JAX :560-592) and ``SHEncoder``
-    with its preset degree 4 (JAX :637-638)."""
+                   base_resolution: int, desired_resolution: Optional[int], bound: float,
+                   network_dims: Optional[Sequence[int]] = None, **overrides) -> nn.Module:
+    """``embed_type`` -> the configured encoder with the reference factory's
+    presets (custom_embedder_decoder.py:13-164; JAX :560-639).
+    ``network_dims`` (the MLP's widths) is read by 'FourierFeatures' only,
+    whose channel count is ``network_dims[0]``."""
+    if embed_type == "HashGrid":
+        return HashGridTorchEmbedder(
+            input_dims, multires, max_points_per_entry, log2_max_hash_size,
+            base_resolution, desired_resolution,
+            interpolation=overrides.get("interpolation", "floor"))
+    if embed_type in ("FFB", "StyleModNFFB"):
+        return NFFBEmbedder(
+            in_dim=input_dims, n_levels=multires, max_points_per_level=max_points_per_entry,
+            log2_hashmap_size=log2_max_hash_size, base_resolution=base_resolution,
+            desired_resolution=desired_resolution, bound=bound,
+            style_modulation=(embed_type == "StyleModNFFB"), grid_backend="torch",
+            grid_interpolation=overrides.get("grid_interpolation"))
+    if embed_type == "FFBTcnn":
+        return NFFBEmbedder(
+            in_dim=input_dims, n_levels=multires, max_points_per_level=max_points_per_entry,
+            log2_hashmap_size=log2_max_hash_size, base_resolution=base_resolution,
+            desired_resolution=desired_resolution, bound=bound,
+            style_modulation=overrides.get("style_modulation", True),  # 'FFB_TCNN' preset
+            grid_backend="ngp", grid_interpolation=overrides.get("grid_interpolation"))
+    if embed_type == "NerfPos":
+        return PosEncEmbedder(input_dims, num_freqs=multires, max_freq_log2=log2_max_hash_size)
+    if embed_type == "FourierFeatures":
+        if network_dims is None:
+            raise ValueError("FourierFeatures takes its channel count from network_dims[0]")
+        return FourierFeatureEmbedder(input_dims, num_channels=list(network_dims)[0],
+                                      sigma=1.0, include_input=True)
+    if embed_type in ("HashGridTcnn", "HashGridCUDA", "MultiResHashEncoderCUDA"):
+        unit = embed_type != "HashGridTcnn"
+        return HashGridNGPEmbedder(
+            input_dims, multires, max_points_per_entry, log2_max_hash_size,
+            base_resolution, desired_resolution, input_range="unit" if unit else "raw",
+            size=overrides.get("size", 0.5) if unit else 0.5,
+            gridtype=overrides.get("gridtype", "hash"),
+            interpolation=overrides.get("interpolation", "linear"),
+            align_corners=overrides.get("align_corners", False) if unit else False)
     if embed_type == "SHEncoder":
         return SHEmbedder(input_dims, degree=overrides.get("degree", 4))
-    if embed_type not in ("FFB", "StyleModNFFB"):
-        raise NotImplementedError(f"embedder {embed_type!r} is not ported yet")
-    if overrides.get("grid_interpolation") not in (None, "floor"):
-        raise NotImplementedError("only floor grid interpolation is ported")
-    return NFFBEmbedder(
-        in_dim=input_dims, n_levels=multires, max_points_per_level=max_points_per_entry,
-        log2_hashmap_size=log2_max_hash_size, base_resolution=base_resolution,
-        desired_resolution=desired_resolution, bound=bound,
-        style_modulation=(embed_type == "StyleModNFFB"))
+    raise ValueError(f"Not a valid embedding model type: {embed_type!r}")

@@ -16,6 +16,10 @@ class IDRLossConfig(NamedTuple):
     eikonal_weight: float = 0.1
     mask_weight: float = 100.0
     alpha: float = 50.0   # initial value; the annealed copy is passed per call
+    # grid total-variation weight (torch-ngp grad_total_variation slot,
+    # gridencoder_torchngp/grid.py:173-196); 0 disables.  The train step adds
+    # it at the traced points (train/trainer.py:loss_fn).
+    tv_weight: float = 0.0
 
 
 def rgb_loss(rgb_values, rgb_gt, mask, n_pixels):

@@ -13,6 +13,7 @@ from typing import Optional, Sequence
 import torch
 from torch import nn
 
+from ..ops import encodings as enc
 from ..ops import fused_mlp as fm
 from ..ops.linear import Linear, softplus
 from .embedders import SHEmbedder, build_embedder
@@ -52,7 +53,7 @@ class ImplicitNetwork(nn.Module):
         self.embedder = None
         if embed_type and multires > 0:
             self.embedder = build_embedder(
-                embed_type, input_dims=d_in, multires=multires,
+                embed_type, input_dims=d_in, network_dims=dims, multires=multires,
                 log2_max_hash_size=log2_max_hash_size,
                 max_points_per_entry=max_points_per_entry,
                 base_resolution=base_resolution,
@@ -91,21 +92,45 @@ class ImplicitNetwork(nn.Module):
             else:
                 lin.init_normal(gen, 0.0, std, 0.0)
 
-    def _embed(self, x, fast: bool = False):
-        return x if self.embedder is None else self.embedder(x, fast=fast)
+    def supports_level_pruning(self) -> bool:
+        """True when the embedder serves level-pruned guidance queries (the
+        ngp hash grid; JAX :231-234)."""
+        return self.embedder is not None and hasattr(self.embedder, "level_fill")
 
-    def forward(self, x: torch.Tensor, fast: bool = False) -> torch.Tensor:
-        """x (N, 3) -> (N, 1 + feature_vector_size); channel 0 is the clamped
-        SDF.  ``fast=True`` is the bf16-operand path (tracer guidance only)."""
-        inp = self._embed(x, fast)
+    def _embed(self, x, fast: bool = False, max_level: Optional[int] = None,
+               floor_interp: bool = False, fill: Optional[torch.Tensor] = None):
+        """The encoder's output (JAX :198-215).  ``max_level``/``floor_interp``
+        run the pruned guidance encode where the embedder supports it (the
+        fill of the pruned levels is ``fill``, or the table's level means)."""
+        if self.embedder is None:
+            return x
+        if (max_level is not None or floor_interp) and self.supports_level_pruning():
+            if max_level is not None and max_level >= self.embedder.spec.num_levels:
+                max_level = None
+            if max_level is not None and fill is None:
+                fill = self.embedder.level_fill()
+            return self.embedder(x, fast=fast, max_level=max_level,
+                                 fill=fill if max_level is not None else None,
+                                 floor_interp=floor_interp)
+        return self.embedder(x, fast=fast)
+
+    def _mlp(self, inp: torch.Tensor, bf16: bool) -> torch.Tensor:
+        """The layer chain on the embedded input, unclamped."""
         h = inp
         for l, lin in enumerate(self.lin):
             if l in self.skip_in:
                 h = torch.cat([h, inp], dim=1) / math.sqrt(2)
-            h = lin(h, bf16=fast)
+            h = lin(h, bf16=bf16)
             if l < self.num_layers - 2:
                 h = softplus(h, beta=100.0)
-        return self._clamp(h)
+        return h
+
+    def forward(self, x: torch.Tensor, fast: bool = False, max_level: Optional[int] = None,
+                floor_interp: bool = False) -> torch.Tensor:
+        """x (N, 3) -> (N, 1 + feature_vector_size); channel 0 is the clamped
+        SDF.  ``fast=True`` is the bf16-operand path and ``max_level``/
+        ``floor_interp`` the pruned encode (tracer guidance only)."""
+        return self._clamp(self._mlp(self._embed(x, fast, max_level, floor_interp), fast))
 
     def _clamp(self, h):
         """SDF clamp (impl..._renderer.py:106-112): tanh(raw / (2 + dens))
@@ -117,26 +142,49 @@ class ImplicitNetwork(nn.Module):
     def sdf(self, x: torch.Tensor) -> torch.Tensor:
         return self(x)[..., 0]
 
+    def tv_loss(self, x: torch.Tensor):
+        """Grid total variation at the points x, or None when the embedder has
+        no grid (JAX :221-229)."""
+        return None if self.embedder is None else self.embedder.tv_loss(x)
+
     @torch.no_grad()
-    def make_fast_sdf(self, precision: str = "bf16"):
-        """SDF closure for the gradient-free tracer (JAX :236-320, without
-        level pruning).  For the standard 8x512 skip-4 architecture it packs
-        the weights once and runs ``ops.fused_mlp.fused_sdf_raw`` (the CUDA
-        kernel on a CUDA tensor, its plain twin on a CPU one); other
-        architectures run the layer chain with bf16 or f32 operands.
-        ``precision='f32'`` is the same math as :meth:`sdf`."""
+    def make_fast_sdf(self, precision: str = "bf16", max_level: Optional[int] = None,
+                      floor_interp: bool = False, fused: bool = True):
+        """SDF closure for the gradient-free tracer (JAX :236-320).  For the
+        standard 8x512 skip-4 architecture it packs the weights once and runs
+        ``ops.fused_mlp.fused_sdf_raw`` (the CUDA kernel on a CUDA tensor, its
+        plain twin on a CPU one); other architectures, or ``fused=False``,
+        run the layer chain with bf16 or f32 operands.  ``precision='f32'``
+        is the same math as :meth:`sdf`.
+
+        ``max_level=K``/``floor_interp`` (where :meth:`supports_level_pruning`)
+        make a guidance SDF: the encoder gathers only the K coarsest levels,
+        the rest filled with their table means, and/or only the floor corner.
+        The fill is computed here, once per closure."""
         if precision not in ("bf16", "f32"):
             raise ValueError(precision)
         bf16 = precision == "bf16"
+        if not self.supports_level_pruning():
+            max_level, floor_interp = None, False
+        if max_level is not None and max_level >= self.embedder.spec.num_levels:
+            max_level = None
+        fill = self.embedder.level_fill() if max_level is not None else None
 
-        if not fm.supports_fusion(self.dims, self.skip_in):
-            return lambda x: self(x, fast=bf16)[..., 0]
+        def embed(x):
+            return self._embed(x, bf16, max_level, floor_interp, fill)
+
+        if not (fused and fm.supports_fusion(self.dims, self.skip_in)):
+            def sdf_layers(x):
+                raw = self._mlp(embed(x), bf16)[..., 0]
+                return torch.tanh(raw / (2.0 + self.density(raw)))
+
+            return sdf_layers
 
         packed = fm.pack_params(self.lin, self.dims[0], self.dims[1],
                                 dtype=torch.bfloat16 if bf16 else torch.float32)
 
         def sdf_fused(x):
-            raw = fm.fused_sdf_raw(self._embed(x, bf16), packed)
+            raw = fm.fused_sdf_raw(embed(x), packed)
             return torch.tanh(raw / (2.0 + self.density(raw)))
 
         return sdf_fused
@@ -157,29 +205,42 @@ class ImplicitNetwork(nn.Module):
 
 
 class RenderingNetwork(nn.Module):
-    """Appearance MLP (impl..._renderer.py:130-223) in 'idr' mode.  View
-    directions go through SH of degree ``multires_view`` for
-    ``SHEncoder`` (built directly, not through the factory, as JAX
-    models/networks.py:355-358 does), else through a deep embedder whose
-    settings are hard-coded as in the reference (impl..._renderer.py:163-184)."""
+    """Appearance MLP (impl..._renderer.py:130-223; JAX :334-413).  Its input
+    is ``[points, view, normals, features]`` in mode 'idr', without the view
+    in 'no_view_dir' and without the normals in 'no_normal'.  View
+    directions are embedded in mode 'idr' only: SH of degree
+    ``multires_view`` for ``SHEncoder`` (built directly, as JAX :355-358
+    does), the classic ``nerf_embed`` for ``NerfPos`` (declared width
+    ``get_embedder_dims``, 3 less than its output, which replaces the 3
+    raw directions), else a deep embedder from the factory with the
+    reference's hard-coded settings (impl..._renderer.py:163-184)."""
+
+    MODES = ("idr", "no_view_dir", "no_normal")
 
     def __init__(self, feature_vector_size: int, mode: str, d_in: int, d_out: int,
                  dims: Sequence[int], weight_norm: bool = True, multires_view: int = 0,
                  viewdirs_embed_type: str = "NerfPos", **embed_overrides):
         super().__init__()
-        if mode != "idr":
-            raise NotImplementedError(f"rendering mode {mode!r} is not ported yet")
+        if mode not in self.MODES:
+            raise ValueError(f"rendering mode {mode!r} is not one of {self.MODES}")
+        self.mode = mode
         dims = [d_in + feature_vector_size] + list(dims) + [d_out]
         self.view_embedder = None
-        if multires_view > 0 and viewdirs_embed_type == "SHEncoder":
-            self.view_embedder = SHEmbedder(3, degree=multires_view)
-            dims[0] += self.view_embedder.embeddings_dim - 3
-        elif multires_view > 0:
-            self.view_embedder = build_embedder(
-                viewdirs_embed_type, input_dims=3, multires=multires_view,
-                log2_max_hash_size=multires_view - 1, max_points_per_entry=2,
-                base_resolution=16, desired_resolution=512, bound=1.0, **embed_overrides)
-            dims[0] += self.view_embedder.embeddings_dim - 3
+        self.nerf_multires = 0
+        if multires_view > 0 and mode == "idr":
+            if viewdirs_embed_type == "SHEncoder":
+                self.view_embedder = SHEmbedder(3, degree=multires_view)
+                dims[0] += self.view_embedder.embeddings_dim - 3
+            elif viewdirs_embed_type == "NerfPos":
+                self.nerf_multires = multires_view
+                dims[0] += enc.get_embedder_dims(multires_view)
+            else:
+                self.view_embedder = build_embedder(
+                    viewdirs_embed_type, input_dims=3, network_dims=dims,
+                    multires=multires_view, log2_max_hash_size=multires_view - 1,
+                    max_points_per_entry=2, base_resolution=16, desired_resolution=512,
+                    bound=1.0, **embed_overrides)
+                dims[0] += self.view_embedder.embeddings_dim - 3
         self.dims = dims
         self.num_layers = len(dims)
         self.lin = nn.ModuleList(Linear(dims[l], dims[l + 1], weight_norm=weight_norm)
@@ -193,9 +254,16 @@ class RenderingNetwork(nn.Module):
             lin.init_torch_default(gen)
 
     def forward(self, points, normals, view_dirs, feature_vectors):
-        if self.view_embedder is not None:
+        if self.nerf_multires:
+            view_dirs = enc.nerf_embed(view_dirs, self.nerf_multires)
+        elif self.view_embedder is not None:
             view_dirs = self.view_embedder(view_dirs)
-        h = torch.cat([points, view_dirs, normals, feature_vectors], dim=-1)
+        if self.mode == "idr":
+            h = torch.cat([points, view_dirs, normals, feature_vectors], dim=-1)
+        elif self.mode == "no_view_dir":
+            h = torch.cat([points, normals, feature_vectors], dim=-1)
+        else:
+            h = torch.cat([points, view_dirs, feature_vectors], dim=-1)
         for l, lin in enumerate(self.lin):
             h = lin(h)
             if l < self.num_layers - 2:

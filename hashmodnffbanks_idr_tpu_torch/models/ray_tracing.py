@@ -12,8 +12,10 @@ sweep's uniform draws (``{'dense': (n,)}`` or ``{'coarse': (n_c,), 'fine':
 (n_f,)}``) so tests can feed both implementations the same numbers;
 otherwise they come from ``generator``.
 
-Still to port: the level-pruned guidance presets (``prune_levels_*``,
-``prune_secant_iters``).
+Guidance (``sdf_guidance``, JAX :98-210 and :515-588): cheaper approximate
+SDFs for the march's phase A (``'march'``), the sweep's coarse probes
+(``'coarse'``) and the first ``prune_secant_iters`` secant iterations
+(``'secant'``); every decision is taken on the exact ``sdf``.
 """
 
 from __future__ import annotations
@@ -45,9 +47,9 @@ class RayTracerConfig(NamedTuple):
 def sweep_stride(cfg: RayTracerConfig, guided_coarse: bool, on_cuda: bool):
     """The hierarchical sweep's coarse stride s with (n-1) % s == 0, None for
     the dense sweep (JAX :75-89).  A coarse guide that is really cheaper than
-    the decision SDF (the bf16 tensor-core kernel on the card; the JAX
-    package asks the same of the TPU) flips the optimum to the smallest
-    stride."""
+    the decision SDF flips the optimum to the smallest stride: a level-pruned
+    guide anywhere, or any guide on the card (the bf16 tensor-core kernel;
+    the JAX package asks the same of the TPU, :156-157)."""
     if not cfg.hierarchical_sweep:
         return None
     n = cfg.n_steps
@@ -55,7 +57,7 @@ def sweep_stride(cfg: RayTracerConfig, guided_coarse: bool, on_cuda: bool):
     valid = [s for s in cands if n > 2 * s and (n - 1) % s == 0]
     if not valid:
         return None
-    if guided_coarse and on_cuda:
+    if guided_coarse and (cfg.prune_levels_coarse > 0 or on_cuda):
         return min(valid, key=lambda s: ((n - 1) // s + 1) * 0.4 + 3 * (s - 1))
     return valid[0]
 
@@ -89,15 +91,15 @@ def ray_trace(cfg: RayTracerConfig, sdf: Callable[[torch.Tensor], torch.Tensor],
               draws: Optional[Dict[str, torch.Tensor]] = None) -> TraceResult:
     """Full tracer (ray_tracing.py:26-95), flattened to R = B*P rays.
 
-    ``sdf_guidance`` ({'march', 'coarse'}) supplies cheaper approximate SDFs
-    for the guidance stages; decisions stay on ``sdf`` (JAX :98-210)."""
-    if cfg.prune_levels_march or cfg.prune_levels_coarse or cfg.prune_secant_iters:
-        raise NotImplementedError("level-pruned guidance (prune_*) is not ported yet")
+    ``sdf_guidance`` ({'march', 'coarse', 'secant'}) supplies cheaper
+    approximate SDFs for the guidance stages; decisions stay on ``sdf``
+    (JAX :98-210)."""
     B, P, _ = ray_directions.shape
     R = B * P
     guide = sdf_guidance or {}
     sdf_march = guide.get("march")
     sdf_coarse = guide.get("coarse")
+    sdf_secant = guide.get("secant") if cfg.prune_secant_iters > 0 else None
 
     sphere_int, mask_intersect = get_sphere_intersection(
         cam_loc, ray_directions, r=cfg.object_bounding_sphere)
@@ -137,7 +139,7 @@ def ray_trace(cfg: RayTracerConfig, sdf: Callable[[torch.Tensor], torch.Tensor],
 
     sampler_pts, sampler_net_obj_mask, sampler_dists = _ray_sampler(
         cfg, sdf, cam_flat, dirs_flat, object_mask, idx_grid, points, pts_intervals,
-        sdf_val, sampler_mask, training, exact_mask=exact_mask)
+        sdf_val, sampler_mask, training, sdf_guide=sdf_secant, exact_mask=exact_mask)
     curr_start_points = torch.where(sampler_mask[:, None], sampler_pts, curr_start_points)
     acc_start_dis = torch.where(sampler_mask, sampler_dists, acc_start_dis)
     network_object_mask = torch.where(sampler_mask, sampler_net_obj_mask, network_object_mask)
@@ -309,7 +311,7 @@ def _hierarchical_sweep(cfg, sdf, cam, dirs, sampler_mask, t0, t1, generator, st
 
 
 def _ray_sampler(cfg, sdf, cam, dirs, object_mask, idx_grid, points, pts_intervals,
-                 sdf_val, sampler_mask, training, exact_mask=None):
+                 sdf_val, sampler_mask, training, sdf_guide=None, exact_mask=None):
     """First negative grid index, min-SDF fallback and secant refinement over
     the sweep's evaluated probes (JAX :443-512)."""
     n = cfg.n_steps
@@ -341,16 +343,21 @@ def _ray_sampler(cfg, sdf, cam, dirs, object_mask, idx_grid, points, pts_interva
     secant_pts = (net_surface_pts & object_mask) if training else net_surface_pts
     secant_pts = secant_pts & sampler_mask
     sdf_low, z_low, _ = extract((ind - 1) % n)
-    z_pred = _secant(cfg, sdf, sdf_low, sdf_at_ind, z_low, t_at_ind, cam, dirs, secant_pts)
+    z_pred = _secant(cfg, sdf, sdf_low, sdf_at_ind, z_low, t_at_ind, cam, dirs, secant_pts,
+                     sdf_guide=sdf_guide)
 
     sampler_pts = torch.where(secant_pts[:, None], cam + z_pred[:, None] * dirs, sampler_pts)
     sampler_dists = torch.where(secant_pts, z_pred, sampler_dists)
     return sampler_pts, sampler_net_obj_mask, sampler_dists
 
 
-def _secant(cfg, sdf, sdf_low, sdf_high, z_low, z_high, cam, dirs, active):
+def _secant(cfg, sdf, sdf_low, sdf_high, z_low, z_high, cam, dirs, active, sdf_guide=None):
     """Fixed n_secant_steps masked iterations, the prediction clamped into
-    the current bracket (JAX :515-588, without the guided phase)."""
+    the current bracket (JAX :515-588).  With ``sdf_guide``, the first
+    ``prune_secant_iters`` iterations run on the guide; one exact call then
+    re-validates the guided bracket (each side keeps its guided position only
+    where the exact SDF confirms its sign, else reverts to its pre-guide
+    endpoint), and the remaining iterations run on ``sdf``."""
 
     def safe_div(a, b):
         tiny = torch.where(b < 0, -1e-12, 1e-12)
@@ -361,14 +368,29 @@ def _secant(cfg, sdf, sdf_low, sdf_high, z_low, z_high, cam, dirs, active):
         return torch.minimum(torch.maximum(z, torch.minimum(z_low, z_high)),
                              torch.maximum(z_low, z_high))
 
-    z_pred = predict(z_low, sdf_low, z_high, sdf_high)
-    for _ in range(cfg.n_secant_steps):
-        sdf_mid = torch.where(active, sdf(cam + z_pred[:, None] * dirs), 0.0)
-        ind_low = sdf_mid > 0
-        z_low = torch.where(ind_low, z_pred, z_low)
-        sdf_low = torch.where(ind_low, sdf_mid, sdf_low)
-        ind_high = sdf_mid < 0
-        z_high = torch.where(ind_high, z_pred, z_high)
-        sdf_high = torch.where(ind_high, sdf_mid, sdf_high)
-        z_pred = predict(z_low, sdf_low, z_high, sdf_high)
-    return z_pred
+    def iterate(fn, iters, z_low, sdf_low, z_high, sdf_high, z_pred):
+        for _ in range(iters):
+            sdf_mid = torch.where(active, fn(cam + z_pred[:, None] * dirs), 0.0)
+            ind_low = sdf_mid > 0
+            z_low = torch.where(ind_low, z_pred, z_low)
+            sdf_low = torch.where(ind_low, sdf_mid, sdf_low)
+            ind_high = sdf_mid < 0
+            z_high = torch.where(ind_high, z_pred, z_high)
+            sdf_high = torch.where(ind_high, sdf_mid, sdf_high)
+            z_pred = predict(z_low, sdf_low, z_high, sdf_high)
+        return z_low, sdf_low, z_high, sdf_high, z_pred
+
+    carry = (z_low, sdf_low, z_high, sdf_high, predict(z_low, sdf_low, z_high, sdf_high))
+    m = min(cfg.prune_secant_iters, cfg.n_secant_steps) if sdf_guide is not None else 0
+    if m > 0:
+        z_low, sdf_low, z_high, sdf_high, _ = iterate(sdf_guide, m, *carry)
+        v2 = sdf(torch.cat([cam + z_low[:, None] * dirs, cam + z_high[:, None] * dirs], dim=0))
+        v2 = torch.where(torch.cat([active, active], dim=0), v2, 0.0)
+        v_lo, v_hi = v2[: z_low.shape[0]], v2[z_low.shape[0]:]
+        ok_lo, ok_hi = v_lo > 0, v_hi < 0
+        z_low = torch.where(ok_lo, z_low, carry[0])
+        sdf_low = torch.where(ok_lo, v_lo, carry[1])
+        z_high = torch.where(ok_hi, z_high, carry[2])
+        sdf_high = torch.where(ok_hi, v_hi, carry[3])
+        carry = (z_low, sdf_low, z_high, sdf_high, predict(z_low, sdf_low, z_high, sdf_high))
+    return iterate(sdf, cfg.n_secant_steps - m, *carry)[-1]

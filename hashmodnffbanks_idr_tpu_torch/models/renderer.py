@@ -10,8 +10,10 @@ normals for the sample network and the eikonal term; misses render white.
 Tracer precision (``model.tracer_fast``; JAX :49-74):
   'exact' -- everything float32; with ``model.tracer_exact_fused = true``
              the tracer's SDF queries go through the fused float32 kernel;
-  'mixed' -- bf16 guidance (march phase A, sweep coarse probes) through the
-             fused bf16 kernel, float32 decisions;
+             level-pruned guidance (``prune_*``) runs float32 too;
+  'mixed' -- bf16 guidance (march phase A, sweep coarse probes, the first
+             ``prune_secant_iters`` secant steps) through the fused bf16
+             kernel, float32 decisions;
   'fast'  -- every tracer query through the fused bf16 kernel.
 The fused path is chosen from the config alone: ``fused_sdf_raw`` launches
 the CUDA kernel for a CUDA tensor and runs its plain twin for a CPU one.
@@ -65,15 +67,43 @@ class IDRNetwork(nn.Module):
 
     def _tracer_sdfs(self):
         """(decision SDF, guidance dict or None) for the tracer mode
-        (JAX :106-163, without level pruning)."""
-        net = self.implicit_network
+        (JAX :106-163).  Guidance is level-pruned where the conf's
+        ``prune_levels_*`` ask for it and the encoder supports it: bf16
+        (the bf16 kernel) in 'mixed' and 'fast', f32 in 'exact' (the f32
+        kernel with ``tracer_exact_fused``); with ``prune_secant_iters`` the
+        first secant iterations run on the coarse (else march) guide."""
+        net, rt = self.implicit_network, self.ray_tracer
+
+        def fast(max_level=None, floor=False):
+            return net.make_fast_sdf("bf16", max_level=max_level, floor_interp=floor)
+
+        def pruned_f32(max_level, floor):
+            return net.make_fast_sdf("f32", max_level=max_level, floor_interp=floor,
+                                     fused=self.tracer_exact_fused)
+
+        def build_guidance(make_base=None, precision="bf16"):
+            """march/coarse guides: level-pruned SDFs where the conf and the
+            encoder allow them, else ``make_base()``; each SDF built once."""
+            make = fast if precision == "bf16" else pruned_f32
+            prune = ((rt.prune_levels_march > 0 or rt.prune_levels_coarse > 0)
+                     and net.supports_level_pruning())
+            fns, guide = {}, {}
+            for key, k in (("march", rt.prune_levels_march), ("coarse", rt.prune_levels_coarse)):
+                k = k if prune else 0
+                if k > 0 or make_base is not None:
+                    if k not in fns:
+                        fns[k] = make(k, rt.prune_floor_interp) if k > 0 else make_base()
+                    guide[key] = fns[k]
+            if guide and rt.prune_secant_iters > 0:
+                guide["secant"] = guide.get("coarse") or guide.get("march")
+            return guide or None
+
         if self.tracer_mode == "exact":
-            sdf = net.make_fast_sdf(precision="f32") if self.tracer_exact_fused else net.sdf
-            return sdf, None
-        fast = net.make_fast_sdf(precision="bf16")
+            sdf = net.make_fast_sdf("f32") if self.tracer_exact_fused else net.sdf
+            return sdf, build_guidance(precision="f32")
         if self.tracer_mode == "fast":
-            return fast, None
-        return net.sdf, {"march": fast, "coarse": fast}
+            return fast(), build_guidance()
+        return net.sdf, build_guidance(make_base=fast)
 
     def forward(self, inputs: Dict[str, torch.Tensor],
                 generator: Optional[torch.Generator] = None, training: bool = True,

@@ -9,6 +9,12 @@
 //   after l3: columns >= 512-d_in hold x/sqrt(2), the rest h/sqrt(2)
 //   sdf = h . w_out + b_out                 (only the SDF column)
 //
+// The first layer's depth K0 (d_in rounded up to a compiled depth, rows past
+// d_in zero) is a template parameter of both variants: 64, 128, 256 or 512,
+// so every d_in < 512 that the JAX kernel takes is served (the encoders give
+// 9 to 102).  It sets only l0's chunk count; the ring, the tile and the
+// epilogues are the same at every depth.
+//
 // Two variants.  float weights (the 'exact' tracer) run on the tensor cores
 // in split-TF32; bf16 weights (guidance queries) on bf16 mma.sync with float
 // accumulation.  Each layer rounds its input to the weight type, as the
@@ -101,7 +107,6 @@ using bf16 = __nv_bfloat16;
 constexpr int HIDDEN = 512;
 constexpr int N_MID = 7;           // l1..l7
 constexpr int SKIP_AFTER_MID = 2;  // the skip concat follows l3
-constexpr int K0 = 64;             // first-layer depth: d_in <= 64, zero padded
 constexpr float INV_SQRT2 = 0.70710678118654752f;
 constexpr int MAX_SMEM = 232448;   // an sm_90 block's dynamic shared memory
 
@@ -130,12 +135,18 @@ constexpr int STAGES = 3;
 // B fragments rows t at column g (stride = 8 mod 32): no bank conflicts
 constexpr int LDA = HIDDEN + 4;
 constexpr int LDW = HIDDEN + 8;
-constexpr int CHUNKS_IN = K0 / KC;          // l0's chunks
-constexpr int CHUNKS_MID = HIDDEN / KC;     // each of l1..l7's
-constexpr int CHUNKS = CHUNKS_IN + N_MID * CHUNKS_MID;
+constexpr int CHUNKS_MID = HIDDEN / KC;     // each of l1..l7's chunks
 constexpr size_t SMEM = sizeof(float) * (TM * LDA + STAGES * KC * LDW);
 static_assert(SMEM <= MAX_SMEM, "f32 tile and weight ring exceed shared memory");
-static_assert(KC % 8 == 0 && K0 % KC == 0 && HIDDEN % KC == 0, "chunking");
+static_assert(KC % 8 == 0 && HIDDEN % KC == 0, "chunking");
+
+// the chunk stream of first-layer depth K0: l0's chunks, then l1..l7's
+template <int K0>
+struct Stream {
+  static_assert(K0 % KC == 0 && K0 <= HIDDEN, "l0 depth: whole chunks, inside the tile");
+  static constexpr int CHUNKS_IN = K0 / KC;
+  static constexpr int CHUNKS = CHUNKS_IN + N_MID * CHUNKS_MID;
+};
 
 // x = hi + lo, both TF32 rounded to nearest, ties away from zero (x - hi is
 // exact in float).  The integer form gives the bits of cvt.rna.tf32.f32 and
@@ -169,10 +180,12 @@ __device__ __forceinline__ void mma_add(float (&c)[4], const uint32_t (&a)[4],
 // each, KC rows a chunk) into its ring stage, as one commit group; rows at or
 // past d_in in l0 are zero.  Past the end it commits an empty group, so that
 // the group count stays uniform for wait_group.
+template <int K0>
 __device__ __forceinline__ void prefetch_chunk(float* ring, int c, int d_in,
                                             const float* __restrict__ w_in,
                                             const float* __restrict__ w_mid) {
-  if (c < CHUNKS) {
+  constexpr int CHUNKS_IN = Stream<K0>::CHUNKS_IN;
+  if (c < Stream<K0>::CHUNKS) {
     const bool first = c < CHUNKS_IN;
     const int m = (c - CHUNKS_IN) / CHUNKS_MID;
     const float* W = first ? w_in : w_mid + (size_t)m * HIDDEN * HIDDEN;
@@ -285,12 +298,14 @@ __device__ __forceinline__ void activate(float* act, const float* __restrict__ b
   }
 }
 
+template <int K0>
 __global__ void __launch_bounds__(NT, 1)
     fused_sdf_kernel(const float* __restrict__ x, int n, int d_in,
                      const float* __restrict__ w_in, const float* __restrict__ b_in,
                      const float* __restrict__ w_mid, const float* __restrict__ b_mid,
                      const float* __restrict__ w_out, const float* __restrict__ b_out,
                      float* __restrict__ out) {
+  constexpr int CHUNKS_IN = Stream<K0>::CHUNKS_IN, CHUNKS = Stream<K0>::CHUNKS;
   extern __shared__ __align__(128) unsigned char smem[];
   float* act = reinterpret_cast<float*>(smem);  // (TM, LDA)
   float* ring = act + TM * LDA;                 // STAGES x (KC, LDW)
@@ -300,7 +315,7 @@ __global__ void __launch_bounds__(NT, 1)
   const int col0 = warp * WARP_COLS;
 
 #pragma unroll
-  for (int c = 0; c < STAGES - 1; ++c) prefetch_chunk(ring, c, d_in, w_in, w_mid);
+  for (int c = 0; c < STAGES - 1; ++c) prefetch_chunk<K0>(ring, c, d_in, w_in, w_mid);
 
   // the point tile at its real width, zero padded to K0 columns and TM rows
   for (int i = threadIdx.x; i < TM * K0; i += NT) {
@@ -321,7 +336,7 @@ __global__ void __launch_bounds__(NT, 1)
     // c-1, whose stage the next copy overwrites
     asm volatile("cp.async.wait_group %0;" ::"n"(STAGES - 2) : "memory");
     __syncthreads();
-    prefetch_chunk(ring, c + STAGES - 1, d_in, w_in, w_mid);
+    prefetch_chunk<K0>(ring, c + STAGES - 1, d_in, w_in, w_mid);
 
     const bool first = c < CHUNKS_IN;
     const int layer = first ? 0 : 1 + (c - CHUNKS_IN) / CHUNKS_MID;
@@ -352,20 +367,36 @@ __global__ void __launch_bounds__(NT, 1)
   }
 }
 
+template <int K0>
 int launch(const float* x, int n, int d_in, const float* w_in, const float* b_in,
            const float* w_mid, const float* b_mid, const float* w_out, const float* b_out,
            float* out, cudaStream_t stream) {
-  if (n <= 0 || d_in <= 0 || d_in > K0) return (int)cudaErrorInvalidValue;
   static bool attr_set = false;
   if (!attr_set) {
     const cudaError_t err = cudaFuncSetAttribute(
-        fused_sdf_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)SMEM);
+        fused_sdf_kernel<K0>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)SMEM);
     if (err != cudaSuccess) return (int)err;
     attr_set = true;
   }
-  fused_sdf_kernel<<<(n + TM - 1) / TM, NT, SMEM, stream>>>(x, n, d_in, w_in, b_in, w_mid,
-                                                           b_mid, w_out, b_out, out);
+  fused_sdf_kernel<K0><<<(n + TM - 1) / TM, NT, SMEM, stream>>>(x, n, d_in, w_in, b_in, w_mid,
+                                                               b_mid, w_out, b_out, out);
   return (int)cudaGetLastError();
+}
+
+// k0: the compiled first-layer depth to launch, chosen by the caller (the
+// smallest that covers d_in); the skip fills columns >= 512 - d_in, so d_in
+// < 512
+int launch_depth(int k0, const float* x, int n, int d_in, const float* w_in, const float* b_in,
+                 const float* w_mid, const float* b_mid, const float* w_out, const float* b_out,
+                 float* out, cudaStream_t stream) {
+  if (n <= 0 || d_in <= 0 || d_in > k0 || d_in >= HIDDEN) return (int)cudaErrorInvalidValue;
+  switch (k0) {
+    case 64: return launch<64>(x, n, d_in, w_in, b_in, w_mid, b_mid, w_out, b_out, out, stream);
+    case 128: return launch<128>(x, n, d_in, w_in, b_in, w_mid, b_mid, w_out, b_out, out, stream);
+    case 256: return launch<256>(x, n, d_in, w_in, b_in, w_mid, b_mid, w_out, b_out, out, stream);
+    case 512: return launch<512>(x, n, d_in, w_in, b_in, w_mid, b_mid, w_out, b_out, out, stream);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace f32
@@ -386,14 +417,20 @@ constexpr int STAGES = 2;
 // phase reads fall in distinct banks, for A and for B
 constexpr int LDA = HIDDEN + 8;
 constexpr int LDW = HIDDEN + 8;
-constexpr int CHUNKS_IN = K0 / KC;          // l0's chunks
-constexpr int CHUNKS_MID = HIDDEN / KC;     // each of l1..l7's
-constexpr int CHUNKS = CHUNKS_IN + N_MID * CHUNKS_MID;
+constexpr int CHUNKS_MID = HIDDEN / KC;     // each of l1..l7's chunks
 constexpr size_t SMEM = sizeof(bf16) * (TM * LDA + STAGES * KC * LDW);
 static_assert(SMEM <= MAX_SMEM, "bf16 tile and weight ring exceed shared memory");
 // an even number of 16-deep k-steps a chunk: the main loop's two fragment
 // buffers then alternate from chunk to chunk
-static_assert(KC % 32 == 0 && K0 % KC == 0 && HIDDEN % KC == 0, "chunking");
+static_assert(KC % 32 == 0 && HIDDEN % KC == 0, "chunking");
+
+// the chunk stream of first-layer depth K0: l0's chunks, then l1..l7's
+template <int K0>
+struct Stream {
+  static_assert(K0 % KC == 0 && K0 <= HIDDEN, "l0 depth: whole chunks, inside the tile");
+  static constexpr int CHUNKS_IN = K0 / KC;
+  static constexpr int CHUNKS = CHUNKS_IN + N_MID * CHUNKS_MID;
+};
 static_assert(NI % 2 == 0, "ldmatrix.x4.trans loads two n8 tiles");
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
@@ -430,9 +467,11 @@ __device__ __forceinline__ void mma(float (&c)[4], const uint32_t (&a)[4],
 // A warp copies exactly the part of each stage that it reads, so it waits
 // for its own copies only.  Past the end it commits an empty group, so that
 // the group count stays uniform for wait_group.
+template <int K0>
 __device__ __forceinline__ void prefetch_chunk(bf16* ring, int c, int d_in, int col0, int lane,
                                                const bf16* __restrict__ w_in,
                                                const bf16* __restrict__ w_mid) {
+  constexpr int CHUNKS_IN = Stream<K0>::CHUNKS_IN, CHUNKS = Stream<K0>::CHUNKS;
   // lane -> 16-byte piece col of rows r0, r0 + ROW_STEP, ...
   constexpr int PER_ROW = WARP_COLS / 8;  // 16-byte copies a row
   constexpr int ROW_STEP = 32 / PER_ROW;
@@ -487,7 +526,9 @@ __device__ __forceinline__ void mma_step(float (&acc)[MI][NI][4], const Frags& f
 }
 
 // chunk c's first column in its layer's input
+template <int K0>
 __device__ __forceinline__ int chunk_col(int c) {
+  constexpr int CHUNKS_IN = Stream<K0>::CHUNKS_IN;
   return c < CHUNKS_IN ? c * KC : (c - CHUNKS_IN) % CHUNKS_MID * KC;
 }
 
@@ -546,12 +587,14 @@ __device__ __forceinline__ void epilogue(float (&acc)[MI][NI][4], bf16* act,
   }
 }
 
+template <int K0>
 __global__ void __launch_bounds__(NT, 1)
     fused_sdf_kernel(const float* __restrict__ x, int n, int d_in,
                      const bf16* __restrict__ w_in, const float* __restrict__ b_in,
                      const bf16* __restrict__ w_mid, const float* __restrict__ b_mid,
                      const bf16* __restrict__ w_out, const float* __restrict__ b_out,
                      float* __restrict__ out) {
+  constexpr int CHUNKS_IN = Stream<K0>::CHUNKS_IN, CHUNKS = Stream<K0>::CHUNKS;
   extern __shared__ __align__(128) unsigned char smem[];
   bf16* act = reinterpret_cast<bf16*>(smem);  // (TM, LDA)
   bf16* ring = act + TM * LDA;                // STAGES x (KC, LDW)
@@ -566,7 +609,7 @@ __global__ void __launch_bounds__(NT, 1)
   const uint32_t w_base = smem_addr(ring + lrow * LDW + col0 + lcol);
 
 #pragma unroll
-  for (int c = 0; c < STAGES - 1; ++c) prefetch_chunk(ring, c, d_in, col0, lane, w_in, w_mid);
+  for (int c = 0; c < STAGES - 1; ++c) prefetch_chunk<K0>(ring, c, d_in, col0, lane, w_in, w_mid);
 
   // the point tile at its real width in bf16, zero padded to K0 columns and
   // TM rows
@@ -600,7 +643,7 @@ __global__ void __launch_bounds__(NT, 1)
     __syncwarp();
   };
   const auto frag_addr = [&](int j, int s, uint32_t& a, uint32_t& w) {
-    a = a_base + sizeof(bf16) * (chunk_col(j) + s * 16);
+    a = a_base + sizeof(bf16) * (chunk_col<K0>(j) + s * 16);
     w = w_base + sizeof(bf16) * ((j % STAGES) * KC + s * 16) * LDW;
   };
   Frags f[2];
@@ -616,10 +659,10 @@ __global__ void __launch_bounds__(NT, 1)
       frag_addr(c, s + 1, a_addr, w_addr);
       load_frags(f[(s + 1) % 2], a_addr, w_addr);
       mma_step(acc, f[s % 2]);
-      if (s == 0) prefetch_chunk(ring, c + STAGES - 1, d_in, col0, lane, w_in, w_mid);
+      if (s == 0) prefetch_chunk<K0>(ring, c + STAGES - 1, d_in, col0, lane, w_in, w_mid);
     }
     const bool first = c < CHUNKS_IN;
-    const bool layer_end = chunk_col(c) == (first ? K0 : HIDDEN) - KC;
+    const bool layer_end = chunk_col<K0>(c) == (first ? K0 : HIDDEN) - KC;
     if (layer_end) {
       __syncthreads();  // every warp has loaded its last fragments of the tile
       mma_step(acc, f[LAST]);
@@ -661,20 +704,36 @@ __global__ void __launch_bounds__(NT, 1)
   }
 }
 
+template <int K0>
 int launch(const float* x, int n, int d_in, const bf16* w_in, const float* b_in,
            const bf16* w_mid, const float* b_mid, const bf16* w_out, const float* b_out,
            float* out, cudaStream_t stream) {
-  if (n <= 0 || d_in <= 0 || d_in > K0) return (int)cudaErrorInvalidValue;
   static bool attr_set = false;
   if (!attr_set) {
     const cudaError_t err = cudaFuncSetAttribute(
-        fused_sdf_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)SMEM);
+        fused_sdf_kernel<K0>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)SMEM);
     if (err != cudaSuccess) return (int)err;
     attr_set = true;
   }
-  fused_sdf_kernel<<<(n + TM - 1) / TM, NT, SMEM, stream>>>(x, n, d_in, w_in, b_in, w_mid,
-                                                           b_mid, w_out, b_out, out);
+  fused_sdf_kernel<K0><<<(n + TM - 1) / TM, NT, SMEM, stream>>>(x, n, d_in, w_in, b_in, w_mid,
+                                                               b_mid, w_out, b_out, out);
   return (int)cudaGetLastError();
+}
+
+// k0: the compiled first-layer depth to launch, chosen by the caller (the
+// smallest that covers d_in); the skip fills columns >= 512 - d_in, so d_in
+// < 512
+int launch_depth(int k0, const float* x, int n, int d_in, const bf16* w_in, const float* b_in,
+                 const bf16* w_mid, const float* b_mid, const bf16* w_out, const float* b_out,
+                 float* out, cudaStream_t stream) {
+  if (n <= 0 || d_in <= 0 || d_in > k0 || d_in >= HIDDEN) return (int)cudaErrorInvalidValue;
+  switch (k0) {
+    case 64: return launch<64>(x, n, d_in, w_in, b_in, w_mid, b_mid, w_out, b_out, out, stream);
+    case 128: return launch<128>(x, n, d_in, w_in, b_in, w_mid, b_mid, w_out, b_out, out, stream);
+    case 256: return launch<256>(x, n, d_in, w_in, b_in, w_mid, b_mid, w_out, b_out, out, stream);
+    case 512: return launch<512>(x, n, d_in, w_in, b_in, w_mid, b_mid, w_out, b_out, out, stream);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace bf16k
@@ -682,25 +741,27 @@ int launch(const float* x, int n, int d_in, const bf16* w_in, const float* b_in,
 }  // namespace
 
 // Plain C interface for ctypes.  Pointers are device pointers; the stream is
-// the caller's cudaStream_t.  Returns the cudaError_t of the launch (0 = ok).
-extern "C" int fused_sdf_raw_f32(const void* x, int n, int d_in, const void* w_in,
+// the caller's cudaStream_t; k0 is the compiled first-layer depth to launch
+// (64, 128, 256 or 512, at least d_in).  Returns the cudaError_t of the launch
+// (0 = ok).
+extern "C" int fused_sdf_raw_f32(const void* x, int n, int d_in, int k0, const void* w_in,
                                  const void* b_in, const void* w_mid, const void* b_mid,
                                  const void* w_out, const void* b_out, void* out,
                                  void* stream) {
-  return f32::launch(static_cast<const float*>(x), n, d_in, static_cast<const float*>(w_in),
-                     static_cast<const float*>(b_in), static_cast<const float*>(w_mid),
-                     static_cast<const float*>(b_mid), static_cast<const float*>(w_out),
-                     static_cast<const float*>(b_out), static_cast<float*>(out),
-                     static_cast<cudaStream_t>(stream));
+  return f32::launch_depth(k0, static_cast<const float*>(x), n, d_in,
+                           static_cast<const float*>(w_in), static_cast<const float*>(b_in),
+                           static_cast<const float*>(w_mid), static_cast<const float*>(b_mid),
+                           static_cast<const float*>(w_out), static_cast<const float*>(b_out),
+                           static_cast<float*>(out), static_cast<cudaStream_t>(stream));
 }
 
-extern "C" int fused_sdf_raw_bf16(const void* x, int n, int d_in, const void* w_in,
+extern "C" int fused_sdf_raw_bf16(const void* x, int n, int d_in, int k0, const void* w_in,
                                   const void* b_in, const void* w_mid, const void* b_mid,
                                   const void* w_out, const void* b_out, void* out,
                                   void* stream) {
-  return bf16k::launch(static_cast<const float*>(x), n, d_in, static_cast<const bf16*>(w_in),
-                       static_cast<const float*>(b_in), static_cast<const bf16*>(w_mid),
-                       static_cast<const float*>(b_mid), static_cast<const bf16*>(w_out),
-                       static_cast<const float*>(b_out), static_cast<float*>(out),
-                       static_cast<cudaStream_t>(stream));
+  return bf16k::launch_depth(k0, static_cast<const float*>(x), n, d_in,
+                             static_cast<const bf16*>(w_in), static_cast<const float*>(b_in),
+                             static_cast<const bf16*>(w_mid), static_cast<const float*>(b_mid),
+                             static_cast<const bf16*>(w_out), static_cast<const float*>(b_out),
+                             static_cast<float*>(out), static_cast<cudaStream_t>(stream));
 }

@@ -1,9 +1,10 @@
 """Frequency-space input encodings.
 
-Counterpart of ``hashmodnffbanks_idr_tpu/ops/encodings.py`` for what the
-flagship path uses: the log-spaced frequency bands, the positional
-encoding's *declared* width (which sizes the NFFB trunk), random Fourier
-features, and the real spherical harmonics of the view directions.
+Counterpart of ``hashmodnffbanks_idr_tpu/ops/encodings.py``: the NeRF
+positional encoding with the reference's include-input quirk and its
+*declared* width (which sizes the NFFB trunk), the classic IDR view-direction
+embedding, random Fourier features, and the real spherical harmonics of the
+view directions.
 """
 
 from __future__ import annotations
@@ -20,6 +21,24 @@ def freq_bands(num_freqs: int, max_freq_log2: float, log_sampling: bool = True) 
     return np.linspace(2.0**0.0, 2.0**max_freq_log2, num_freqs)
 
 
+def positional_encoding(x: torch.Tensor, num_freqs: int, max_freq_log2: float,
+                        include_input: bool = True) -> torch.Tensor:
+    """[..., d] -> [..., d*2*num_freqs + (2*d if include_input)] (JAX :36-74):
+    ``[x, x, sin(f0 x), cos(f0 x), sin(f1 x), ...]``.  The identity map is a
+    member of the reference's embed-fn list and the input is concatenated
+    again (frequency_enc.py:24-25,45-47), hence ``x`` twice.  The log-spaced
+    bands (``freq_bands``) are made on x's device: a host copy would wait
+    for the device on every call."""
+    bands = torch.linspace(0.0, max_freq_log2, num_freqs, dtype=torch.float64,
+                           device=x.device).exp2().to(x.dtype)
+    xf = x[..., None, :] * bands[:, None]                       # (..., F, d)
+    flat = torch.stack([torch.sin(xf), torch.cos(xf)], dim=-2)  # (..., F, 2, d)
+    flat = flat.reshape(*x.shape[:-1], num_freqs * 2 * x.shape[-1])
+    if include_input:
+        return torch.cat([x, x, flat], dim=-1)
+    return flat
+
+
 def posenc_declared_dim(input_dims: int, num_freqs: int, include_input: bool) -> int:
     """The reference's *declared* embeddings_dim (frequency_enc.py:13-16,25):
     ``d*(1 + 2*num_freqs)`` plus ``d`` again when include_input.  It differs
@@ -31,6 +50,20 @@ def posenc_declared_dim(input_dims: int, num_freqs: int, include_input: bool) ->
 
 def posenc_actual_dim(input_dims: int, num_freqs: int, include_input: bool) -> int:
     return input_dims * 2 * num_freqs + (2 * input_dims if include_input else 0)
+
+
+def get_embedder_dims(multires: int) -> int:
+    """The reference's get_embedder() out_dim (frequency_enc.py:156-168; JAX
+    :77-79): the declared width of ``nerf_embed``, 3 less than its output."""
+    return 3 * (1 + 2 * multires)
+
+
+def nerf_embed(x: torch.Tensor, multires: int) -> torch.Tensor:
+    """The classic IDR view-direction embedding (frequency_enc.py:156-168; JAX
+    :82-86): ``positional_encoding`` with ``multires`` bands up to
+    2^(multires-1), input included."""
+    return positional_encoding(x, num_freqs=multires, max_freq_log2=multires - 1,
+                               include_input=True)
 
 
 def fourier_features_init(gen: torch.Generator, input_dims: int, num_channels: int,

@@ -41,7 +41,10 @@ from .linear import Linear, softplus
 N_MID = 7              # l1..l7
 SKIP_AFTER_MID = 2     # the skip concat follows l3 = mid layer 2
 KERNEL_HIDDEN = 512    # the CUDA kernel's compiled width
-KERNEL_MAX_D_IN = 64   # the CUDA kernel's first-layer depth
+# the CUDA kernel's compiled first-layer depths: a launch takes the smallest
+# that covers d_in (rows past d_in are zero); d_in < 512, as the skip after l3
+# fills columns >= 512 - d_in (JAX supports_fusion, :47-54)
+KERNEL_DEPTHS = (64, 128, 256, 512)
 
 _CSRC = Path(__file__).resolve().parent / "csrc" / "fused_mlp.cu"
 _BUILD_DIR = Path(__file__).resolve().parents[2] / "build"
@@ -61,9 +64,10 @@ def reset_launch_counts() -> None:
 
 
 def supports_fusion(dims: List[int], skip_in: Tuple[int, ...]) -> bool:
-    """The standard IDR architecture: uniform hidden width, single skip at 4
-    (JAX :47-54).  The CUDA kernel itself is compiled for hidden 512 and
-    d_in <= 64; ``fused_sdf_raw`` raises on a CUDA tensor outside that."""
+    """The standard IDR architecture: uniform hidden width, single skip at 4,
+    d_in < hidden (JAX :47-54).  The CUDA kernel itself is compiled for
+    hidden 512, which takes every d_in < 512; ``fused_sdf_raw`` raises on a
+    CUDA tensor outside that."""
     if len(dims) != 10 or tuple(skip_in) != (4,):
         return False
     h = dims[1]
@@ -185,8 +189,8 @@ def load_library() -> ctypes.CDLL:
     ptr = ctypes.c_void_p
     for name in ("fused_sdf_raw_f32", "fused_sdf_raw_bf16"):
         fn = getattr(lib, name)
-        fn.argtypes = [ptr, ctypes.c_int, ctypes.c_int, ptr, ptr, ptr, ptr, ptr, ptr,
-                       ptr, ptr]
+        fn.argtypes = [ptr, ctypes.c_int, ctypes.c_int, ctypes.c_int, ptr, ptr, ptr, ptr,
+                       ptr, ptr, ptr, ptr]
         fn.restype = ctypes.c_int
     _lib = lib
     return lib
@@ -203,6 +207,14 @@ def _check(t: torch.Tensor, name: str, shape, dtype, device) -> None:
         raise ValueError(f"{name} must be contiguous and 16-byte aligned")
 
 
+def kernel_depth(d_in: int) -> int:
+    """The compiled first-layer depth a launch with ``d_in`` inputs takes:
+    the smallest of ``KERNEL_DEPTHS`` that covers it."""
+    if not 0 < d_in < KERNEL_HIDDEN:
+        raise ValueError(f"the CUDA kernel takes 0 < d_in < {KERNEL_HIDDEN}; got d_in={d_in}")
+    return next(k for k in KERNEL_DEPTHS if k >= d_in)
+
+
 def _launch(x: torch.Tensor, packed: Dict[str, torch.Tensor]) -> torch.Tensor:
     n, d_in = x.shape
     wd = packed["w_in"].dtype
@@ -213,9 +225,10 @@ def _launch(x: torch.Tensor, packed: Dict[str, torch.Tensor]) -> torch.Tensor:
     else:
         raise ValueError(f"packed weights of dtype {wd} are not supported")
     hidden = packed["w_in"].shape[1]
-    if hidden != KERNEL_HIDDEN or not 0 < d_in <= KERNEL_MAX_D_IN:
-        raise ValueError(f"the CUDA kernel is compiled for hidden={KERNEL_HIDDEN} and "
-                         f"d_in<={KERNEL_MAX_D_IN}; got hidden={hidden}, d_in={d_in}")
+    if hidden != KERNEL_HIDDEN:
+        raise ValueError(f"the CUDA kernel is compiled for hidden={KERNEL_HIDDEN}; "
+                         f"got hidden={hidden}")
+    k0 = kernel_depth(d_in)
     dev = x.device
     if x.dtype != torch.float32 or not x.is_contiguous():
         raise ValueError("x_embedded must be a contiguous float32 (N, d_in) tensor")
@@ -232,7 +245,7 @@ def _launch(x: torch.Tensor, packed: Dict[str, torch.Tensor]) -> torch.Tensor:
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = getattr(lib, variant)(
-            x.data_ptr(), n, d_in, packed["w_in"].data_ptr(), packed["b_in"].data_ptr(),
+            x.data_ptr(), n, d_in, k0, packed["w_in"].data_ptr(), packed["b_in"].data_ptr(),
             packed["w_mid"].data_ptr(), packed["b_mid"].data_ptr(),
             packed["w_out"].data_ptr(), packed["b_out"].data_ptr(), out.data_ptr(), stream)
     if err != 0:

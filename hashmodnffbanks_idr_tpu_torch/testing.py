@@ -1,6 +1,7 @@
 """In-memory synthetic scenes + conf builders (chip_smoke.py / tests).
 
-A copy of ``hashmodnffbanks_idr_tpu/testing.py``; ``scene_to_device`` is new.
+A copy of ``hashmodnffbanks_idr_tpu/testing.py``; ``scene_to_device``,
+``NGP_PRESETS`` and ``ngp_conf`` are new.
 """
 
 from __future__ import annotations
@@ -136,3 +137,28 @@ model{{
     }}
 }}
 """)
+
+
+# The JAX package's bench.py ngp presets (bench.py:126-150): the instant-ngp
+# grid (HashGridTcnn, 6 levels x 2 features) at log2_max_hash_size 15 and 19
+# with their level-pruned tracer guidance (prune_levels_march,
+# prune_levels_coarse, prune_secant_iters).  With 6 levels, 16 and 6 prune no
+# level and leave floor-corner guidance only; 'ngp_log2_15_k3' keeps the 3
+# coarsest levels, so the pruned encode and its level-mean fill run.
+NGP_PRESETS = {
+    "ngp_log2_15": (15, (16, 16, 4)),
+    "ngp_log2_19": (19, (6, 6, 4)),
+    "ngp_log2_15_k3": (15, (3, 3, 4)),
+}
+
+
+def ngp_conf(preset: str = "ngp_log2_15", num_pixels: int = 2048) -> Config:
+    """``flagship_conf(embed_type='HashGridTcnn')`` with one of
+    ``NGP_PRESETS``' table size and prune settings, as bench.py builds them."""
+    log2, (march, coarse, secant) = NGP_PRESETS[preset]
+    conf = flagship_conf(num_pixels=num_pixels, embed_type="HashGridTcnn")
+    conf.put("model.embedding_network.log2_max_hash_size", log2)
+    conf.put("model.ray_tracer.prune_levels_march", march)
+    conf.put("model.ray_tracer.prune_levels_coarse", coarse)
+    conf.put("model.ray_tracer.prune_secant_iters", secant)
+    return conf

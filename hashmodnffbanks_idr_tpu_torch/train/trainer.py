@@ -63,7 +63,10 @@ def loss_fn(model: IDRNetwork, loss_cfg: IDRLossConfig, scene: Dict[str, torch.T
             generator: Optional[torch.Generator], alpha: float,
             draws: Optional[Dict[str, torch.Tensor]] = None) -> Dict[str, torch.Tensor]:
     """Gather the step's pixels from the device-resident scene, render them
-    and return the loss terms (JAX :94-126)."""
+    and return the loss terms (JAX :94-126).  With ``loss_cfg.tv_weight > 0``
+    and a grid encoder, the grid's total variation at the traced points
+    (gradient-stopped: the points select cells, the gradient goes to the
+    table) is added as ``tv_loss``."""
     B = img_idx.shape[0]
     uv = scene["uv"][pixel_idx][None].expand(B, -1, -1)             # (B, P, 2)
     mask = scene["mask"][img_idx][:, pixel_idx]                     # (B, P)
@@ -75,7 +78,13 @@ def loss_fn(model: IDRNetwork, loss_cfg: IDRLossConfig, scene: Dict[str, torch.T
         "object_mask": mask,
     }
     outputs = model(inputs, generator=generator, training=True, draws=draws)
-    return idr_loss(loss_cfg, outputs, rgb_gt, alpha)
+    losses = idr_loss(loss_cfg, outputs, rgb_gt, alpha)
+    if loss_cfg.tv_weight > 0.0:
+        tv = model.implicit_network.tv_loss(outputs["points"].detach())
+        if tv is not None:
+            losses["tv_loss"] = tv
+            losses["loss"] = losses["loss"] + loss_cfg.tv_weight * tv
+    return losses
 
 
 def build_train_step(model: IDRNetwork, loss_cfg: IDRLossConfig,
@@ -172,12 +181,11 @@ class IDRTrainRunner:
         # model / loss
         self.model = IDRNetwork(self.conf.get_config("model"), device=self.device, seed=seed)
         loss_conf = self.conf.get_config("loss").data
-        if float(loss_conf.get("tv_weight", 0.0)) > 0.0:
-            raise NotImplementedError("the grid TV loss (loss.tv_weight > 0) is not ported yet")
         self.loss_cfg = IDRLossConfig(
             eikonal_weight=loss_conf["eikonal_weight"],
             mask_weight=loss_conf["mask_weight"],
             alpha=loss_conf["alpha"],
+            tv_weight=float(loss_conf.get("tv_weight", 0.0)),
         )
 
         # schedules

@@ -8,7 +8,8 @@ into ``build/ablate/`` (one ``nvcc`` each, all started together).  Each
 variant takes one part of the bf16 kernel out, or changes one of its
 constants, by a text substitution inside ``namespace bf16k`` of a copy; the
 shipped source is not changed.  Every ``--source`` file is built as it is,
-for a comparison with another version of the kernel.  Then it times each
+for a comparison with another version of the kernel with the same C
+interface.  Then it times each
 variant's ``fused_sdf_raw_bf16`` with CUDA events at N=2048 and 4096 (one
 wave of blocks) and N=69632 (the mixed tracer's largest call), on the same
 weights and inputs, in two passes in opposite orders, and prints one JSON
@@ -40,6 +41,8 @@ from hashmodnffbanks_idr_tpu_torch.testing import flagship_conf  # noqa: E402
 
 OUT_DIR = ROOT / "build" / "ablate"
 SIZES = (2048, 4096, 69632)
+# the flagship's first-layer depth (d_in 59): the kernel instantiation timed
+DEPTH = fm.kernel_depth(59)
 
 # each ablation: (pattern, replacement) pairs, applied inside namespace bf16k;
 # every pattern must match
@@ -118,10 +121,11 @@ def build_all(sources):
 
 
 def bf16_ptxas(log: str) -> dict:
-    """Registers and spill bytes of the bf16k:: kernel (None where another
-    version of the source names its kernel otherwise)."""
+    """Registers and spill bytes of the bf16k:: kernel at the timed inputs'
+    first-layer depth (None where another version of the source names its
+    kernel otherwise)."""
     entries = [e for e in log.split("Compiling entry function")[1:]
-               if "5bf16k16fused_sdf_kernel" in e]
+               if f"5bf16k16fused_sdf_kernelILi{DEPTH}E" in e]
     if not entries:
         return {"registers": None, "spill_bytes": None}
     entry = entries[0]
@@ -153,7 +157,7 @@ def main() -> int:
     fns = {}
     for name, (lib, _) in built.items():
         fn = ctypes.CDLL(str(lib)).fused_sdf_raw_bf16
-        fn.argtypes = [ptr, ctypes.c_int, ctypes.c_int] + [ptr] * 8
+        fn.argtypes = [ptr, ctypes.c_int, ctypes.c_int, ctypes.c_int] + [ptr] * 8
         fn.restype = ctypes.c_int
         fns[name] = fn
 
@@ -171,7 +175,8 @@ def main() -> int:
 
     def call(fn, n):
         x, _, out = inputs[n]
-        err = fn(x.data_ptr(), n, d_in, packed["w_in"].data_ptr(), packed["b_in"].data_ptr(),
+        err = fn(x.data_ptr(), n, d_in, DEPTH, packed["w_in"].data_ptr(),
+                 packed["b_in"].data_ptr(),
                  packed["w_mid"].data_ptr(), packed["b_mid"].data_ptr(),
                  packed["w_out"].data_ptr(), packed["b_out"].data_ptr(), out.data_ptr(),
                  torch.cuda.current_stream(dev).cuda_stream)

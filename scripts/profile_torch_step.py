@@ -1,12 +1,13 @@
 #!/usr/bin/env python3
-"""Where the PyTorch port's flagship training step spends its time on the card.
+"""Where the PyTorch port's training step spends its time on the card.
 
-    python3 scripts/profile_torch_step.py [--steps 2]
+    python3 scripts/profile_torch_step.py [--steps 2] [--cells flagship|ngp|all]
 
-For each tracer configuration of chip_smoke.py (exact+fused, mixed, fast,
-exact unfused) it runs two warm-up steps, then measures ``--steps``
+For each cell of chip_smoke.py (the flagship in exact+fused, mixed, fast and
+exact unfused; the bench.py ngp presets of ``testing.NGP_PRESETS`` in
+exact+fused and mixed) it runs two warm-up steps, then measures ``--steps``
 training steps and as many runs of the tracer alone (see ``measure``), and
-prints one JSON line per configuration.  Needs one CUDA card; imports nothing of JAX.
+prints one JSON line per cell.  Needs one CUDA card; imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -28,13 +29,21 @@ from hashmodnffbanks_idr_tpu_torch.geometry.cameras import get_camera_params  # 
 from hashmodnffbanks_idr_tpu_torch.models.loss import IDRLossConfig  # noqa: E402
 from hashmodnffbanks_idr_tpu_torch.models.ray_tracing import ray_trace  # noqa: E402
 from hashmodnffbanks_idr_tpu_torch.models.renderer import IDRNetwork  # noqa: E402
-from hashmodnffbanks_idr_tpu_torch.testing import (flagship_conf, scene_to_device,  # noqa: E402
-                                                   synthetic_scene)
+from hashmodnffbanks_idr_tpu_torch.testing import (flagship_conf, ngp_conf,  # noqa: E402
+                                                   scene_to_device, synthetic_scene)
 from hashmodnffbanks_idr_tpu_torch.train.trainer import (build_train_step,  # noqa: E402
                                                          make_optimizer)
 from hashmodnffbanks_idr_tpu_torch.utils.sampling import sample_pixels  # noqa: E402
 
 N_RAYS, IMG_RES = 2048, (1200, 1600)
+# (label, ngp preset or None for the flagship, tracer_fast, tracer_exact_fused)
+CELLS = (("exact+fused", None, "exact", True), ("mixed", None, "mixed", False),
+         ("fast", None, "fast", False), ("exact (unfused)", None, "exact", False),
+         ("ngp log2=15 exact+fused", "ngp_log2_15", "exact", True),
+         ("ngp log2=15 mixed", "ngp_log2_15", "mixed", False),
+         ("ngp log2=19 mixed", "ngp_log2_19", "mixed", False),
+         ("ngp K=3 exact+fused", "ngp_log2_15_k3", "exact", True),
+         ("ngp K=3 mixed", "ngp_log2_15_k3", "mixed", False))
 
 
 def measure(fn, reps: int) -> dict:
@@ -75,13 +84,15 @@ def measure(fn, reps: int) -> dict:
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--steps", type=int, default=2)
+    ap.add_argument("--cells", choices=("flagship", "ngp", "all"), default="flagship")
     args = ap.parse_args()
     dev = resolve_device(None)
     scene = scene_to_device(synthetic_scene(n_views=2, img_res=IMG_RES, seed=0), dev)
     total = IMG_RES[0] * IMG_RES[1]
-    for label, mode, fused in (("exact+fused", "exact", True), ("mixed", "mixed", False),
-                               ("fast", "fast", False), ("exact (unfused)", "exact", False)):
-        conf = flagship_conf(num_pixels=N_RAYS)
+    for label, preset, mode, fused in CELLS:
+        if args.cells != "all" and (preset is None) != (args.cells == "flagship"):
+            continue
+        conf = flagship_conf(num_pixels=N_RAYS) if preset is None else ngp_conf(preset, N_RAYS)
         conf.put("model.tracer_fast", mode)
         conf.put("model.tracer_exact_fused", fused)
         model = IDRNetwork(conf.get_config("model"), device=dev, seed=0)

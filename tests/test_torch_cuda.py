@@ -85,3 +85,39 @@ def test_cuda_wrapper_refuses_what_the_kernel_does_not_take(net):
         fm.fused_sdf_raw(x.t().contiguous().t(), packed)        # layout
     with pytest.raises(ValueError):
         fm.fused_sdf_raw(x, dict(packed, b_in=packed["b_in"].cpu()))  # device
+
+
+# every encoder's first-layer depth (chip_smoke.py CHECK_D_IN): the kernel
+# depth the wrapper picks and the zero rows past d_in.  No conf gives a depth
+# past 128; NerfPos at multires 32 (198) and 84 (510) holds K0 256 and 512
+DEPTH_KW = {9: dict(embed_type="FourierFeatures"), 15: dict(embed_type="HashGridTcnn",
+                                                            log2_max_hash_size=15),
+            27: dict(embed_type="HashGrid"), 102: dict(embed_type="NerfPos", multires=16),
+            198: dict(embed_type="NerfPos", multires=32),
+            510: dict(embed_type="NerfPos", multires=84)}
+
+
+@pytest.mark.parametrize("d_in", sorted(DEPTH_KW))
+@pytest.mark.parametrize("precision", ["f32", "bf16"])
+def test_cuda_kernel_matches_plain_at_every_depth(cuda_device, precision, d_in):
+    """With the geometric init, whose first-layer and skip weights past the
+    3 coordinates are zero, and again with those weights spread, so that
+    every input column counts."""
+    assert fm.kernel_depth(d_in) == max(64, 1 << (d_in - 1).bit_length())
+    torch.manual_seed(d_in)
+    net = ImplicitNetwork(**{**NET_KW, **DEPTH_KW[d_in]})
+    net.reset_parameters(torch.Generator().manual_seed(d_in))
+    net = net.to(cuda_device)
+    assert net.dims[0] == d_in
+    for spread in (False, True):
+        if spread:
+            with torch.no_grad():
+                for l in (0, *net.skip_in):
+                    net.lin[l].v.add_(0.03 * torch.randn_like(net.lin[l].v))
+        packed = fm.pack_params(net.lin, d_in, 512, dtype=DTYPE[precision])
+        for n in (1, 65, 4096):
+            x = _points(net, n, seed=n)
+            got = fm.fused_sdf_raw(x, packed)
+            want = fm.fused_sdf_raw_plain(x, packed)
+            torch.cuda.synchronize()
+            assert float((got - want).abs().max()) <= TOL[precision], (spread, n)

@@ -48,8 +48,10 @@ def test_sh_factory_preset_and_unported_embedders():
                          desired_resolution=512, bound=1.0)
     assert isinstance(emb, SHEmbedder) and emb.degree == 4 and emb.embeddings_dim == 16
     assert not list(emb.parameters())
-    with pytest.raises(NotImplementedError):
-        build_embedder("HashGridTcnn", input_dims=3, multires=6, log2_max_hash_size=5,
+    # every JAX embed_type is ported now: only an unknown type is refused,
+    # with the JAX factory's error
+    with pytest.raises(ValueError, match="Not a valid embedding model type"):
+        build_embedder("HashGridTcnnX", input_dims=3, multires=6, log2_max_hash_size=5,
                        max_points_per_entry=2, base_resolution=16,
                        desired_resolution=512, bound=1.0)
 
