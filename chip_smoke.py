@@ -30,7 +30,14 @@ each cell must launch its kernel), holds each kernel on the largest call
 those steps gave it, and trains the repo's ``dtu_shaped_hashgridtcnn.conf``
 and ``dtu_shaped_posenc.conf`` for 30 epochs each through ``exp_runner``
 on the eval phase's scene (the loss must fall by a fifth, the bf16 kernel
-run every epoch).  It fails if ``-Xptxas -v`` reports a spill in either kernel at any
+run every epoch).  The ``[cameras]`` phase, on the same scene, holds a
+256-ray trainable-camera step of ``headtohead_ours_trained_cameras_400.conf``
+on the card (through the f32 kernel) against the CPU, trains that conf
+through ``exp_runner --train_cameras`` for 30 epochs and resumes it to 32
+(the pose table and its SparseAdam state restored bit for bit), aligns the
+trained cameras with ``run_eval --eval_cameras``, and runs
+``preprocess_cameras`` with its voxel carves on the card (votes equal to
+the CPU's).  It fails if ``-Xptxas -v`` reports a spill in either kernel at any
 compiled first-layer depth.  Any failed check raises and
 the script exits non-zero.  The second-to-last line is the kernels' JSON
 record, the last line ``{"ok": true, "device": {...}}``.
@@ -59,8 +66,9 @@ import torch
 
 # H100 SXM peaks (NVIDIA data sheet; dense, at the 700 W limit): f32 on the
 # CUDA cores, tf32 and bf16 on the tensor cores
-PEAK_FLOPS = {"f32": 67e12, "tf32": 495e12, "bf16": 989e12}
-PEAK_BYTES_PER_S = 3.35e12
+from hashmodnffbanks_idr_tpu_torch.utils.profiling import H100_PEAK_BYTES_PER_S as PEAK_BYTES_PER_S
+from hashmodnffbanks_idr_tpu_torch.utils.profiling import H100_PEAK_FLOPS as PEAK_FLOPS
+
 TOL_F32 = 1e-5     # GPU expf/log1pf and the summation order differ from the CPU
 TOL_BF16 = 3e-2    # bf16 operands (tests/test_fused_mlp.py:36-40)
 # per variant: weight type, tolerance, and the peak and the number of
@@ -128,6 +136,22 @@ NGP_RUNNER_CONFS = ("dtu_shaped_hashgridtcnn.conf", "dtu_shaped_posenc.conf")
 NGP_RUNNER_EPOCHS = 30
 NGP_RUNNER_WINDOW = 5
 NGP_RUNNER_FALL = 0.8
+# the [cameras] phase: the repo's trained-camera conf, read in place, on the
+# eval phase's scene (its dataset block names that scene).  A 256-ray step
+# at full width with the exact tracer through the f32 kernel, on the card
+# and on the CPU from the same weights, poses and draws: each loss term
+# within CAM_LOSS_RTOL, hit masks >= CAM_MASK_AGREE, the pose gradient
+# and SparseAdam's first moment within CAM_GRAD_TOL of their largest entry,
+# and after the step the poses within CAM_POSE_TOL wherever |g| exceeds
+# twice the gradient's tolerance (SparseAdam's first step moves a component
+# by lr_cam * g / (|g| + eps), about lr_cam * sign(g), so only where |g| is
+# within the tolerance may the two sides' steps differ, by up to 2 lr_cam).
+# Read on an NVIDIA H100 80GB HBM3 at 700 W: loss 2.2e-7, masks 100%,
+# gradient 4.9e-7, poses bit-equal
+TRAINED_CONF = DUMMY_CONF.parent / "headtohead_ours_trained_cameras_400.conf"
+CAM_STEP_RAYS = 256
+CAM_LOSS_RTOL, CAM_MASK_AGREE, CAM_GRAD_TOL, CAM_POSE_TOL = 1e-5, 1.0, 1e-4, 1e-6
+CAM_EPOCHS = 30
 
 
 def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
@@ -620,6 +644,252 @@ def phase_eval(fm, smi: str, workdir: str):
     return counts, largest
 
 
+def camera_step(device, fm, conf, scene, pose0, img_idx, pixel_idx, draws):
+    """One ``train_cameras`` step of ``conf`` on ``device`` from seed-0
+    weights and the pose table ``pose0``: the loss terms, the hit mask, the
+    pose gradient, and the poses and SparseAdam state after the step (all on
+    the CPU), and the kernels' launches in the step."""
+    from hashmodnffbanks_idr_tpu_torch.models.loss import IDRLossConfig
+    from hashmodnffbanks_idr_tpu_torch.models.renderer import IDRNetwork
+    from hashmodnffbanks_idr_tpu_torch.train.trainer import (build_train_step, make_optimizer,
+                                                             sparse_adam_init)
+
+    model = IDRNetwork(conf.get_config("model"), device=device, seed=0)
+    pose_vecs = torch.tensor(pose0, device=device, requires_grad=True)
+    cam_opt = sparse_adam_init(pose_vecs)
+    loss = conf.get_config("loss")
+    step = build_train_step(model, IDRLossConfig(loss.get_float("eikonal_weight"),
+                                                  loss.get_float("mask_weight"),
+                                                  loss.get_float("alpha")),
+                            make_optimizer(model, conf.get_float("train.learning_rate")),
+                            pose_vecs=pose_vecs, cam_opt=cam_opt,
+                            lr_cam=conf.get_float("train.learning_rate_cam", 1e-4))
+    captured = {}
+    model.register_forward_hook(lambda m, a, o: captured.update(o))
+    fm.reset_launch_counts()
+    losses = step({k: v.to(device) for k, v in scene.items()}, img_idx.to(device),
+                  pixel_idx.to(device), None, loss.get_float("alpha"),
+                  draws={k: v.to(device) for k, v in draws.items()})
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+    launches = {k: dict(c) for k, c in fm.launch_counts.items()}
+    return {"losses": {k: float(v) for k, v in losses.items()},
+            "mask": captured["network_object_mask"].cpu(), "grad": pose_vecs.grad.cpu(),
+            "pose": pose_vecs.detach().cpu(), "cam_opt": {k: v.cpu() for k, v in cam_opt.items()},
+            "launches": launches}
+
+
+def phase_camera_step(dev, fm, data_root: str) -> dict:
+    """The trained-camera conf at full width with ``tracer_fast = exact``
+    and ``tracer_exact_fused = true``, one 256-ray step of image 3 on the
+    card (the f32 kernel) and on the CPU (its plain twin), from the same
+    weights, poses (the scene's noisy linear init) and injected draws; held
+    at ``CAM_*``.  Returns the card's launches."""
+    from hashmodnffbanks_idr_tpu_torch.config.hocon import parse_file
+    from hashmodnffbanks_idr_tpu_torch.data.scene_dataset import SceneDataset
+    from hashmodnffbanks_idr_tpu_torch.models.ray_tracing import sweep_stride
+    from hashmodnffbanks_idr_tpu_torch.models.renderer import IDRNetwork
+
+    conf = parse_file(str(TRAINED_CONF))
+    conf.put("model.tracer_fast", "exact")
+    conf.put("model.tracer_exact_fused", True)
+    ds = SceneDataset(True, conf.get_string("dataset.data_dir"),
+                      conf.get_list("dataset.img_res"), 0, data_root=data_root)
+    scene = ds.device_arrays("cpu")
+    pose0 = ds.get_pose_init()
+    g = torch.Generator().manual_seed(5)
+    pixel_idx = torch.randperm(ds.total_pixels, generator=g)[:CAM_STEP_RAYS]
+    img_idx = torch.tensor([3])
+    cfg = IDRNetwork(conf.get_config("model"), device="cpu").ray_tracer
+    stride = sweep_stride(cfg, False, on_cuda=True)  # exact: no guidance, either device
+    draws = {"coarse": torch.rand((cfg.n_steps - 1) // stride + 1, generator=g),
+             "fine": torch.rand(3 * (stride - 1), generator=g),
+             "eik": torch.rand(CAM_STEP_RAYS // 2, 3, generator=g) * 2 - 1}
+    card = camera_step(dev, fm, conf, scene, pose0, img_idx, pixel_idx, draws)
+    cpu = camera_step(torch.device("cpu"), fm, conf, scene, pose0, img_idx, pixel_idx, draws)
+    fm.reset_launch_counts()
+
+    agree = float((card["mask"] == cpu["mask"]).float().mean())
+    loss_rel = {k: abs(card["losses"][k] - v) / abs(v) for k, v in cpu["losses"].items()}
+    gmax = float(cpu["grad"].abs().max())
+    grad_err = float((card["grad"] - cpu["grad"]).abs().max()) / gmax
+    clear = cpu["grad"].abs() > 2 * CAM_GRAD_TOL * gmax
+    pose_err = (card["pose"] - cpu["pose"]).abs()
+    moved = (cpu["pose"] - torch.from_numpy(pose0)).abs()
+    rec = {"rays": CAM_STEP_RAYS, "losses_card": card["losses"], "losses_cpu": cpu["losses"],
+           "loss_rel_err": loss_rel, "mask_agreement": agree,
+           "hits": [int(card["mask"].sum()), int(cpu["mask"].sum())],
+           "pose_grad_max": gmax, "pose_grad_err_rel": grad_err,
+           "pose_err_clear_sign": float(pose_err[clear].max()),
+           "pose_err_max": float(pose_err.max()), "pose_moved_max": float(moved.max()),
+           "cam_opt_m_err_rel": float((card["cam_opt"]["m"] - cpu["cam_opt"]["m"]).abs().max())
+           / float(cpu["cam_opt"]["m"].abs().max()),
+           "cam_opt_step": [int(card["cam_opt"]["step"]), int(cpu["cam_opt"]["step"])],
+           "launches_card": card["launches"], "launches_cpu": cpu["launches"]}
+    print(f"[cameras] step card vs cpu: {json.dumps(rec)}")
+    if not (all(v <= CAM_LOSS_RTOL for v in loss_rel.values()) and agree >= CAM_MASK_AGREE
+            and grad_err <= CAM_GRAD_TOL and rec["pose_err_clear_sign"] <= CAM_POSE_TOL
+            and rec["cam_opt_m_err_rel"] <= CAM_GRAD_TOL
+            and rec["cam_opt_step"] == [1, 1]):
+        raise AssertionError(f"cameras: the card's step disagrees with the CPU's: {rec}")
+    untouched = [i for i in range(len(pose0)) if i != int(img_idx[0])]
+    if card["grad"][untouched].any() or not torch.equal(card["pose"][untouched],
+                                                         torch.from_numpy(pose0)[untouched]):
+        raise AssertionError("cameras: rows of images not in the step moved")
+    if (card["launches"]["fused_sdf_raw_f32"]["launches"] <= 0
+            or any(c["launches"] for c in cpu["launches"].values())):
+        raise AssertionError(f"cameras: f32 kernel launches {card['launches']} on the card, "
+                             f"{cpu['launches']} on the CPU")
+    return card["launches"]
+
+
+@contextlib.contextmanager
+def runner_start_state(kept: list):
+    """While open, every ``IDRTrainRunner.run`` first appends a copy of the
+    runner's pose table, SparseAdam state and counts as they stand before
+    its first step (what a resume loaded)."""
+    from hashmodnffbanks_idr_tpu_torch.train.trainer import IDRTrainRunner
+
+    run = IDRTrainRunner.run
+
+    def keeping(self):
+        kept.append({"pose_vecs": self.pose_vecs.detach().cpu().clone(),
+                     "cam_opt": {k: v.cpu().clone() for k, v in self.cam_opt.items()},
+                     "start_epoch": self.start_epoch, "step_count": self.step_count})
+        return run(self)
+
+    IDRTrainRunner.run = keeping
+    try:
+        yield kept
+    finally:
+        IDRTrainRunner.run = run
+
+
+def phase_cameras(dev, fm, smi: str, workdir: str, data_root: str) -> dict:
+    """Trainable cameras on the eval phase's 8-view scene: the card-vs-CPU
+    step (``phase_camera_step``); the trained-camera conf read in place
+    through ``exp_runner --train_cameras`` for ``CAM_EPOCHS`` epochs, then
+    ``--is_continue`` to 2 more; ``run_eval --eval_cameras`` at resolution
+    100 (the errors against GT are printed beside the noisy init's, not
+    held); ``preprocess_cameras`` on the card, its voxel votes equal to a CPU
+    run.  The phase's counts: the card step's (reset just before it, read
+    just after), plus the runner's (reset just before the first run, read
+    just after the resumed one)."""
+    from hashmodnffbanks_idr_tpu_torch.data import preprocess_cameras as pc
+    from hashmodnffbanks_idr_tpu_torch.data.scene_dataset import glob_imgs, load_mask
+    from hashmodnffbanks_idr_tpu_torch.eval import run_eval
+    from hashmodnffbanks_idr_tpu_torch.eval.evaluator import camera_alignment
+    from hashmodnffbanks_idr_tpu_torch.geometry.cameras import quat_to_rot
+    from hashmodnffbanks_idr_tpu_torch.train import exp_runner
+
+    t_phase = time.perf_counter()
+    step_launches = phase_camera_step(dev, fm, data_root)
+    exps, evals = os.path.join(workdir, "exps_cam"), os.path.join(workdir, "evals_cam")
+    common = ["--conf", str(TRAINED_CONF), "--train_cameras", "--data_root", data_root,
+              "--exps_folder_name", exps, "--no_tensorboard"]
+    fm.reset_launch_counts()
+    t0 = time.perf_counter()
+    first = exp_runner.main(common + ["--nepoch", str(CAM_EPOCHS)])
+    train_s = time.perf_counter() - t0
+    saved = torch.load(os.path.join(first.checkpoints_path, "latest.pt"), weights_only=True)
+    kept = []
+    with runner_start_state(kept):
+        second = exp_runner.main(common + ["--nepoch", str(CAM_EPOCHS + 2), "--is_continue"])
+    counts = {k: dict(v) for k, v in fm.launch_counts.items()}
+    for name, c in step_launches.items():
+        for k in ("launches", "points"):
+            counts[name][k] += c[k]
+
+    # the first run takes epochs 0..CAM_EPOCHS and saves its end as epoch
+    # CAM_EPOCHS, which the resumed run takes again (then two more)
+    steps = (CAM_EPOCHS + 1) * first.steps_per_epoch
+    resumed = kept[0]
+    if not (resumed["start_epoch"] == CAM_EPOCHS and resumed["step_count"] == steps
+            and torch.equal(resumed["pose_vecs"], saved["pose_vecs"])
+            and all(torch.equal(resumed["cam_opt"][k], saved["cam_opt"][k])
+                    for k in ("m", "v", "step"))
+            and int(saved["cam_opt"]["step"]) == steps == saved["step"]):
+        raise AssertionError(f"cameras: the resume did not restore the saved cameras "
+                             f"(start {resumed['start_epoch']}, step {resumed['step_count']}, "
+                             f"cam_opt.step {int(saved['cam_opt']['step'])}, expected {steps})")
+    init = torch.from_numpy(first.train_dataset.get_pose_init())
+    pose = second.pose_vecs.detach().cpu()
+    if not (bool(torch.isfinite(pose).all()) and not torch.equal(pose, init)
+            and int(second.cam_opt["step"]) == steps + 3 * first.steps_per_epoch):
+        raise AssertionError("cameras: the pose table is not finite or did not move")
+    rows = read_scalars(first.rundir) + read_scalars(second.rundir)
+    losses = [r["loss"] for r in read_scalars(first.rundir)]
+    bf16 = [r["fused_sdf_raw_bf16_launches"] for r in rows]
+    first5 = statistics.median(losses[:NGP_RUNNER_WINDOW])
+    last5 = statistics.median(losses[-NGP_RUNNER_WINDOW:])
+    if not (all(math.isfinite(r["loss"]) for r in rows) and last5 < NGP_RUNNER_FALL * first5):
+        raise AssertionError(f"cameras: the loss did not fall: {losses}")
+    if min(bf16) <= 0 or sum(bf16) != counts["fused_sdf_raw_bf16"]["launches"]:
+        raise AssertionError(f"cameras: bf16 kernel launches per epoch {bf16}")
+
+    t0 = time.perf_counter()
+    res = run_eval.main(["--conf", str(TRAINED_CONF), "--data_root", data_root,
+                         "--resolution", "100", "--eval_cameras", "--exps_folder", exps,
+                         "--evals_folder", evals])
+    eval_s = time.perf_counter() - t0
+    acc = res["camera_accuracy"]
+    gt = first.train_dataset.get_gt_pose(scaled=True)
+    init_acc = camera_alignment(quat_to_rot(init[:, :4]).numpy(), gt[:, :3, :3],
+                                init[:, 4:].numpy(), gt[:, :3, 3])
+    if acc is None or not all(math.isfinite(acc[k]) for k in ("rot_err_mean", "t_err_mean")):
+        raise AssertionError(f"cameras: run_eval --eval_cameras gave {acc}")
+
+    # preprocess_cameras: the CLI on the card, then each carve's votes on
+    # the card against the CPU on the same inputs
+    scan = first.train_dataset.instance_dir
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = pc.main(["--source_dir", scan])
+    preprocess_s = time.perf_counter() - t0
+    new = np.load(out)["scale_mat_0"]
+    own = first.train_dataset.get_scale_mat()
+    cams = np.load(os.path.join(scan, "cameras.npz"))
+    masks = np.stack([load_mask(q) for q in glob_imgs(os.path.join(scan, "mask"))])
+    Ps = np.stack([cams[f"world_mat_{i}"][:3, :4].astype(np.float64) for i in range(len(masks))])
+    center, scale, _ = pc.epipolar_depth_bounds(Ps, pc.mask_points(masks))
+    carves = {}
+    for name, fn, kw in (("refine", pc.refine_votes, {"scale": scale, "center": center}),
+                         ("hull", pc.hull_votes, {})):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, v_card = fn(masks, Ps, grid=100, device=dev, **kw)
+        torch.cuda.synchronize()
+        card_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        _, v_cpu = fn(masks, Ps, grid=100, device="cpu", **kw)
+        cpu_s = time.perf_counter() - t0
+        carves[name] = {"voxels": v_cpu.numel(), "views": len(masks), "card_s": card_s,
+                        "cpu_s": cpu_s, "inside_all": int((v_cpu >= len(masks)).sum()),
+                        "votes_equal": bool(torch.equal(v_card.cpu(), v_cpu))}
+        if not carves[name]["votes_equal"]:
+            raise AssertionError(f"cameras: {name} votes on the card differ from the CPU's")
+
+    rec = {"card": smi, "conf": TRAINED_CONF.name, "epochs": CAM_EPOCHS,
+           "steps_per_epoch": first.steps_per_epoch, "train_s": train_s,
+           "loss_epoch0": losses[0], f"loss_epoch{CAM_EPOCHS}": losses[-1],
+           "loss_median_first": first5, "loss_median_last": last5,
+           "rays_per_s_median_epochs_2_on": statistics.median(
+               r["rays_per_s"] for r in read_scalars(first.rundir)[2:]),
+           "bf16_launches_per_epoch": bf16, "cam_opt_step_saved": int(saved["cam_opt"]["step"]),
+           "pose_moved_max": float((pose - init).abs().max()), "run_eval_s": eval_s,
+           "camera_error_trained": {k: acc[k] for k in ("rot_err_mean", "rot_err_median",
+                                                        "t_err_mean", "t_err_median")},
+           "camera_error_init": {k: init_acc[k] for k in ("rot_err_mean", "rot_err_median",
+                                                          "t_err_mean", "t_err_median")},
+           "preprocess_s": preprocess_s, "preprocess_center": new[:3, 3].tolist(),
+           "preprocess_scale": float(new[0, 0]), "scene_center": own[:3, 3].tolist(),
+           "scene_scale": float(own[0, 0]), "carves_grid_100": carves,
+           "phase_s": time.perf_counter() - t_phase}
+    print(f"[cameras] {json.dumps(rec)}")
+    fm.reset_launch_counts()
+    return counts
+
+
 def kernel_record(fm, name, x, packed, where=""):
     """One variant on one input: held against its plain twin, then timed
     beside the plain twin and the cuBLAS chain, with its bound."""
@@ -842,6 +1112,7 @@ def main() -> int:
         phases["runner"] = phase_runner(fm, smi, workdir)
         phase_decode(smi, workdir)
         phases["eval"], eval_largest = phase_eval(fm, smi, workdir)
+        phases["cameras"] = phase_cameras(dev, fm, smi, workdir, os.path.join(workdir, "data"))
         phases.update(phase_ngp_runner(fm, smi, workdir, os.path.join(workdir, "data")))
 
     src = "hashmodnffbanks_idr_tpu_torch/ops/csrc/fused_mlp.cu"

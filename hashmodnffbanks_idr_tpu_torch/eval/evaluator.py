@@ -41,12 +41,17 @@ TILE = 32768  # rays a render call (the JAX package's eval tile)
 
 
 class Evaluator:
-    """Renders and meshes ``model`` (an ``IDRNetwork``, on its own device)."""
+    """Renders and meshes ``model`` (an ``IDRNetwork``, on its own device).
+    With a ``pose_vecs`` table ((V, 7) quaternion + translation, any
+    device) view ``idx`` renders from ``pose_vecs[idx]`` instead of the
+    dataset's pose (JAX :37-45, :70-73)."""
 
     def __init__(self, conf: Config, model: IDRNetwork, data_root: Optional[str] = None,
-                 scan_id: int = -1, dataset: Optional[SceneDataset] = None):
+                 scan_id: int = -1, dataset: Optional[SceneDataset] = None,
+                 pose_vecs=None):
         self.model = model
         self.device = next(model.parameters()).device
+        self.pose_vecs = pose_vecs
 
         if dataset is not None:
             self.dataset = dataset
@@ -59,7 +64,7 @@ class Evaluator:
     def render_pixels(self, sample: Dict[str, np.ndarray]) -> Dict[str, np.ndarray]:
         """The eval forward over one full image's ``uv``/``object_mask``
         with its ``intrinsics``/``pose`` -> ray-flattened numpy outputs."""
-        inputs = {k: torch.as_tensor(np.asarray(sample[k]), device=self.device)
+        inputs = {k: torch.as_tensor(sample[k], device=self.device)
                   for k in ("uv", "intrinsics", "pose", "object_mask")}
 
         @torch.no_grad()
@@ -72,6 +77,8 @@ class Evaluator:
 
     def render_view(self, idx: int) -> Dict[str, np.ndarray]:
         sample, gt = self.dataset.full_image_inputs(idx)
+        if self.pose_vecs is not None:
+            sample["pose"] = torch.as_tensor(self.pose_vecs)[idx:idx + 1].detach()
         out = self.render_pixels(sample)
         H, W = self.dataset.img_res
         return {

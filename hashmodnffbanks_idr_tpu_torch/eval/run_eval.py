@@ -11,11 +11,11 @@ the world-coordinate surface mesh, and optionally re-renders all train
 views for PSNR/SSIM/LPIPS CSVs and ``metrics/summary.json``.  The mesh comes
 from two PCA-aligned grid passes, or with ``--is_uniform_grid`` from one
 uniform grid over [-1, 1]^3 at ``--resolution`` (the JAX package parses
-that flag and ignores it).  It runs on the
-CUDA card unless ``--platform cpu`` is given.  ``--eval_cameras`` reports
-trained-camera accuracy in the JAX package only when the checkpoint holds
-trained poses; the port's checkpoints hold none (fixed cameras), so it only
-says so.
+that flag and ignores it).  It runs on the CUDA card unless ``--platform
+cpu`` is given.  A run whose conf expname holds ``trained`` renders from
+the checkpoint's trained poses; ``--eval_cameras`` aligns those poses to the
+ground truth (``get_gt_pose(scaled=True)``) with ``camera_alignment`` and
+writes ``camera_accuracy.{txt,json}`` (JAX :73-120).
 """
 
 from __future__ import annotations
@@ -25,6 +25,8 @@ import json
 import os
 import sys
 import time
+
+import numpy as np
 
 
 def find_run_dir(exps_folder: str, expname: str, timestamp: str) -> str:
@@ -63,7 +65,8 @@ def main(argv=None):
     from ..config.hocon import parse_file
     from ..models.renderer import IDRNetwork
     from ..train import checkpoints as ckpt
-    from .evaluator import Evaluator
+    from ..geometry.cameras import quat_to_rot
+    from .evaluator import Evaluator, camera_alignment
     from .surface import export_surface
 
     device = resolve_device(args.platform)
@@ -82,8 +85,11 @@ def main(argv=None):
     model = IDRNetwork(conf.get_config("model"), device=device)
     loaded = ckpt.load_checkpoint(os.path.join(run_dir, "checkpoints"), args.checkpoint, model)
     epoch = loaded["epoch"]
+    pose_vecs = loaded.get("pose_vecs")
 
-    ev = Evaluator(conf, model, data_root=args.data_root, scan_id=scan_id)
+    trained = "trained" in conf.get_string("train.expname")
+    ev = Evaluator(conf, model, data_root=args.data_root, scan_id=scan_id,
+                   pose_vecs=pose_vecs if trained else None)
 
     eval_dir = os.path.join(args.evals_folder, expname)
     os.makedirs(eval_dir, exist_ok=True)
@@ -98,8 +104,24 @@ def main(argv=None):
     mesh_s = time.perf_counter() - t0
     print(f"mesh -> {mesh_path} ({mesh_s:.1f} s)")
 
-    if args.eval_cameras:
+    camera_accuracy = None
+    if args.eval_cameras and pose_vecs is None:
         print("camera accuracy: the checkpoint holds no trained cameras; nothing to align")
+    elif args.eval_cameras:
+        gt_pose = ev.dataset.get_gt_pose(scaled=True)
+        pred_R = quat_to_rot(pose_vecs[:, :4]).numpy()
+        camera_accuracy = camera_alignment(pred_R, gt_pose[:, :3, :3],
+                                           pose_vecs[:, 4:].numpy(), gt_pose[:, :3, 3])
+        line = (f"camera accuracy: rot mean {camera_accuracy['rot_err_mean']:.3f}deg "
+                f"median {camera_accuracy['rot_err_median']:.3f}deg; "
+                f"t mean {camera_accuracy['t_err_mean']:.4f} "
+                f"median {camera_accuracy['t_err_median']:.4f}")
+        print(line)
+        with open(os.path.join(eval_dir, "camera_accuracy.txt"), "w") as f:
+            f.write(line + "\n")
+        with open(os.path.join(eval_dir, "camera_accuracy.json"), "w") as f:
+            json.dump({k: (v.tolist() if isinstance(v, np.ndarray) else v)
+                       for k, v in camera_accuracy.items()}, f, indent=1)
 
     metrics = None
     if args.eval_rendering:
@@ -117,7 +139,8 @@ def main(argv=None):
                         "render_s": render_s})
         with open(os.path.join(eval_dir, "metrics", "summary.json"), "w") as f:
             json.dump(summary, f, indent=1)
-    return {"mesh": mesh_path, "eval_dir": eval_dir, "epoch": epoch, "metrics": metrics}
+    return {"mesh": mesh_path, "eval_dir": eval_dir, "epoch": epoch, "metrics": metrics,
+            "camera_accuracy": camera_accuracy}
 
 
 if __name__ == "__main__":

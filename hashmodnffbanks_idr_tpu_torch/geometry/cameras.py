@@ -1,12 +1,13 @@
 """Camera geometry: load-time projection decomposition, ray generation and
 the bounding-sphere intersection.
 
-Counterpart of ``hashmodnffbanks_idr_tpu/geometry/cameras.py`` for fixed
-cameras (4x4 poses).  The numpy helpers ``decompose_projection``,
-``load_K_Rt_from_P`` and ``rot_to_quat`` are copies of the JAX module's
-(:28-98); ``quat_to_rot`` is its torch counterpart (JAX :75-87), used by
-the eval's camera report and orbit.  Still to port: the pose-7 quaternion
-branch that trainable cameras use.
+Counterpart of ``hashmodnffbanks_idr_tpu/geometry/cameras.py``.  The numpy
+helpers ``decompose_projection``, ``load_K_Rt_from_P`` and ``rot_to_quat``
+are copies of the JAX module's (:28-98); ``quat_to_rot``, ``pose7_to_matrix``
+and ``get_depth`` are its torch counterparts.  A pose is a (B, 4, 4)
+cam-to-world matrix or, for trainable cameras, a (B, 7) quaternion (wxyz) +
+translation vector; gradients reach the pose-7 vector through
+``quat_to_rot``.
 """
 
 from __future__ import annotations
@@ -84,6 +85,20 @@ def quat_to_rot(q: torch.Tensor) -> torch.Tensor:
     return r.reshape(q.shape[:-1] + (3, 3))
 
 
+def pose7_to_matrix(pose7: torch.Tensor) -> torch.Tensor:
+    """(B,7) quaternion+translation -> (B,4,4) cam-to-world matrix."""
+    B = pose7.shape[0]
+    R = quat_to_rot(pose7[:, :4])
+    top = torch.cat([R, pose7[:, 4:, None]], dim=-1)  # (B,3,4)
+    bottom = torch.tensor([0.0, 0.0, 0.0, 1.0], dtype=pose7.dtype,
+                          device=pose7.device).expand(B, 1, 4)
+    return torch.cat([top, bottom], dim=1)
+
+
+def _is_pose7(pose: torch.Tensor) -> bool:
+    return pose.dim() == 2 and pose.shape[-1] == 7
+
+
 def lift(x, y, z, intrinsics):
     """Pixel coords -> homogeneous camera-space points (rend_util.py:87-100)."""
     fx = intrinsics[:, 0, 0][:, None]
@@ -97,12 +112,13 @@ def lift(x, y, z, intrinsics):
 
 
 def get_camera_params(uv: torch.Tensor, pose: torch.Tensor, intrinsics: torch.Tensor):
-    """uv (B,P,2), pose (B,4,4) cam-to-world, intrinsics (B,4,4) ->
+    """uv (B,P,2), pose (B,4,4) cam-to-world or (B,7), intrinsics (B,4,4) ->
     (ray_dirs (B,P,3), cam_loc (B,3)).  rend_util.py:48-75."""
-    if pose.dim() != 3 or pose.shape[-2:] != (4, 4):
-        raise NotImplementedError("only (B, 4, 4) poses are ported; pose-7 comes "
-                                  "with trainable cameras")
-    cam_loc = pose[:, :3, 3]
+    if _is_pose7(pose):
+        cam_loc = pose[:, 4:]
+        pose = pose7_to_matrix(pose)
+    else:
+        cam_loc = pose[:, :3, 3]
     B, P, _ = uv.shape
     depth = torch.ones((B, P), dtype=uv.dtype, device=uv.device)
     pixel_points_cam = lift(uv[:, :, 0], uv[:, :, 1], depth, intrinsics)  # (B,P,4)
@@ -123,6 +139,16 @@ def get_sphere_intersection(cam_loc: torch.Tensor, ray_directions: torch.Tensor,
     si = torch.stack([-ray_cam_dot - sqrt_val, -ray_cam_dot + sqrt_val], dim=-1)
     si = torch.where(mask_intersect[..., None], si, torch.zeros_like(si))
     return torch.clamp_min(si, 0.0), mask_intersect
+
+
+def get_depth(points: torch.Tensor, pose: torch.Tensor) -> torch.Tensor:
+    """Depth of world points (B,P,3) under pose (B,4,4) or (B,7) -> (B,P,1)
+    (rend_util.py:164-181)."""
+    if _is_pose7(pose):
+        pose = pose7_to_matrix(pose)
+    points_hom = torch.cat([points, torch.ones_like(points[..., :1])], dim=-1)
+    points_cam = torch.einsum("bij,bpj->bpi", torch.linalg.inv(pose), points_hom)
+    return points_cam[:, :, 2:3]
 
 
 def uv_grid(img_res) -> np.ndarray:

@@ -1,4 +1,5 @@
-"""Checkpoint store: model, Adam state, the runner's step count, the epoch.
+"""Checkpoint store: model, Adam state, the runner's step count, the epoch,
+and with trainable cameras the (V, 7) pose table and its SparseAdam state.
 
 Counterpart of ``hashmodnffbanks_idr_tpu/train/checkpoints.py`` in the
 port's own format: one ``torch.save`` file per saved epoch plus
@@ -6,6 +7,10 @@ port's own format: one ``torch.save`` file per saved epoch plus
 :25-36), so a run killed mid-write leaves the previous file whole.
 
 ``load_jax_checkpoint`` reads the JAX runner's ``*.msgpack`` files.
+
+``cameras`` is ``{"pose_vecs": (V, 7) tensor, "cam_opt": {"m", "v",
+"step"}}`` (``train/trainer.py:sparse_adam_init``); a load copies the saved
+values into those tensors in place, on their devices.
 """
 
 from __future__ import annotations
@@ -18,17 +23,22 @@ import numpy as np
 import torch
 from torch import nn
 
-from ..weights import from_jax_params, load_jax_adam_state
+from ..weights import from_jax_params, load_jax_adam_state, load_jax_camera_state
 
 SUFFIX = ".pt"
 
 
 def save_checkpoint(ckpt_dir: str, epoch: int, model: nn.Module,
-                    optimizer: torch.optim.Optimizer, step: int) -> None:
+                    optimizer: torch.optim.Optimizer, step: int,
+                    cameras: Optional[Dict] = None) -> None:
     os.makedirs(ckpt_dir, exist_ok=True)
+    payload = {"model": model.state_dict(), "optimizer": optimizer.state_dict(),
+               "step": int(step), "epoch": int(epoch)}
+    if cameras is not None:
+        payload["pose_vecs"] = cameras["pose_vecs"].detach().cpu()
+        payload["cam_opt"] = {k: v.detach().cpu() for k, v in cameras["cam_opt"].items()}
     buf = io.BytesIO()
-    torch.save({"model": model.state_dict(), "optimizer": optimizer.state_dict(),
-                "step": int(step), "epoch": int(epoch)}, buf)
+    torch.save(payload, buf)
     data = buf.getvalue()
     for name in (f"{epoch}{SUFFIX}", f"latest{SUFFIX}"):
         tmp = os.path.join(ckpt_dir, name + ".tmp")
@@ -38,16 +48,35 @@ def save_checkpoint(ckpt_dir: str, epoch: int, model: nn.Module,
 
 
 def load_checkpoint(ckpt_dir: str, name: str, model: nn.Module,
-                    optimizer: Optional[torch.optim.Optimizer] = None) -> Dict[str, int]:
+                    optimizer: Optional[torch.optim.Optimizer] = None,
+                    cameras: Optional[Dict] = None) -> Dict:
     """Restore ``model`` (and ``optimizer``, when given: the eval loads the
-    model alone) in place from ``<name>.pt``; returns the saved ``epoch``
-    and the runner's ``step`` count."""
+    model alone) in place from ``<name>.pt``, and ``cameras`` when given and
+    saved (a checkpoint without cameras leaves them as they are, as the JAX
+    runner does).  Returns the saved ``epoch`` and the runner's ``step``
+    count, and ``pose_vecs`` (a CPU tensor) when the checkpoint has cameras."""
     payload = torch.load(os.path.join(ckpt_dir, f"{name}{SUFFIX}"), map_location="cpu",
                          weights_only=True)
     model.load_state_dict(payload["model"])
     if optimizer is not None:
         optimizer.load_state_dict(payload["optimizer"])
-    return {"epoch": int(payload["epoch"]), "step": int(payload["step"])}
+    if cameras is not None and "pose_vecs" in payload:
+        _copy_cameras(cameras, payload["pose_vecs"], payload["cam_opt"])
+    return _loaded(payload["epoch"], payload["step"], payload.get("pose_vecs"))
+
+
+def _loaded(epoch, step, pose_vecs) -> Dict:
+    out = {"epoch": int(epoch), "step": int(step)}
+    if pose_vecs is not None:
+        out["pose_vecs"] = pose_vecs
+    return out
+
+
+@torch.no_grad()
+def _copy_cameras(cameras: Dict, pose_vecs: torch.Tensor, cam_opt: Dict) -> None:
+    cameras["pose_vecs"].copy_(pose_vecs)
+    for k, v in cam_opt.items():
+        cameras["cam_opt"][k].copy_(v)
 
 
 def latest_exists(ckpt_dir: str) -> bool:
@@ -90,17 +119,19 @@ def _unchunk(tree):
     return {k: _unchunk(v) for k, v in tree.items()}
 
 
-def load_jax_checkpoint(path: str, model: nn.Module,
-                        optimizer: torch.optim.Optimizer) -> Dict[str, int]:
+def load_jax_checkpoint(path: str, model: nn.Module, optimizer: torch.optim.Optimizer,
+                        cameras: Optional[Dict] = None) -> Dict:
     """Restore ``model`` and ``optimizer`` from a JAX runner checkpoint
-    (``train/checkpoints.py:save_checkpoint`` of the JAX package).
+    (``train/checkpoints.py:save_checkpoint`` of the JAX package), and
+    ``cameras`` when given and saved.
 
     Its tree, from ``flax.serialization.to_state_dict`` of the runner's
     state under ``optax.chain(clip_by_global_norm, adam(schedule))``:
     ``params``; ``opt_state/0`` (the clip state, empty);
     ``opt_state/1/0/{count, mu, nu}`` (Adam); ``opt_state/1/1/count`` (the
-    schedule); ``epoch``.  Returns ``epoch`` and ``step``, the schedule's
-    count, which is the runner's step count."""
+    schedule); ``epoch``; with trainable cameras ``pose_vecs`` and
+    ``cam_opt/{m, v, step}``.  Returns ``epoch``, ``step`` (the schedule's
+    count, which is the runner's step count) and, when saved, ``pose_vecs``."""
     import msgpack
 
     with open(path, "rb") as f:
@@ -108,4 +139,9 @@ def load_jax_checkpoint(path: str, model: nn.Module,
     model.load_state_dict(from_jax_params(raw["params"], model))
     adam, schedule = raw["opt_state"]["1"]["0"], raw["opt_state"]["1"]["1"]
     load_jax_adam_state(adam["mu"], adam["nu"], int(adam["count"]), model, optimizer)
-    return {"epoch": int(raw["epoch"]), "step": int(schedule["count"])}
+    pose_vecs = None
+    if "pose_vecs" in raw:
+        pose_vecs, cam_opt = load_jax_camera_state(raw["pose_vecs"], raw["cam_opt"])
+        if cameras is not None:
+            _copy_cameras(cameras, pose_vecs, cam_opt)
+    return _loaded(raw["epoch"], schedule["count"], pose_vecs)

@@ -1,17 +1,21 @@
 """The training step and the training runner.
 
-Counterpart of ``hashmodnffbanks_idr_tpu/train/trainer.py`` for fixed
-cameras.  The step is pixel gather -> render -> IDR loss -> clipped Adam:
-the gradient is clipped to a global norm of 1.0 exactly as
-``optax.clip_by_global_norm`` does (idr_train.py:306), then a
-``torch.optim.Adam`` step is taken (its update is algebraically optax's).
+Counterpart of ``hashmodnffbanks_idr_tpu/train/trainer.py``.  The step is
+pixel gather -> render -> IDR loss -> clipped Adam: the network's gradient
+is clipped to a global norm of 1.0 exactly as ``optax.clip_by_global_norm``
+does (idr_train.py:306), then a ``torch.optim.Adam`` step is taken (its
+update is algebraically optax's).  With trainable cameras the step's poses
+are rows of a (V, 7) quaternion+translation table; its gradient is not
+clipped (JAX's optax chain holds the network alone) and goes to a SparseAdam
+kept on the device (idr_train.py:134-139).
 
 ``IDRTrainRunner`` keeps the JAX runner's semantics (JAX :159-419): run
 directories, one pixel subset per epoch, checkpoints every 25 epochs and at
 the end, MultiStep LR on the optimizer's step count, per-epoch alpha
 annealing, JSONL scalars, and every ``plot_freq`` epochs (never at epoch 0)
-the plots of ``eval/plots.py:plot_epoch``.  Still to port: trainable
-cameras (SparseAdam).
+the plots of ``eval/plots.py:plot_epoch``; with ``train_cameras`` the pose
+table starts from ``SceneDataset.get_pose_init`` and travels in the
+checkpoint with its optimizer state.
 """
 
 from __future__ import annotations
@@ -58,15 +62,51 @@ def clip_by_global_norm(params, max_norm: float) -> torch.Tensor:
     return g_norm
 
 
+def sparse_adam_init(pose_vecs: torch.Tensor) -> Dict[str, torch.Tensor]:
+    """SparseAdam state of a (V, 7) pose table: moments and the global step
+    count, on the table's device (JAX :50-55)."""
+    return {"m": torch.zeros_like(pose_vecs),
+            "v": torch.zeros_like(pose_vecs),
+            "step": torch.zeros((), dtype=torch.int32, device=pose_vecs.device)}
+
+
+@torch.no_grad()
+def sparse_adam_update(pose_vecs: torch.Tensor, grads: torch.Tensor,
+                       state: Dict[str, torch.Tensor], touched_rows: torch.Tensor,
+                       lr: float, b1: float = 0.9, b2: float = 0.999,
+                       eps: float = 1e-8) -> None:
+    """``torch.optim.SparseAdam``'s semantics, as the JAX package keeps them
+    (JAX :58-75), in place: the moments advance only for the rows in
+    ``touched_rows`` (a repeated row counts once, its gradient being the
+    sum), the bias-correction step count is global and advances every
+    call.  A masked dense update with no host synchronisation: the touched
+    mask is built with ``index_fill_``."""
+    touched = torch.zeros(pose_vecs.shape[0], dtype=torch.bool, device=pose_vecs.device)
+    tcol = touched.index_fill_(0, touched_rows, True)[:, None]
+    state["step"].add_(1)
+    m = torch.where(tcol, b1 * state["m"] + (1 - b1) * grads, state["m"])
+    v = torch.where(tcol, b2 * state["v"] + (1 - b2) * grads ** 2, state["v"])
+    state["m"].copy_(m)
+    state["v"].copy_(v)
+    stepf = state["step"].to(pose_vecs.dtype)
+    mhat = m / (1 - torch.pow(b1, stepf))
+    vhat = v / (1 - torch.pow(b2, stepf))
+    upd = -lr * mhat / (torch.sqrt(vhat) + eps)
+    pose_vecs.add_(torch.where(tcol, upd, torch.zeros_like(upd)))
+
+
 def loss_fn(model: IDRNetwork, loss_cfg: IDRLossConfig, scene: Dict[str, torch.Tensor],
             img_idx: torch.Tensor, pixel_idx: torch.Tensor,
             generator: Optional[torch.Generator], alpha: float,
-            draws: Optional[Dict[str, torch.Tensor]] = None) -> Dict[str, torch.Tensor]:
+            draws: Optional[Dict[str, torch.Tensor]] = None,
+            pose_vecs: Optional[torch.Tensor] = None) -> Dict[str, torch.Tensor]:
     """Gather the step's pixels from the device-resident scene, render them
-    and return the loss terms (JAX :94-126).  With ``loss_cfg.tv_weight > 0``
-    and a grid encoder, the grid's total variation at the traced points
-    (gradient-stopped: the points select cells, the gradient goes to the
-    table) is added as ``tv_loss``."""
+    and return the loss terms (JAX :94-126).  With ``pose_vecs`` (trainable
+    cameras) the poses are its rows ``img_idx``, (B, 7), else the scene's
+    (B, 4, 4).  With ``loss_cfg.tv_weight > 0`` and a grid encoder, the
+    grid's total variation at the traced points (gradient-stopped: the
+    points select cells, the gradient goes to the table) is added as
+    ``tv_loss``."""
     B = img_idx.shape[0]
     uv = scene["uv"][pixel_idx][None].expand(B, -1, -1)             # (B, P, 2)
     mask = scene["mask"][img_idx][:, pixel_idx]                     # (B, P)
@@ -74,7 +114,7 @@ def loss_fn(model: IDRNetwork, loss_cfg: IDRLossConfig, scene: Dict[str, torch.T
     inputs = {
         "uv": uv,
         "intrinsics": scene["intrinsics"][img_idx],
-        "pose": scene["pose"][img_idx],
+        "pose": scene["pose"][img_idx] if pose_vecs is None else pose_vecs[img_idx],
         "object_mask": mask,
     }
     outputs = model(inputs, generator=generator, training=True, draws=draws)
@@ -88,19 +128,29 @@ def loss_fn(model: IDRNetwork, loss_cfg: IDRLossConfig, scene: Dict[str, torch.T
 
 
 def build_train_step(model: IDRNetwork, loss_cfg: IDRLossConfig,
-                     optimizer: torch.optim.Optimizer) -> Callable:
+                     optimizer: torch.optim.Optimizer,
+                     pose_vecs: Optional[torch.Tensor] = None,
+                     cam_opt: Optional[Dict[str, torch.Tensor]] = None,
+                     lr_cam: float = 1e-4) -> Callable:
     """One train step over ``model``'s parameters, updated in place:
     ``step(scene, img_idx, pixel_idx, generator, alpha, draws=None)`` returns
-    the detached loss terms (no host synchronisation)."""
+    the detached loss terms (no host synchronisation).  With ``pose_vecs``
+    (a (V, 7) leaf that requires grad) and its ``cam_opt``
+    (``sparse_adam_init``) the cameras train too: their unclipped gradient
+    takes a SparseAdam step at ``lr_cam`` over the rows ``img_idx``."""
     params = [p for group in optimizer.param_groups for p in group["params"]]
 
     def step(scene, img_idx, pixel_idx, generator, alpha, draws=None):
         optimizer.zero_grad(set_to_none=True)
+        if pose_vecs is not None:
+            pose_vecs.grad = None
         losses = loss_fn(model, loss_cfg, scene, img_idx, pixel_idx, generator, alpha,
-                         draws=draws)
+                         draws=draws, pose_vecs=pose_vecs)
         losses["loss"].backward()
         clip_by_global_norm(params, MAX_GRAD_NORM)
         optimizer.step()
+        if pose_vecs is not None:
+            sparse_adam_update(pose_vecs, pose_vecs.grad, cam_opt, img_idx, lr_cam)
         return {k: v.detach() for k, v in losses.items()}
 
     return step
@@ -132,12 +182,11 @@ class IDRTrainRunner:
         log_tensorboard: bool = True,
         device=None,
     ):
-        if train_cameras:
-            raise NotImplementedError("trainable cameras (SparseAdam) are not ported yet")
         self.device = resolve_device(device)
         self.conf = parse_file(conf) if isinstance(conf, str) else conf
         self.batch_size = batch_size
         self.nepochs = nepochs
+        self.train_cameras = train_cameras
 
         # a non-empty --expname REPLACES the conf expname (JAX :186-196;
         # idr_train.py:35 would append)
@@ -202,13 +251,21 @@ class IDRTrainRunner:
         self.milestone_steps = [int(m) * self.steps_per_epoch for m in self.sched_milestones]
 
         self.optimizer = make_optimizer(self.model, lr=self.lr)
+        # trainable cameras: a (V, 7) pose table from the noisy linear init
+        # and its SparseAdam state (JAX :271-276), both in the checkpoint
+        self.pose_vecs, self.cam_opt = None, None
+        self.lr_cam = self.conf.get_float("train.learning_rate_cam", 1e-4)
+        if train_cameras:
+            self.pose_vecs = torch.tensor(self.train_dataset.get_pose_init(),
+                                          device=self.device, requires_grad=True)
+            self.cam_opt = sparse_adam_init(self.pose_vecs)
         # optimizer steps taken: the LR schedule's count (optax keeps it in
         # opt_state; here it travels in the checkpoint)
         self.step_count = 0
         self.start_epoch = 0
         if resume_dir is not None and ckpt.latest_exists(os.path.join(resume_dir, "checkpoints")):
             loaded = ckpt.load_checkpoint(os.path.join(resume_dir, "checkpoints"), checkpoint,
-                                          self.model, self.optimizer)
+                                          self.model, self.optimizer, cameras=self._cameras())
             self.start_epoch, self.step_count = loaded["epoch"], loaded["step"]
             print(f"resumed from {resume_dir} at epoch {self.start_epoch} "
                   f"(step {self.step_count})")
@@ -218,7 +275,15 @@ class IDRTrainRunner:
         self.scene = self.train_dataset.device_arrays(self.device)
         self.logger = ScalarLogger(os.path.join(self.rundir, "logs"),
                                    use_tensorboard=log_tensorboard)
-        self._step_fn = build_train_step(self.model, self.loss_cfg, self.optimizer)
+        self._step_fn = build_train_step(self.model, self.loss_cfg, self.optimizer,
+                                         pose_vecs=self.pose_vecs, cam_opt=self.cam_opt,
+                                         lr_cam=self.lr_cam)
+
+    def _cameras(self) -> Optional[Dict]:
+        """The trainable cameras' checkpoint entries, or None."""
+        if not self.train_cameras:
+            return None
+        return {"pose_vecs": self.pose_vecs, "cam_opt": self.cam_opt}
 
     def lr_at(self, count: int) -> float:
         """The LR of the step taken at optimizer count ``count``, as optax's
@@ -236,7 +301,7 @@ class IDRTrainRunner:
                                    self.alpha_factor, epoch)
             if epoch % CHECKPOINT_EVERY == 0:
                 ckpt.save_checkpoint(self.checkpoints_path, epoch, self.model,
-                                     self.optimizer, self.step_count)
+                                     self.optimizer, self.step_count, cameras=self._cameras())
             if self.plot_freq and epoch % self.plot_freq == 0 and epoch > 0:
                 try:
                     self._plot(epoch)
@@ -271,19 +336,21 @@ class IDRTrainRunner:
                       f"mask={host_losses['mask_loss']:.6f} "
                       f"rays/s={rays_per_s:.0f}")
         ckpt.save_checkpoint(self.checkpoints_path, self.nepochs, self.model,
-                             self.optimizer, self.step_count)
+                             self.optimizer, self.step_count, cameras=self._cameras())
         self.logger.close()
 
     def _plot(self, epoch: int):
         """Per-plot-epoch artifacts (idr_train.py:231-273 role; JAX
         :396-419): one view, drawn from the image-order generator, rendered
-        at eval tiles by one reused ``Evaluator``, and the mesh at
-        ``plot.resolution``."""
+        at eval tiles by one reused ``Evaluator`` (with the trained poses
+        when the cameras train), and the mesh at ``plot.resolution``."""
         from ..eval.evaluator import Evaluator
         from ..eval.plots import plot_epoch
 
         if self._plot_ev is None:
             self._plot_ev = Evaluator(self.conf, self.model, dataset=self.train_dataset)
+        if self.train_cameras:
+            self._plot_ev.pose_vecs = self.pose_vecs.detach()
         idx = int(torch.randint(0, self.n_images, (), generator=self.order_generator))
         view = self._plot_ev.render_view(idx)
         plot_epoch(self.plots_dir, epoch, view, self.model.implicit_network.sdf,

@@ -5,7 +5,9 @@ The port's parameter names follow the JAX tree (``lin.<i>.v``,
 ``embedder`` / ``view_embedder``.  Linear weights ``w``/``v`` are
 transposed from JAX's ``(in, out)`` to ``(out, in)``; a hash table may come
 as ``(rows, C)`` or as the JAX package's ``(P, 128)`` page image.  Adam's
-moment trees have the params' structure and map the same way.
+moment trees have the params' structure and map the same way.  The
+trainable cameras' (V, 7) pose table and SparseAdam state carry over as they
+are (``load_jax_camera_state``).
 """
 
 from __future__ import annotations
@@ -74,3 +76,19 @@ def load_jax_adam_state(mu: dict, nu: dict, count: int, model: nn.Module,
             "exp_avg": exp_avg[name].to(p.device),
             "exp_avg_sq": exp_avg_sq[name].to(p.device),
         }
+
+
+def load_jax_camera_state(pose_vecs, cam_opt: dict) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """The JAX runner's trainable-camera state -> (pose table (V, 7) float32,
+    SparseAdam state ``{"m", "v", "step"}`` as ``train/trainer.py:
+    sparse_adam_init`` keeps it: moments float32, ``step`` a 0-d int32).
+    Rows are quaternion (wxyz) + translation on both sides: no transpose."""
+    pose = torch.tensor(np.asarray(pose_vecs, dtype=np.float32))
+    state = {"m": torch.tensor(np.asarray(cam_opt["m"], dtype=np.float32)),
+             "v": torch.tensor(np.asarray(cam_opt["v"], dtype=np.float32)),
+             "step": torch.tensor(int(np.asarray(cam_opt["step"])), dtype=torch.int32)}
+    for k in ("m", "v"):
+        if state[k].shape != pose.shape:
+            raise ValueError(f"cam_opt.{k}: shape {tuple(state[k].shape)} does not fit "
+                             f"the pose table's {tuple(pose.shape)}")
+    return pose, state

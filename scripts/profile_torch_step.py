@@ -20,7 +20,6 @@ from pathlib import Path
 
 import torch
 from torch.autograd import DeviceType
-from torch.profiler import ProfilerActivity, profile
 
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 
@@ -33,6 +32,7 @@ from hashmodnffbanks_idr_tpu_torch.testing import (flagship_conf, ngp_conf,  # n
                                                    scene_to_device, synthetic_scene)
 from hashmodnffbanks_idr_tpu_torch.train.trainer import (build_train_step,  # noqa: E402
                                                          make_optimizer)
+from hashmodnffbanks_idr_tpu_torch.utils.profiling import trace  # noqa: E402
 from hashmodnffbanks_idr_tpu_torch.utils.sampling import sample_pixels  # noqa: E402
 
 N_RAYS, IMG_RES = 2048, (1200, 1600)
@@ -59,7 +59,7 @@ def measure(fn, reps: int) -> dict:
         fn()
     torch.cuda.synchronize()
     wall_ms = (time.perf_counter() - t0) * 1e3 / reps
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with trace() as prof:
         t0 = time.perf_counter()
         for _ in range(reps):
             fn()
@@ -110,7 +110,7 @@ def main() -> int:
         mask = scene["mask"][img_idx][:, pix].reshape(-1)
 
         @torch.no_grad()
-        def trace():
+        def tracer():
             sdf, guidance = model._tracer_sdfs()
             ray_trace(model.ray_tracer, sdf, cam, mask, dirs, generator=gen,
                       sdf_guidance=guidance)
@@ -119,7 +119,7 @@ def main() -> int:
             train_step()
         print(json.dumps({"label": label, "reps": args.steps,
                           "step": measure(train_step, args.steps),
-                          "tracer": measure(trace, args.steps)}))
+                          "tracer": measure(tracer, args.steps)}))
     return 0
 
 

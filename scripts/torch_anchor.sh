@@ -8,19 +8,39 @@
 # The scene data/dtu_shaped_small/scan0 (8 views, 240x320, scan 0) is
 # generated first by the port's dtu_shaped, if it is not there.
 #
-# Usage: scripts/torch_anchor.sh SEED [OUT_DIR]
+# Usage: scripts/torch_anchor.sh SEED [OUT_DIR] [--train_cameras]
 # OUT_DIR (default exps/anchor_s<SEED>) receives the small records:
 # anchor_s<SEED>.json (metrics, times, the card), the run's scalars.jsonl,
 # the metric CSVs, summary.json and the Chamfer log.  Checkpoints, meshes
 # and renders stay in a temporary work directory, removed at the end.
+# With --train_cameras it runs the trained-camera anchor instead:
+# headtohead_ours_trained_cameras_400.conf with the cameras optimised from
+# the scene's noisy linear init (exp_runner --train_cameras), run_eval with
+# --eval_cameras, and the record anchor_cameras_s<SEED>.json adds the
+# camera errors after training and at the init (default OUT_DIR
+# exps/anchor_cameras_s<SEED>).
 set -euo pipefail
 cd "$(dirname "$0")/.."
 
 seed="$1"
-out="${2:-exps/anchor_s${seed}}"
-conf=hashmodnffbanks_idr_tpu/config/confs/headtohead_ours_400_f32.conf
+confs=hashmodnffbanks_idr_tpu/config/confs
 scene=data/dtu_shaped_small/scan0
-exp="headtohead_ours400_f32_torch_s${seed}"
+case "${3:-}" in
+  --train_cameras)
+    conf="$confs/headtohead_ours_trained_cameras_400.conf"
+    exp="headtohead_ours_trained400_torch_s${seed}"
+    record="anchor_cameras_s${seed}"
+    extra_train=(--train_cameras)
+    extra_eval=(--eval_cameras) ;;
+  "")
+    conf="$confs/headtohead_ours_400_f32.conf"
+    exp="headtohead_ours400_f32_torch_s${seed}"
+    record="anchor_s${seed}"
+    extra_train=()
+    extra_eval=() ;;
+  *) echo "unknown option $3" >&2; exit 2 ;;
+esac
+out="${2:-exps/${record}}"
 work=$(mktemp -d)
 trap 'rm -rf "$work"' EXIT
 mkdir -p "$out"
@@ -36,11 +56,11 @@ fi
 t1=$(now)
 python3 -m hashmodnffbanks_idr_tpu_torch.train.exp_runner --conf "$conf" --nepoch 400 \
   --data_root data --seed "$seed" --expname "$exp" --exps_folder_name "$work/exps" \
-  --no_tensorboard
+  --no_tensorboard ${extra_train[@]+"${extra_train[@]}"}
 t2=$(now)
 python3 -m hashmodnffbanks_idr_tpu_torch.eval.run_eval --conf "$conf" --expname "$exp" \
   --data_root data --resolution 200 --eval_rendering --exps_folder "$work/exps" \
-  --evals_folder "$work/evals"
+  --evals_folder "$work/evals" ${extra_eval[@]+"${extra_eval[@]}"}
 t3=$(now)
 evals="$work/evals/${exp}_0"
 mesh=$(ls -t "$evals"/surface_world_coordinates_*.ply | head -1)
@@ -51,11 +71,12 @@ t4=$(now)
 rundir=$(ls -d "$work/exps/${exp}_0"/*/ | tail -1)
 cp "$rundir/logs/scalars.jsonl" "$evals"/metrics/*.csv "$evals/metrics/summary.json" \
   "$evals/chamfer_log.txt" "$out/"
+if [ -f "$evals/camera_accuracy.json" ]; then cp "$evals/camera_accuracy.json" "$out/"; fi
 card=$(nvidia-smi --query-gpu=name,power.limit --format=csv,noheader 2>/dev/null || echo "no nvidia-smi")
-python3 - "$out" "$seed" "$card" "$t0" "$t1" "$t2" "$t3" "$t4" <<'EOF'
-import json, statistics, sys
-out, seed, card = sys.argv[1], int(sys.argv[2]), sys.argv[3]
-t = [float(x) for x in sys.argv[4:]]
+python3 - "$out" "$seed" "$card" "$record" "$t0" "$t1" "$t2" "$t3" "$t4" <<'EOF'
+import json, os, statistics, sys
+out, seed, card, record = sys.argv[1], int(sys.argv[2]), sys.argv[3], sys.argv[4]
+t = [float(x) for x in sys.argv[5:]]
 rows = [json.loads(l) for l in open(f"{out}/scalars.jsonl")]
 summary = json.load(open(f"{out}/summary.json"))
 chamfer = json.loads(open(f"{out}/chamfer_log.txt").read().splitlines()[-1])
@@ -69,6 +90,19 @@ rec = {"seed": seed, "card": card, "epochs": rows[-1]["step"],
        "lpips": summary["lpips_mean"], "lpips_weights": summary["lpips_weights"],
        "chamfer_d2s": chamfer["mean_d2s"], "chamfer_s2d": chamfer["mean_s2d"],
        "chamfer_overall": chamfer["over_all"]}
-json.dump(rec, open(f"{out}/anchor_s{seed}.json", "w"), indent=1)
+if os.path.exists(f"{out}/camera_accuracy.json"):
+    from hashmodnffbanks_idr_tpu_torch.data.scene_dataset import SceneDataset
+    from hashmodnffbanks_idr_tpu_torch.eval.evaluator import camera_alignment
+    from hashmodnffbanks_idr_tpu_torch.geometry.cameras import quat_to_rot
+    import torch
+    keys = ("rot_err_mean", "rot_err_median", "t_err_mean", "t_err_median")
+    acc = json.load(open(f"{out}/camera_accuracy.json"))
+    ds = SceneDataset(True, "dtu_shaped_small", [240, 320], 0, data_root="data")
+    init, gt = ds.get_pose_init(), ds.get_gt_pose(scaled=True)
+    init_acc = camera_alignment(quat_to_rot(torch.from_numpy(init[:, :4])).numpy(),
+                                gt[:, :3, :3], init[:, 4:], gt[:, :3, 3])
+    rec["camera_error_trained"] = {k: acc[k] for k in keys}
+    rec["camera_error_init"] = {k: init_acc[k] for k in keys}
+json.dump(rec, open(f"{out}/{record}.json", "w"), indent=1)
 print("[anchor] " + json.dumps(rec))
 EOF

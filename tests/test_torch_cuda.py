@@ -121,3 +121,64 @@ def test_cuda_kernel_matches_plain_at_every_depth(cuda_device, precision, d_in):
             want = fm.fused_sdf_raw_plain(x, packed)
             torch.cuda.synchronize()
             assert float((got - want).abs().max()) <= TOL[precision], (spread, n)
+
+
+def test_cuda_pose7_step_matches_cpu(cuda_device):
+    """One trainable-camera step of the flagship at full width (exact tracer
+    through the f32 kernel, 64 rays) on the card and on the CPU from the
+    same weights, pose table and draws: hit masks equal, loss terms within
+    1e-5, the pose gradient and SparseAdam's first moment within 1e-4 of
+    their largest entry, the poses after the step within 1e-6 wherever |g|
+    exceeds 2e-4 of the largest (there the first step is lr * sign(g) on
+    both sides); the f32 kernel ran.  The same bounds as ``chip_smoke.py``'s
+    ``[cameras]`` step."""
+    from hashmodnffbanks_idr_tpu_torch.geometry.cameras import rot_to_quat
+    from hashmodnffbanks_idr_tpu_torch.models.loss import IDRLossConfig
+    from hashmodnffbanks_idr_tpu_torch.models.renderer import IDRNetwork
+    from hashmodnffbanks_idr_tpu_torch.testing import (flagship_conf, scene_to_device,
+                                                       synthetic_scene)
+    from hashmodnffbanks_idr_tpu_torch.train.trainer import (build_train_step, make_optimizer,
+                                                             sparse_adam_init)
+
+    n_rays, lr_cam = 64, 1e-4
+    conf = flagship_conf(num_pixels=n_rays)
+    conf.put("model.tracer_exact_fused", True)
+    scene_np = synthetic_scene(n_views=3, img_res=(64, 64), seed=0)
+    poses = scene_np["pose"]
+    pose0 = np.concatenate([rot_to_quat(poses[:, :3, :3].astype(np.float64)),
+                            poses[:, :3, 3]], axis=1).astype(np.float32)
+    g = torch.Generator().manual_seed(5)
+    pix = torch.randperm(64 * 64, generator=g)[:n_rays]
+    draws = {"coarse": torch.rand(12, generator=g), "fine": torch.rand(24, generator=g),
+             "eik": torch.rand(n_rays // 2, 3, generator=g) * 2 - 1}
+    out = {}
+    for device in (cuda_device, torch.device("cpu")):
+        model = IDRNetwork(conf.get_config("model"), device=device, seed=0)
+        pose_vecs = torch.tensor(pose0, device=device, requires_grad=True)
+        cam_opt = sparse_adam_init(pose_vecs)
+        step = build_train_step(model, IDRLossConfig(0.1, 200.0, 50.0), make_optimizer(model),
+                                pose_vecs=pose_vecs, cam_opt=cam_opt, lr_cam=lr_cam)
+        captured = {}
+        model.register_forward_hook(lambda m, a, o: captured.update(o))
+        fm.reset_launch_counts()
+        losses = step(scene_to_device(scene_np, device), torch.tensor([1], device=device),
+                      pix.to(device), None, 50.0,
+                      draws={k: v.to(device) for k, v in draws.items()})
+        out[device.type] = ({k: float(v) for k, v in losses.items()}, pose_vecs.grad.cpu(),
+                            pose_vecs.detach().cpu(), fm.launch_counts["fused_sdf_raw_f32"]
+                            ["launches"], int(cam_opt["step"]), cam_opt["m"].cpu(),
+                            captured["network_object_mask"].cpu())
+    (l_gpu, g_gpu, p_gpu, n_gpu, s_gpu, m_gpu, hit_gpu), \
+        (l_cpu, g_cpu, p_cpu, n_cpu, s_cpu, m_cpu, hit_cpu) = out["cuda"], out["cpu"]
+    assert n_gpu > 0 and n_cpu == 0 and s_gpu == s_cpu == 1
+    assert torch.equal(hit_gpu, hit_cpu) and hit_cpu.any()
+    for k in l_cpu:
+        assert abs(l_gpu[k] - l_cpu[k]) <= 1e-5 * abs(l_cpu[k]), (k, l_gpu[k], l_cpu[k])
+    gmax = float(g_cpu.abs().max())
+    grad_err = float((g_gpu - g_cpu).abs().max())
+    assert gmax > 0 and grad_err <= 1e-4 * gmax, (grad_err, gmax)
+    assert float((m_gpu - m_cpu).abs().max()) <= 1e-4 * float(m_cpu.abs().max())
+    clear = g_cpu.abs() > 2e-4 * gmax
+    assert clear.any()
+    assert float((p_gpu - p_cpu)[clear].abs().max()) <= 1e-6
+    assert torch.equal(p_gpu[[0, 2]], torch.from_numpy(pose0)[[0, 2]])

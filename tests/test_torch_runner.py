@@ -249,8 +249,10 @@ def test_runner_path_needs_neither_cv2_nor_msgpack(tmp_path, monkeypatch):
 
 
 def test_unported_runner_options_raise(tmp_path):
+    """The multi-host flags raise; ``--train_cameras`` is ported and trains
+    (tests/test_torch_cameras.py holds it against JAX)."""
     args = _write_setup(tmp_path)
     with pytest.raises(NotImplementedError):
-        exp_runner.main(args + ["--train_cameras"])
-    with pytest.raises(NotImplementedError):
         exp_runner.main(args + ["--num_processes", "2"])
+    runner = exp_runner.main(args + ["--train_cameras", "--nepoch", "0"])
+    assert runner.pose_vecs.shape == (3, 7) and int(runner.cam_opt["step"]) == 3
