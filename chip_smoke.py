@@ -13,8 +13,10 @@ same step on the CPU, then drives the flagship StyleModNFFB training step
 in four tracer configurations and times it.  Then it runs the user's path:
 the port's ``dummy_cli`` writes the dummy scene, ``exp_runner`` trains the
 repo's ``dummy_stylemodnffb.conf`` (with the ``mixed`` tracer) for 30 epochs
-and resumes it to epoch 32, and a DTU-size scan is decoded through
-``SceneDataset``.  Last comes the eval path: the port's ``dtu_shaped``
+and resumes it to epoch 32, and a DTU-size scan (49 distinct views) is
+decoded through ``SceneDataset`` in worker processes and again serially,
+the two held equal view by view (``scripts/time_scene_decode.py`` times
+the decode in threads as well).  Then the eval path: the port's ``dtu_shaped``
 generates the anchor scene on the card, ``exp_runner`` trains the repo's
 ``headtohead_ours_400_f32.conf`` for 20 epochs with plots every 10,
 ``run_eval`` and ``dtu_chamfer`` score it, and one view is rendered
@@ -37,7 +39,15 @@ through ``exp_runner --train_cameras`` for 30 epochs and resumes it to 32
 (the pose table and its SparseAdam state restored bit for bit), aligns the
 trained cameras with ``run_eval --eval_cameras``, and runs
 ``preprocess_cameras`` with its voxel carves on the card (votes equal to
-the CPU's).  It fails if ``-Xptxas -v`` reports a spill in either kernel at any
+the CPU's).  Last, ``[parallel]``: one rank per card over NCCL (a 1x1 mesh
+on a one-card machine) runs ``graft_entry.dryrun_multichip``'s four sharded
+configurations, then the flagship step (2048 rays, exact+fused) sharded and
+unsharded from the same weights and draws (loss terms within 1e-6
+relative, parameters within 5e-4 / 2e-6, the f32 kernel launched on every
+rank and held against its plain twin on the largest call the sharded step
+gave it, a parameter checksum equal across ranks), times 10 steps of each,
+and trains the dummy conf (mixed) through ``IDRTrainRunner(mesh=...)``.  It
+fails if ``-Xptxas -v`` reports a spill in either kernel at any
 compiled first-layer depth.  Any failed check raises and
 the script exits non-zero.  The second-to-last line is the kernels' JSON
 record, the last line ``{"ok": true, "device": {...}}``.
@@ -54,6 +64,7 @@ import math
 import os
 import re
 import shutil
+import signal
 import statistics
 import subprocess
 import sys
@@ -152,6 +163,18 @@ TRAINED_CONF = DUMMY_CONF.parent / "headtohead_ours_trained_cameras_400.conf"
 CAM_STEP_RAYS = 256
 CAM_LOSS_RTOL, CAM_MASK_AGREE, CAM_GRAD_TOL, CAM_POSE_TOL = 1e-5, 1.0, 1e-4, 1e-6
 CAM_EPOCHS = 30
+# the [parallel] phase: one rank per card over NCCL (a 1x1 mesh on a one-card
+# machine).  ``graft_entry.dryrun_multichip`` runs its four sharded
+# configurations; then each rank takes the flagship step (2048 rays,
+# exact+fused) under the mesh and again unsharded from the same weights and
+# draws: loss terms within PAR_LOSS_RTOL of each other, every parameter after
+# the step within PAR_PARAM_RTOL / PAR_PARAM_ATOL (the JAX sharding
+# equivalence test's bounds, tests/test_sharding_equivalence.py:104-106);
+# PAR_STEPS steps of each are timed, alternating; then the dummy conf (mixed) trains
+# PAR_RUNNER_EPOCHS epochs through ``IDRTrainRunner(mesh=...)``
+PAR_LOSS_RTOL, PAR_PARAM_RTOL, PAR_PARAM_ATOL = 1e-6, 5e-4, 2e-6
+PAR_WARMUP, PAR_STEPS = 2, 10
+PAR_RUNNER_EPOCHS = 3
 
 
 def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
@@ -451,41 +474,80 @@ def phase_runner(fm, smi: str, workdir: str) -> dict:
     return counts
 
 
-def phase_decode(smi: str, workdir: str, views: int = 49) -> None:
-    """A DTU-size scan (49 views at 1200x1600, image and mask) through
-    ``SceneDataset``.  Every row is Paeth-filtered, the slow case of the
-    reader: one file of each is written and copied to every view."""
-    from hashmodnffbanks_idr_tpu_torch.data.image_io import write_png
-    from hashmodnffbanks_idr_tpu_torch.data.scene_dataset import SceneDataset
+def decode_view(i: int, res=DTU_RES):
+    """View ``i`` of the ``[decode]`` scan: a shaded image and a disc mask,
+    each shifted by a per-view offset (and its own noise), so that no two
+    views are equal and a decode that put them out of order fails."""
+    H, W = res
+    rng = np.random.default_rng(i)
+    yy, xx = np.mgrid[0:H, 0:W]
+    shade = 128 + 60 * np.sin((xx + 13 * i) / 97.0)[..., None] * np.cos(yy / 61.0)[..., None]
+    img = np.clip(shade + 2 * i + rng.normal(0, 12, (H, W, 3)), 0, 255).astype(np.uint8)
+    mask = (((xx - W / 2 - 5 * i) ** 2 + (yy - H / 2) ** 2) < (H / 3) ** 2).astype(np.uint8) * 255
+    return img, mask
 
-    H, W = DTU_RES
+
+def write_decode_view(scan: str, i: int, res=DTU_RES) -> None:
+    """Write view ``i`` (image and mask), every row Paeth-filtered."""
+    from hashmodnffbanks_idr_tpu_torch.data.image_io import write_png
+
+    img, mask = decode_view(i, res)
+    write_png(os.path.join(scan, "image", f"{i:03d}.png"), img, filters=4)
+    write_png(os.path.join(scan, "mask", f"{i:03d}.png"), mask, filters=4)
+
+
+def phase_decode(smi: str, workdir: str, views: int = 49, res=DTU_RES) -> dict:
+    """A DTU-size scan (49 distinct views at 1200x1600, image and mask, every
+    row Paeth-filtered: the slow case of the reader) through ``SceneDataset``,
+    which decodes it in worker processes (``data/native_loader.py``), then
+    serially: the two equal view by view, and views 0, 24 and 48 equal to
+    what was written.  (``scripts/time_scene_decode.py`` times threads too.)"""
+    from concurrent.futures import ProcessPoolExecutor
+    from multiprocessing import get_context
+
+    from hashmodnffbanks_idr_tpu_torch.data import native_loader
+    from hashmodnffbanks_idr_tpu_torch.data.scene_dataset import SceneDataset, glob_imgs
+
+    H, W = res
     scan = os.path.join(workdir, "dtu", "scan0")
     for sub in ("image", "mask"):
         os.makedirs(os.path.join(scan, sub))
-    rng = np.random.default_rng(0)
-    yy, xx = np.mgrid[0:H, 0:W]
-    shade = 128 + 60 * np.sin(xx / 97.0)[..., None] * np.cos(yy / 61.0)[..., None]
-    img = np.clip(shade + rng.normal(0, 12, (H, W, 3)), 0, 255).astype(np.uint8)
-    mask = (((xx - W / 2) ** 2 + (yy - H / 2) ** 2) < (H / 3) ** 2).astype(np.uint8) * 255
-    write_png(os.path.join(scan, "image", "000.png"), img, filters=4)
-    write_png(os.path.join(scan, "mask", "000.png"), mask, filters=4)
+    t0 = time.perf_counter()
+    with ProcessPoolExecutor(native_loader.default_workers(views),
+                             mp_context=get_context("spawn")) as ex:
+        list(ex.map(write_decode_view, [scan] * views, range(views), [res] * views))
+    write_s = time.perf_counter() - t0
     wm = np.eye(4)  # K [I | t]: a camera 2.5 in front of the origin
     wm[:3, :3] = [[1.2 * W, 0, W / 2], [0, 1.2 * W, H / 2], [0, 0, 1]]
     wm[:3, 3] = wm[:3, :3] @ [0.0, 0.0, 2.5]
     np.savez(os.path.join(scan, "cameras.npz"),
              **{f"{m}_{i}": a for i in range(views)
                 for m, a in (("world_mat", wm), ("scale_mat", np.eye(4)))})
-    for i in range(1, views):
-        for sub in ("image", "mask"):
-            shutil.copyfile(os.path.join(scan, sub, "000.png"),
-                            os.path.join(scan, sub, f"{i:03d}.png"))
+    paths = [glob_imgs(os.path.join(scan, sub)) for sub in ("image", "mask")]
     t0 = time.perf_counter()
-    ds = SceneDataset(False, "dtu", DTU_RES, 0, data_root=workdir)
-    dt = time.perf_counter() - t0
-    if not (np.array_equal(ds.rgb_images[-1], img.reshape(-1, 3))
-            and np.array_equal(ds.object_masks[-1], mask.reshape(-1) > 127)):
-        raise AssertionError("decode: the scan's pixels differ from those written")
-    print(f"[decode] {json.dumps({'card': smi, 'views': views, 'res': list(DTU_RES), 'filters': 'paeth', 'scan_s': dt, 'per_view_ms': dt / views * 1e3})}")
+    ds = SceneDataset(False, "dtu", res, 0, data_root=workdir)
+    parallel_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    rgb, mask = native_loader.load_scene_native(*paths, res, workers="serial")
+    serial_s = time.perf_counter() - t0
+    for i in range(views):
+        if not (np.array_equal(ds.rgb_images[i], rgb[i])
+                and np.array_equal(ds.object_masks[i], mask[i])):
+            raise AssertionError(f"decode: view {i} in processes differs from the serial decode")
+    for i in (0, views // 2, views - 1):
+        img, mask = decode_view(i, res)
+        if not (np.array_equal(ds.rgb_images[i], img.reshape(-1, 3))
+                and np.array_equal(ds.object_masks[i], mask.reshape(-1) > 127)):
+            raise AssertionError(f"decode: view {i} differs from the file written")
+    if len({ds.rgb_images[i].tobytes() for i in range(views)}) != views:
+        raise AssertionError("decode: two views are equal")
+    rec = {"card": smi, "views": views, "res": list(res), "filters": "paeth",
+           "workers": native_loader.default_workers(views), "write_s": write_s,
+           "scan_s_processes": parallel_s, "scan_s_serial": serial_s,
+           "speedup_processes": serial_s / parallel_s,
+           "per_view_ms_processes": parallel_s / views * 1e3}
+    print(f"[decode] {json.dumps(rec)}")
+    return rec
 
 
 @contextlib.contextmanager
@@ -890,6 +952,180 @@ def phase_cameras(dev, fm, smi: str, workdir: str, data_root: str) -> dict:
     return counts
 
 
+def parallel_rank(rank: int, world: int, dev, workdir: str) -> dict:
+    """One rank of the ``[parallel]`` phase (see PAR_*): the sharded and the
+    unsharded flagship step, the f32 kernel on the largest call the sharded
+    step gave it, the timed steps, and the runner under the mesh.  Counts
+    reset just before the sharded step and read just after, and again around
+    the runner.  Returns the rank's record."""
+    import torch.distributed as dist
+
+    from hashmodnffbanks_idr_tpu_torch.config.hocon import parse_file
+    from hashmodnffbanks_idr_tpu_torch.data import dummy_cli
+    from hashmodnffbanks_idr_tpu_torch.models.loss import IDRLossConfig
+    from hashmodnffbanks_idr_tpu_torch.models.renderer import IDRNetwork
+    from hashmodnffbanks_idr_tpu_torch.ops import fused_mlp as fm
+    from hashmodnffbanks_idr_tpu_torch.parallel.sharding import make_mesh
+    from hashmodnffbanks_idr_tpu_torch.testing import (flagship_conf, scene_to_device,
+                                                       synthetic_scene)
+    from hashmodnffbanks_idr_tpu_torch.train.trainer import (IDRTrainRunner, build_train_step,
+                                                             make_optimizer)
+    from hashmodnffbanks_idr_tpu_torch.utils.compile_cache import build_once
+    from hashmodnffbanks_idr_tpu_torch.utils.sampling import sample_pixels
+
+    build_once(fm.load_library)
+    mesh = make_mesh(n_model=1)
+    conf = flagship_conf(num_pixels=N_RAYS)
+    conf.put("model.tracer_fast", "exact")
+    conf.put("model.tracer_exact_fused", True)
+    loss_cfg = IDRLossConfig(0.1, 200.0, ALPHA)
+    models, steps = {}, {}
+    for label, m in (("sharded", mesh), ("unsharded", None)):
+        models[label] = IDRNetwork(conf.get_config("model"), device=dev, seed=0)
+        steps[label] = build_train_step(models[label], loss_cfg, make_optimizer(models[label]),
+                                        mesh=m)
+    scene = scene_to_device(synthetic_scene(n_views=2, img_res=IMG_RES, seed=0), dev)
+    total = IMG_RES[0] * IMG_RES[1]
+    img_idx = torch.tensor([0], device=dev)
+    gen = torch.Generator(device=dev).manual_seed(1)
+    pixel_idx = sample_pixels(gen, total, N_RAYS)
+    draws = models["unsharded"].draw_uniforms(gen, N_RAYS, dev)
+
+    kept = {}
+    fm.reset_launch_counts()
+    with keep_largest_call(fm, kept):
+        sharded = steps["sharded"](scene, img_idx, pixel_idx, None, ALPHA, draws=draws)
+        torch.cuda.synchronize()
+    counts = {k: dict(v) for k, v in fm.launch_counts.items()}
+    if counts["fused_sdf_raw_f32"]["launches"] == 0:
+        raise AssertionError(f"parallel: rank {rank}: the sharded step launched no f32 kernel")
+    unsharded = steps["unsharded"](scene, img_idx, pixel_idx, None, ALPHA, draws=draws)
+    losses = {k: [float(sharded[k]), float(unsharded[k])] for k in unsharded}
+    rel = {k: abs(a - b) / max(abs(b), 1e-30) for k, (a, b) in losses.items()}
+    if not max(rel.values()) <= PAR_LOSS_RTOL:
+        raise AssertionError(f"parallel: rank {rank}: loss terms {losses} differ by {rel}")
+    worst, param_diff = -math.inf, 0.0
+    for (n, a), b in zip(models["sharded"].named_parameters(),
+                         models["unsharded"].parameters()):
+        d = (a.detach() - b.detach()).abs()
+        param_diff = max(param_diff, float(d.max()))
+        excess = float((d - PAR_PARAM_ATOL - PAR_PARAM_RTOL * b.detach().abs()).max())
+        if excess > 0:
+            raise AssertionError(f"parallel: rank {rank}: {n} differs by {float(d.max())}")
+        worst = max(worst, excess)
+    name = "fused_sdf_raw_f32"
+    x, packed = kept[name]
+    err = hold_against_plain(fm, name, x, packed, where=f" (rank {rank}, sharded step)")
+    checksum = torch.tensor([sum(float(p.detach().double().sum())
+                                 for p in models["sharded"].parameters())],
+                            dtype=torch.float64, device=dev)
+    sums = [torch.zeros_like(checksum) for _ in range(world)]
+    dist.all_gather(sums, checksum)
+    if len({float(t) for t in sums}) != 1:
+        raise AssertionError(f"parallel: parameter checksums differ across ranks: {sums}")
+
+    # the two steps alternate, so that a drift of the host's speed hits both
+    times = {"sharded": [], "unsharded": []}
+    for i in range(PAR_WARMUP + PAR_STEPS):
+        for label in times:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            steps[label](scene, img_idx, sample_pixels(gen, total, N_RAYS), gen, ALPHA)
+            torch.cuda.synchronize()
+            if i >= PAR_WARMUP:
+                times[label].append((time.perf_counter() - t0) * 1e3)
+    ms = {label: {"median": statistics.median(t), "min": min(t), "max": max(t)}
+          for label, t in times.items()}
+    del models, steps, scene
+    torch.cuda.empty_cache()
+
+    # the runner under the mesh: the dummy conf with the mixed tracer
+    data_root = os.path.join(workdir, "parallel_data")
+    if rank == 0:
+        dummy_cli.main(["--out", os.path.join(data_root, "dummy", "scan0")])
+    dist.barrier()
+    rconf = parse_file(str(DUMMY_CONF))
+    rconf.put("model.tracer_fast", "mixed")
+    fm.reset_launch_counts()
+    t0 = time.perf_counter()
+    runner = IDRTrainRunner(rconf, nepochs=PAR_RUNNER_EPOCHS, data_root=data_root,
+                            exps_folder_name=os.path.join(workdir, "parallel_exps"),
+                            log_tensorboard=False, device=dev, mesh=mesh)
+    runner.run()
+    runner_s = time.perf_counter() - t0
+    runner_counts = {k: dict(v) for k, v in fm.launch_counts.items()}
+    if runner_counts["fused_sdf_raw_bf16"]["launches"] == 0:
+        raise AssertionError(f"parallel: rank {rank}: the runner launched no bf16 kernel")
+    rec = {"rank": rank, "world": world, "mesh": list(mesh.shape), "losses": losses,
+           "loss_rel_diff": rel, "param_max_abs_diff": param_diff,
+           "param_worst_excess_over_bound": worst, "checksum": float(checksum),
+           "largest_call": {"n": x.shape[0], "d_in": x.shape[1], "max_abs_err": err},
+           "ms_per_step": ms, "counts": counts, "runner_counts": runner_counts,
+           "runner_s": runner_s}
+    if rank == 0:
+        rows = read_scalars(runner.rundir)
+        keys = ("loss", "rgb_loss", "eikonal_loss", "mask_loss")
+        if [r["step"] for r in rows] != list(range(PAR_RUNNER_EPOCHS + 1)):
+            raise AssertionError(f"parallel: runner logged epochs {[r['step'] for r in rows]}")
+        if not all(math.isfinite(r[k]) for r in rows for k in keys):
+            raise AssertionError("parallel: a runner loss is not finite")
+        per_epoch = [r["fused_sdf_raw_bf16_launches"] for r in rows]
+        if min(per_epoch) <= 0:
+            raise AssertionError(f"parallel: bf16 launches per epoch {per_epoch}")
+        rec["runner"] = {"losses": [r["loss"] for r in rows], "bf16_launches_per_epoch": per_epoch,
+                         "rays_per_s": [r["rays_per_s"] for r in rows]}
+    return rec
+
+
+def phase_parallel(smi: str, workdir: str) -> tuple:
+    """The ``[parallel]`` phase: one rank per card over NCCL.  First the
+    dry run through ``graft_entry.dryrun_multichip`` (its four runs must end
+    with a finite loss; ``ngp15-full`` must row-shard its table), then
+    ``parallel_rank`` in every rank.  Any rank's failure raises.  Returns
+    the counts summed over the ranks (sharded step, runner) and the f32
+    kernel's largest-call check."""
+    from hashmodnffbanks_idr_tpu_torch import graft_entry
+    from hashmodnffbanks_idr_tpu_torch.parallel import multihost
+
+    torch.cuda.empty_cache()
+    world = torch.cuda.device_count()
+    t0 = time.perf_counter()
+    dry = graft_entry.dryrun_multichip(world, timeout=600)
+    dry_s = time.perf_counter() - t0
+    ngp = [r for recs in dry for r in recs if r["label"] == "ngp15-full"]
+    if not all(r["sharded_tables"] for r in ngp):
+        raise AssertionError("parallel: ngp15-full did not row-shard its table")
+    if not all(math.isfinite(r["loss"]) for recs in dry for r in recs):
+        raise AssertionError("parallel: a dry-run loss is not finite")
+    t0 = time.perf_counter()
+    ranks = multihost.spawn(parallel_rank, world, args=(workdir,), device="cuda", timeout=900)
+    ranks_s = time.perf_counter() - t0
+
+    def summed(key):
+        return {k: {f: sum(r[key][k][f] for r in ranks) for f in ("launches", "points")}
+                for k in ranks[0][key]}
+
+    r0 = ranks[0]
+    rec = {"card": smi, "world": world, "mesh": r0["mesh"],
+           "dryrun": [{k: r[k] for k in ("label", "mesh", "n_rays", "loss", "sharded_tables",
+                                          "launches")} for r in dry[0]],
+           "dryrun_s": dry_s, "losses_sharded_unsharded": r0["losses"],
+           "loss_rel_diff_max": max(max(r["loss_rel_diff"].values()) for r in ranks),
+           "param_max_abs_diff": max(r["param_max_abs_diff"] for r in ranks),
+           "checksums": [r["checksum"] for r in ranks],
+           "f32_launches_by_rank": [r["counts"]["fused_sdf_raw_f32"]["launches"] for r in ranks],
+           "largest_call_by_rank": [r["largest_call"] for r in ranks],
+           "ms_per_step_sharded": [r["ms_per_step"]["sharded"] for r in ranks],
+           "ms_per_step_unsharded": [r["ms_per_step"]["unsharded"] for r in ranks],
+           "collective_cost_ms_median": (r0["ms_per_step"]["sharded"]["median"]
+                                         - r0["ms_per_step"]["unsharded"]["median"]),
+           "runner": r0["runner"], "runner_s": r0["runner_s"], "ranks_s": ranks_s}
+    print(f"[parallel] world size {world}, mesh {tuple(r0['mesh'])}")
+    print(f"[parallel] {json.dumps(rec)}")
+    largest = max((r["largest_call"] for r in ranks), key=lambda c: c["max_abs_err"])
+    return summed("counts"), summed("runner_counts"), largest
+
+
 def kernel_record(fm, name, x, packed, where=""):
     """One variant on one input: held against its plain twin, then timed
     beside the plain twin and the cuBLAS chain, with its bound."""
@@ -985,7 +1221,8 @@ def phase_ngp_runner(fm, smi: str, workdir: str, data_root: str) -> dict:
     ``exp_runner`` for ``NGP_RUNNER_EPOCHS`` epochs each, on the scene the
     eval phase generated.  Counts reset just before each run and read just
     after; the loss must fall (``NGP_RUNNER_FALL``) and the bf16 kernel run
-    every epoch."""
+    every epoch.  The record counts the steps whose gradient was not finite
+    (their updates skipped by the train step)."""
     from hashmodnffbanks_idr_tpu_torch.config.hocon import parse_file
     from hashmodnffbanks_idr_tpu_torch.train import exp_runner
 
@@ -1018,7 +1255,8 @@ def phase_ngp_runner(fm, smi: str, workdir: str, data_root: str) -> dict:
                "rays_per_s_median_epochs_2_on": statistics.median(
                    r["rays_per_s"] for r in rows[2:]),
                "bf16_launches_per_epoch": bf16,
-               "bf16_points": counts[conf_name]["fused_sdf_raw_bf16"]["points"]}
+               "bf16_points": counts[conf_name]["fused_sdf_raw_bf16"]["points"],
+               "skipped_steps": sum(r["skipped_steps"] for r in rows)}
         print(f"[ngp] runner {json.dumps(rec)}")
         if [r["step"] for r in rows] != list(range(NGP_RUNNER_EPOCHS + 1)):
             raise AssertionError(f"{conf_name}: logged epochs {[r['step'] for r in rows]}")
@@ -1053,6 +1291,63 @@ def check_spills(ptxas_log: str, depths) -> dict:
                 raise AssertionError(f"{name} K0={k0} spills registers: {entries[0].strip()}")
             out[name][k0] = {"registers": int(regs.group(1)), "spill_bytes": sum(spills)}
     return out
+
+
+def descendants() -> list:
+    """The pids of this process's descendants that have not exited, from
+    ``/proc``."""
+    parent = {}
+    for d in os.listdir("/proc"):
+        if d.isdigit():
+            try:
+                with open(f"/proc/{d}/stat") as f:
+                    parent[int(d)] = int(f.read().rsplit(")", 1)[1].split()[1])
+            except (OSError, IndexError):
+                continue
+    out, front = [], [os.getpid()]
+    while front:
+        pid = front.pop()
+        kids = [c for c, pp in parent.items() if pp == pid]
+        out += kids
+        front += kids
+    return [p for p in out if running(p)]
+
+
+def running(pid: int) -> bool:
+    try:
+        with open(f"/proc/{pid}/stat") as f:
+            return f.read().rsplit(")", 1)[1].split()[0] != "Z"
+    except (OSError, IndexError):
+        return False
+
+
+def stop_children(grace_s: float = 5.0) -> None:
+    """Stop every process the script started that still runs, however the
+    script ended: multiprocessing's resource tracker (the spawn context's
+    pools and ranks start it; it ignores SIGTERM), and any worker or rank a
+    failed phase left.  SIGTERM, then SIGKILL after ``grace_s``; the
+    script's own children are reaped."""
+    from multiprocessing import resource_tracker
+
+    stop = getattr(resource_tracker._resource_tracker, "_stop", None)
+    if stop is not None:
+        stop()
+    pids = descendants()
+    for sig in (signal.SIGTERM, signal.SIGKILL):
+        for pid in pids:
+            with contextlib.suppress(ProcessLookupError):
+                os.kill(pid, sig)
+        deadline = time.monotonic() + grace_s
+        while time.monotonic() < deadline:
+            with contextlib.suppress(ChildProcessError):
+                while os.waitpid(-1, os.WNOHANG)[0]:
+                    pass
+            pids = [p for p in pids if running(p)]
+            if not pids:
+                return
+            time.sleep(0.1)
+    if pids:
+        print(f"chip_smoke: processes {pids} outlived SIGKILL", file=sys.stderr)
 
 
 def main() -> int:
@@ -1114,6 +1409,8 @@ def main() -> int:
         phases["eval"], eval_largest = phase_eval(fm, smi, workdir)
         phases["cameras"] = phase_cameras(dev, fm, smi, workdir, os.path.join(workdir, "data"))
         phases.update(phase_ngp_runner(fm, smi, workdir, os.path.join(workdir, "data")))
+        phases["parallel"], phases["parallel-runner"], parallel_largest = phase_parallel(
+            smi, workdir)
 
     src = "hashmodnffbanks_idr_tpu_torch/ops/csrc/fused_mlp.cu"
     out = []
@@ -1141,6 +1438,9 @@ def main() -> int:
         rec["ngp_largest_call"] = ngp_largest[name]
         rec["max_abs_err"] = max([rec["max_abs_err"], ngp_largest[name]["max_abs_err"]]
                                  + [r["max_abs_err"] for r in depth_records[name]])
+        if name == "fused_sdf_raw_f32":  # the [parallel] phase's sharded step
+            rec["parallel_largest_call"] = parallel_largest
+            rec["max_abs_err"] = max(rec["max_abs_err"], parallel_largest["max_abs_err"])
         out.append(rec)
     print(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": out}))
@@ -1151,4 +1451,8 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    try:
+        code = main()
+    finally:
+        stop_children()
+    sys.exit(code)

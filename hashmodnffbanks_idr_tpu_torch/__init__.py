@@ -12,16 +12,16 @@ card is present unless the caller asks for the CPU explicitly.
 
 from __future__ import annotations
 
-import torch
 
-
-def resolve_device(device=None) -> torch.device:
+def resolve_device(device=None) -> "torch.device":
     """``None`` -> ``cuda``; raises when CUDA is asked for but absent.
 
     On CUDA it also turns TF32 off for matmuls and cuDNN: the 'exact' tracer
     and every parity tolerance assume full float32 products (TF32 keeps ~3
     decimal digits).
     """
+    import torch  # here, so that a worker importing a numpy-only module skips torch
+
     device = torch.device("cuda" if device is None else device)
     if device.type == "cuda":
         if not torch.cuda.is_available():

@@ -5,8 +5,9 @@ directory layout (``<root>/<data_dir>/scan<id>/{image,mask}/*.png`` and
 ``cameras.npz``), file order, mask threshold and camera decomposition
 (P = world_mat @ scale_mat, intrinsics and pose by RQ decomposition,
 scene_dataset.py:46-51).  Images are decoded by ``image_io`` (numpy + zlib,
-no OpenCV).  All pixels go to the device once (RGB as uint8) and the train
-step gathers its pixels there.
+no OpenCV), the views in parallel (``native_loader``, JAX :94-100).  All
+pixels go to the device once (RGB as uint8) and the train step gathers its
+pixels there.
 """
 
 from __future__ import annotations
@@ -20,7 +21,7 @@ import torch
 
 from .. import resolve_device
 from ..geometry.cameras import decompose_projection, rot_to_quat, uv_grid
-from .image_io import load_gray, load_rgb
+from .native_loader import load_mask, load_scene_native  # noqa: F401 (load_mask re-exported)
 
 
 def glob_imgs(path: str):
@@ -28,10 +29,6 @@ def glob_imgs(path: str):
     for ext in ["*.png", "*.jpg", "*.JPEG", "*.JPG"]:
         imgs.extend(glob(os.path.join(path, ext)))
     return sorted(imgs)
-
-
-def load_mask(path: str) -> np.ndarray:
-    return load_gray(path) > 127.5  # rend_util.py:18-23
 
 
 def rgb_to_pm1(rgb_uint8: torch.Tensor) -> torch.Tensor:
@@ -82,19 +79,11 @@ class SceneDataset:
         self.intrinsics_all = np.stack(intr).astype(np.float32)  # (V, 4, 4)
         self.pose_all = np.stack(poses).astype(np.float32)       # (V, 4, 4)
 
-        self.rgb_images = np.stack(
-            [self._checked(load_rgb(p), p).reshape(-1, 3) for p in image_paths]
-        )  # (V, H*W, 3) uint8
-        self.object_masks = np.stack(
-            [self._checked(load_mask(p), p).reshape(-1) for p in mask_paths]
-        )  # (V, H*W) bool
+        # (V, H*W, 3) uint8 and (V, H*W) bool
+        self.rgb_images, self.object_masks = load_scene_native(image_paths, mask_paths,
+                                                               self.img_res)
 
         self.uv = uv_grid(self.img_res)  # (H*W, 2) float32
-
-    def _checked(self, img: np.ndarray, path: str) -> np.ndarray:
-        if img.shape[:2] != self.img_res:
-            raise ValueError(f"{path} is {img.shape[:2]}, the conf says img_res={self.img_res}")
-        return img
 
     def __len__(self):
         return self.n_images

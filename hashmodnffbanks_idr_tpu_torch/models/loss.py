@@ -7,7 +7,7 @@ denominator, the ray count.
 
 from __future__ import annotations
 
-from typing import Dict, NamedTuple
+from typing import Dict, NamedTuple, Optional
 
 import torch
 
@@ -28,9 +28,13 @@ def rgb_loss(rgb_values, rgb_gt, mask, n_pixels):
     return torch.where(mask, per_ray, torch.zeros_like(per_ray)).sum() / n_pixels
 
 
-def eikonal_loss(grad_theta):
-    """mean((||grad|| - 1)^2) over all eikonal samples (loss.py:35-40)."""
+def eikonal_loss(grad_theta, n_rows=None):
+    """mean((||grad|| - 1)^2) over all eikonal samples (loss.py:35-40); with
+    ``n_rows``, the sum over these rows divided by it (a rank's share of a
+    mean over ``n_rows`` global rows)."""
     norms = torch.linalg.vector_norm(grad_theta, dim=-1)
+    if n_rows is not None:
+        return ((norms - 1.0) ** 2).sum() / n_rows
     return ((norms - 1.0) ** 2).mean()
 
 
@@ -46,14 +50,18 @@ def mask_loss(sdf_output, network_object_mask, object_mask, alpha, n_pixels):
 
 
 def idr_loss(cfg: IDRLossConfig, model_outputs: Dict[str, torch.Tensor],
-             rgb_gt: torch.Tensor, alpha: float) -> Dict[str, torch.Tensor]:
+             rgb_gt: torch.Tensor, alpha: float, n_rays: Optional[int] = None,
+             n_eik: Optional[int] = None) -> Dict[str, torch.Tensor]:
+    """The loss terms of these rays.  A rank of a sharded step passes the
+    global ray count ``n_rays`` and eikonal row count ``n_eik``: its terms
+    are then its share of the global ones, which sum over the ranks."""
     network_object_mask = model_outputs["network_object_mask"]
     object_mask = model_outputs["object_mask"]
-    n_pixels = float(object_mask.shape[0])
+    n_pixels = float(object_mask.shape[0] if n_rays is None else n_rays)
     l_rgb = rgb_loss(model_outputs["rgb_values"], rgb_gt.reshape(-1, 3),
                      network_object_mask & object_mask, n_pixels)
     l_mask = mask_loss(model_outputs["sdf_output"], network_object_mask, object_mask,
                        alpha, n_pixels)
-    l_eik = eikonal_loss(model_outputs["grad_theta"])
+    l_eik = eikonal_loss(model_outputs["grad_theta"], n_eik)
     total = l_rgb + cfg.eikonal_weight * l_eik + cfg.mask_weight * l_mask
     return {"loss": total, "rgb_loss": l_rgb, "eikonal_loss": l_eik, "mask_loss": l_mask}

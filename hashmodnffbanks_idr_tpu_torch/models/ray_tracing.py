@@ -8,9 +8,9 @@ on the same lanes by both.  The JAX ``lax.while_loop``s become Python loops
 whose predicate (``mask.any()``) is read on the host every iteration.
 
 The caller runs the tracer under ``torch.no_grad()``.  ``draws`` injects the
-sweep's uniform draws (``{'dense': (n,)}`` or ``{'coarse': (n_c,), 'fine':
-(n_f,)}``) so tests can feed both implementations the same numbers;
-otherwise they come from ``generator``.
+sweep's uniform draws (``sweep_draws``) so tests can feed both
+implementations the same numbers; without it they come from ``generator``
+through ``sweep_draws``, and a draw missing from ``draws`` raises.
 
 Guidance (``sdf_guidance``, JAX :98-210 and :515-588): cheaper approximate
 SDFs for the march's phase A (``'march'``), the sweep's coarse probes
@@ -75,13 +75,30 @@ def _gather1(a: torch.Tensor, j: torch.Tensor) -> torch.Tensor:
     return torch.gather(a, 1, j[:, None, None].expand(-1, 1, a.shape[-1]))[:, 0]
 
 
-def _uniform(draws, key, n, generator, like):
-    if draws is not None and key in draws:
-        u = torch.as_tensor(draws[key], dtype=like.dtype, device=like.device)
-        if u.shape != (n,):
-            raise ValueError(f"draws[{key!r}] has shape {tuple(u.shape)}, expected ({n},)")
-        return u
-    return torch.rand(n, generator=generator, dtype=like.dtype, device=like.device)
+def sweep_draws(cfg: RayTracerConfig, guided_coarse: bool,
+                generator: Optional[torch.Generator], like: torch.Tensor) -> Dict[str, torch.Tensor]:
+    """The sweep's uniform draws from ``generator`` (dtype and device of
+    ``like``), in the order the sweep takes them: ``{'dense': (n,)}``, or
+    ``{'coarse': (n_c,), 'fine': (n_f,)}`` for the stride that
+    ``sweep_stride`` picks."""
+    stride = sweep_stride(cfg, guided_coarse, like.device.type == "cuda")
+
+    def uniform(n):
+        return torch.rand(n, generator=generator, dtype=like.dtype, device=like.device)
+
+    if stride is None:
+        return {"dense": uniform(cfg.n_steps)}
+    coarse = uniform((cfg.n_steps - 1) // stride + 1)
+    return {"coarse": coarse, "fine": uniform(3 * (stride - 1))}
+
+
+def _uniform(draws, key, n, like):
+    if key not in draws:
+        raise KeyError(f"draws has no {key!r} (it has {sorted(draws)})")
+    u = torch.as_tensor(draws[key], dtype=like.dtype, device=like.device)
+    if u.shape != (n,):
+        raise ValueError(f"draws[{key!r}] has shape {tuple(u.shape)}, expected ({n},)")
+    return u
 
 
 def ray_trace(cfg: RayTracerConfig, sdf: Callable[[torch.Tensor], torch.Tensor],
@@ -123,9 +140,11 @@ def ray_trace(cfg: RayTracerConfig, sdf: Callable[[torch.Tensor], torch.Tensor],
     t1 = torch.where(sampler_mask, acc_end_dis, max_dis)
 
     stride = sweep_stride(cfg, sdf_coarse is not None, cam_flat.device.type == "cuda")
+    if draws is None:
+        draws = sweep_draws(cfg, sdf_coarse is not None, generator, cam_flat)
     if stride is None:
         lin01 = torch.linspace(0.0, 1.0, n, dtype=cam_flat.dtype, device=cam_flat.device)
-        rand01 = _uniform(draws, "dense", n, generator, cam_flat)
+        rand01 = _uniform(draws, "dense", n, cam_flat)
         u = torch.where(sampler_mask[:, None], lin01[None, :], rand01[None, :])
         pts_intervals = t0[:, None] + u * (t1 - t0)[:, None]
         points = cam_flat[:, None, :] + pts_intervals[..., None] * dirs_flat[:, None, :]
@@ -134,8 +153,8 @@ def ray_trace(cfg: RayTracerConfig, sdf: Callable[[torch.Tensor], torch.Tensor],
         exact_mask = None
     else:
         idx_grid, pts_intervals, points, sdf_val, exact_mask = _hierarchical_sweep(
-            cfg, sdf, cam_flat, dirs_flat, sampler_mask, t0, t1, generator, stride,
-            sdf_coarse=sdf_coarse, draws=draws)
+            cfg, sdf, cam_flat, dirs_flat, sampler_mask, t0, t1, stride, draws,
+            sdf_coarse=sdf_coarse)
 
     sampler_pts, sampler_net_obj_mask, sampler_dists = _ray_sampler(
         cfg, sdf, cam_flat, dirs_flat, object_mask, idx_grid, points, pts_intervals,
@@ -250,8 +269,8 @@ def _march(cfg, sdf, cam, dirs, mask_intersect, near, far, *, iters, threshold,
 # sweep sampler + secant (ray_tracing.py:189-268)
 # ---------------------------------------------------------------------------
 
-def _hierarchical_sweep(cfg, sdf, cam, dirs, sampler_mask, t0, t1, generator, stride,
-                        sdf_coarse=None, draws=None):
+def _hierarchical_sweep(cfg, sdf, cam, dirs, sampler_mask, t0, t1, stride, draws,
+                        sdf_coarse=None):
     """The n_steps linspace grid evaluated hierarchically (JAX :342-440):
     coarse probes every ``stride`` grid points, then the interiors of the
     first sign-flip interval and of both intervals around the coarse argmin.
@@ -266,7 +285,7 @@ def _hierarchical_sweep(cfg, sdf, cam, dirs, sampler_mask, t0, t1, generator, st
 
     ic = torch.arange(n_c, dtype=torch.int64, device=dev) * stride
     lin01_c = ic.to(dtype) / (n - 1)
-    rand01_c = _uniform(draws, "coarse", n_c, generator, cam)
+    rand01_c = _uniform(draws, "coarse", n_c, cam)
     u_c = torch.where(sampler_mask[:, None], lin01_c[None, :], rand01_c[None, :])
     t_c = t0[:, None] + u_c * (t1 - t0)[:, None]
     pts_c = cam[:, None, :] + t_c[..., None] * dirs[:, None, :]
@@ -282,7 +301,7 @@ def _hierarchical_sweep(cfg, sdf, cam, dirs, sampler_mask, t0, t1, generator, st
 
     offs = torch.arange(1, stride, dtype=torch.int64, device=dev)
     idx_f = (((ks - 1) * stride)[..., None] + offs[None, None, :]).reshape(R, n_f)
-    rand01_f = _uniform(draws, "fine", n_f, generator, cam)
+    rand01_f = _uniform(draws, "fine", n_f, cam)
     u_f = torch.where(sampler_mask[:, None], idx_f.to(dtype) / (n - 1), rand01_f[None, :])
     t_f = t0[:, None] + u_f * (t1 - t0)[:, None]
     pts_f = cam[:, None, :] + t_f[..., None] * dirs[:, None, :]

@@ -34,7 +34,7 @@ from .. import resolve_device
 from ..config.hocon import Config
 from ..geometry.cameras import get_camera_params
 from .networks import ImplicitNetwork, RenderingNetwork
-from .ray_tracing import RayTracerConfig, ray_trace
+from .ray_tracing import RayTracerConfig, ray_trace, sweep_draws
 from .sample_network import sample_network
 
 
@@ -105,12 +105,37 @@ class IDRNetwork(nn.Module):
             return fast(), build_guidance()
         return net.sdf, build_guidance(make_base=fast)
 
+    def draw_uniforms(self, generator: Optional[torch.Generator], n_rays: int,
+                      device) -> Dict[str, torch.Tensor]:
+        """The uniform draws a training forward over ``n_rays`` rays on
+        ``device`` takes from ``generator`` (``_draws``): the tracer's sweep
+        and the eikonal samples ``'eik'``.  A sharded step draws the global
+        ones on every rank and hands each rank its rows of ``'eik'``."""
+        with torch.no_grad():
+            _, guidance = self._tracer_sdfs()
+        like = torch.empty((), dtype=torch.float32, device=device)
+        return self._draws(generator, n_rays, guidance, like, training=True)
+
+    def _draws(self, generator, n_rays, guidance, like, training):
+        """What the forward draws when none are injected, in the order it
+        takes them: the sweep's (``ray_tracing.sweep_draws``, whose stride
+        follows the coarse guide of ``guidance``), then in training the
+        eikonal samples, (n_rays // 2, 3) in [-r, r]
+        (impl..._renderer.py:276-284)."""
+        draws = sweep_draws(self.ray_tracer, bool(guidance and "coarse" in guidance),
+                            generator, like)
+        if training:
+            bb = self.object_bounding_sphere
+            u = torch.rand((n_rays // 2, 3), generator=generator, dtype=like.dtype,
+                           device=like.device)
+            draws["eik"] = -bb + u * (2 * bb)
+        return draws
+
     def forward(self, inputs: Dict[str, torch.Tensor],
                 generator: Optional[torch.Generator] = None, training: bool = True,
                 draws: Optional[Dict[str, torch.Tensor]] = None) -> Dict[str, torch.Tensor]:
-        """``draws`` may inject the tracer's sweep draws (see
-        ``ray_tracing.ray_trace``) and the eikonal samples (``'eik'``,
-        (R//2, 3) in [-r, r]); missing ones come from ``generator``."""
+        """``draws`` may inject every uniform draw of the forward (see
+        ``_draws``); without it they come from ``generator``."""
         object_mask = inputs["object_mask"].reshape(-1).to(torch.bool)
         ray_dirs, cam_loc = get_camera_params(inputs["uv"], inputs["pose"],
                                               inputs["intrinsics"])
@@ -119,6 +144,8 @@ class IDRNetwork(nn.Module):
 
         with torch.no_grad():
             sdf, guidance = self._tracer_sdfs()
+            if draws is None:
+                draws = self._draws(generator, R, guidance, cam_loc, training)
             trace = ray_trace(self.ray_tracer, sdf, cam_loc, object_mask, ray_dirs,
                               generator=generator, training=training,
                               sdf_guidance=guidance, draws=draws)
@@ -134,14 +161,7 @@ class IDRNetwork(nn.Module):
         grad_theta = None
         if training:
             surface_mask = network_object_mask & object_mask
-            bb = self.object_bounding_sphere
-            if draws is not None and "eik" in draws:
-                eik_points = torch.as_tensor(draws["eik"], dtype=points.dtype,
-                                             device=points.device)
-            else:  # impl..._renderer.py:276-284
-                u = torch.rand((R // 2, 3), generator=generator, dtype=points.dtype,
-                               device=points.device)
-                eik_points = -bb + u * (2 * bb)
+            eik_points = torch.as_tensor(draws["eik"], dtype=points.dtype, device=points.device)
             g = self.implicit_network.gradient(torch.cat([points.detach(), eik_points], dim=0))
             surface_points_grad = g[:R].detach()
             grad_theta = torch.cat([g[R:], g[:R]], dim=0)

@@ -20,7 +20,9 @@ scaling stay float32.
 ``fused_sdf_raw`` launches the kernel for a CUDA tensor and raises if it
 cannot; for a CPU tensor it runs ``fused_sdf_raw_plain``, the same math in
 plain torch ops.  The kernel is built with ``nvcc`` for ``sm_90a`` into
-``build/`` at the repository root on first use and loaded with ctypes.
+the build cache (``utils/compile_cache.py``: ``build/`` at the repository
+root unless ``HMNFFB_COMPILE_CACHE`` names another) on first use and
+loaded with ctypes.
 """
 
 from __future__ import annotations
@@ -36,6 +38,7 @@ from typing import Dict, List, Tuple
 
 import torch
 
+from ..utils.compile_cache import cache_dir
 from .linear import Linear, softplus
 
 N_MID = 7              # l1..l7
@@ -47,7 +50,6 @@ KERNEL_HIDDEN = 512    # the CUDA kernel's compiled width
 KERNEL_DEPTHS = (64, 128, 256, 512)
 
 _CSRC = Path(__file__).resolve().parent / "csrc" / "fused_mlp.cu"
-_BUILD_DIR = Path(__file__).resolve().parents[2] / "build"
 
 # Kernel launches and points, per variant, counted by the wrapper only where
 # it launches the CUDA kernel (chip_smoke.py reads them to show that the
@@ -159,7 +161,7 @@ def _nvcc() -> str:
 
 def _lib_path() -> Path:
     """The built library of the current source (one per source content)."""
-    return _BUILD_DIR / f"libfused_mlp_{hashlib.sha256(_CSRC.read_bytes()).hexdigest()[:12]}.so"
+    return cache_dir() / f"libfused_mlp_{hashlib.sha256(_CSRC.read_bytes()).hexdigest()[:12]}.so"
 
 
 def ptxas_report() -> Path:
@@ -175,7 +177,7 @@ def load_library() -> ctypes.CDLL:
         return _lib
     out = _lib_path()
     if not out.exists():
-        _BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        out.parent.mkdir(parents=True, exist_ok=True)
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
         cmd = [_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
                "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",

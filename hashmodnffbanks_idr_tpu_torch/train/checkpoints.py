@@ -30,9 +30,14 @@ SUFFIX = ".pt"
 
 def save_checkpoint(ckpt_dir: str, epoch: int, model: nn.Module,
                     optimizer: torch.optim.Optimizer, step: int,
-                    cameras: Optional[Dict] = None) -> None:
+                    cameras: Optional[Dict] = None,
+                    optimizer_state: Optional[Dict] = None) -> None:
+    """``optimizer_state`` replaces ``optimizer.state_dict()`` (a sharded
+    step's state with the tables' moments gathered whole)."""
     os.makedirs(ckpt_dir, exist_ok=True)
-    payload = {"model": model.state_dict(), "optimizer": optimizer.state_dict(),
+    if optimizer_state is None:
+        optimizer_state = optimizer.state_dict()
+    payload = {"model": model.state_dict(), "optimizer": optimizer_state,
                "step": int(step), "epoch": int(epoch)}
     if cameras is not None:
         payload["pose_vecs"] = cameras["pose_vecs"].detach().cpu()

@@ -7,8 +7,11 @@ Usage:
         --nepoch 30 --data_root data [--is_continue] [--platform cpu]
 
 It trains on the CUDA card unless ``--platform cpu`` is given.  The
-multi-host flags are accepted for parity and raise: the port runs on one
-card.
+multi-host flags join the process group (``parallel/multihost.py:
+initialize``; every process runs this same command with its own
+``--process_id``).  As the JAX CLI does, it then builds the runner without
+a mesh: each process trains the whole step on its own device, and rank 0
+alone writes the run directory.
 """
 
 from __future__ import annotations
@@ -34,17 +37,17 @@ def main(argv=None):
                    help="torch device to train on (default: the CUDA card; 'cpu')")
     p.add_argument("--no_tensorboard", action="store_true")
     p.add_argument("--coordinator", type=str, default=None,
-                   help="multi-host runs are not ported; setting it raises")
+                   help="host:port of process 0 for multi-process runs")
     p.add_argument("--num_processes", type=int, default=None)
     p.add_argument("--process_id", type=int, default=None)
     p.add_argument("--seed", type=int, default=42)
     args = p.parse_args(argv)
 
-    if (args.coordinator, args.num_processes, args.process_id) != (None, None, None):
-        raise NotImplementedError("multi-host training (--coordinator/--num_processes/"
-                                  "--process_id) is not ported yet")
-
+    from ..parallel import multihost
     from .trainer import IDRTrainRunner
+
+    multihost.initialize(args.coordinator, args.num_processes, args.process_id,
+                         device=args.platform)
 
     runner = IDRTrainRunner(
         conf=args.conf,

@@ -4,7 +4,8 @@ Counterpart of ``hashmodnffbanks_idr_tpu/train/trainer.py``.  The step is
 pixel gather -> render -> IDR loss -> clipped Adam: the network's gradient
 is clipped to a global norm of 1.0 exactly as ``optax.clip_by_global_norm``
 does (idr_train.py:306), then a ``torch.optim.Adam`` step is taken (its
-update is algebraically optax's).  With trainable cameras the step's poses
+update is algebraically optax's); a step whose gradient is not finite
+takes no update (``update_is_finite``).  With trainable cameras the step's poses
 are rows of a (V, 7) quaternion+translation table; its gradient is not
 clipped (JAX's optax chain holds the network alone) and goes to a SparseAdam
 kept on the device (idr_train.py:134-139).
@@ -15,7 +16,8 @@ the end, MultiStep LR on the optimizer's step count, per-epoch alpha
 annealing, JSONL scalars, and every ``plot_freq`` epochs (never at epoch 0)
 the plots of ``eval/plots.py:plot_epoch``; with ``train_cameras`` the pose
 table starts from ``SceneDataset.get_pose_init`` and travels in the
-checkpoint with its optimizer state.
+checkpoint with its optimizer state.  Under a ``mesh`` it runs the sharded
+step on every rank; rank 0 alone writes the run directory.
 """
 
 from __future__ import annotations
@@ -28,6 +30,7 @@ from datetime import datetime
 from typing import Callable, Dict, Optional
 
 import torch
+import torch.distributed as dist
 
 from .. import resolve_device
 from ..config.hocon import Config, parse_file
@@ -35,6 +38,7 @@ from ..data.scene_dataset import SceneDataset, rgb_to_pm1
 from ..models.loss import IDRLossConfig, idr_loss
 from ..models.renderer import IDRNetwork
 from ..ops import fused_mlp as fm
+from ..utils.compile_cache import build_once, enable_compile_cache
 from ..utils.logging import ScalarLogger
 from ..utils.sampling import sample_pixels
 from . import checkpoints as ckpt
@@ -60,6 +64,29 @@ def clip_by_global_norm(params, max_norm: float) -> torch.Tensor:
     for g in grads:
         g.copy_(torch.where(keep, g, (g / g_norm) * max_norm))
     return g_norm
+
+
+def update_is_finite(step: Callable, g_norm: torch.Tensor,
+                     pose_vecs: Optional[torch.Tensor],
+                     losses: Dict[str, torch.Tensor]) -> bool:
+    """Whether a step's update may be taken: the global norm of the
+    network's gradient and the camera gradient are finite (one host read).
+    If not, the update is skipped, as ``optax.apply_if_finite`` skips it:
+    the parameters and the optimizers' states stay as they were, so that
+    one non-finite step cannot turn every parameter into NaN.  The skip is
+    counted in ``step.skipped`` and reported with the step's loss terms
+    (a non-finite term means the forward failed, finite terms the
+    backward)."""
+    ok = torch.isfinite(g_norm)
+    if pose_vecs is not None and pose_vecs.grad is not None:
+        ok = ok & torch.isfinite(pose_vecs.grad).all()
+    if bool(ok):
+        return True
+    step.skipped += 1
+    terms = {k: float(v) for k, v in losses.items()}
+    print(f"[train step] non-finite gradient (global norm {float(g_norm)}): update skipped "
+          f"({step.skipped} so far); loss terms {terms}")
+    return False
 
 
 def sparse_adam_init(pose_vecs: torch.Tensor) -> Dict[str, torch.Tensor]:
@@ -99,14 +126,16 @@ def loss_fn(model: IDRNetwork, loss_cfg: IDRLossConfig, scene: Dict[str, torch.T
             img_idx: torch.Tensor, pixel_idx: torch.Tensor,
             generator: Optional[torch.Generator], alpha: float,
             draws: Optional[Dict[str, torch.Tensor]] = None,
-            pose_vecs: Optional[torch.Tensor] = None) -> Dict[str, torch.Tensor]:
+            pose_vecs: Optional[torch.Tensor] = None,
+            n_rays: Optional[int] = None) -> Dict[str, torch.Tensor]:
     """Gather the step's pixels from the device-resident scene, render them
     and return the loss terms (JAX :94-126).  With ``pose_vecs`` (trainable
     cameras) the poses are its rows ``img_idx``, (B, 7), else the scene's
     (B, 4, 4).  With ``loss_cfg.tv_weight > 0`` and a grid encoder, the
     grid's total variation at the traced points (gradient-stopped: the
     points select cells, the gradient goes to the table) is added as
-    ``tv_loss``."""
+    ``tv_loss``.  ``n_rays`` (a sharded step's global ray count) makes
+    every term this rank's share of the global term."""
     B = img_idx.shape[0]
     uv = scene["uv"][pixel_idx][None].expand(B, -1, -1)             # (B, P, 2)
     mask = scene["mask"][img_idx][:, pixel_idx]                     # (B, P)
@@ -118,10 +147,16 @@ def loss_fn(model: IDRNetwork, loss_cfg: IDRLossConfig, scene: Dict[str, torch.T
         "object_mask": mask,
     }
     outputs = model(inputs, generator=generator, training=True, draws=draws)
-    losses = idr_loss(loss_cfg, outputs, rgb_gt, alpha)
+    if n_rays is None:
+        losses = idr_loss(loss_cfg, outputs, rgb_gt, alpha)
+    else:  # the eikonal rows: R // 2 samples and every traced point
+        losses = idr_loss(loss_cfg, outputs, rgb_gt, alpha, n_rays=n_rays,
+                          n_eik=n_rays // 2 + n_rays)
     if loss_cfg.tv_weight > 0.0:
         tv = model.implicit_network.tv_loss(outputs["points"].detach())
         if tv is not None:
+            if n_rays is not None:  # a mean over this rank's points
+                tv = tv * (outputs["points"].shape[0] / n_rays)
             losses["tv_loss"] = tv
             losses["loss"] = losses["loss"] + loss_cfg.tv_weight * tv
     return losses
@@ -131,13 +166,23 @@ def build_train_step(model: IDRNetwork, loss_cfg: IDRLossConfig,
                      optimizer: torch.optim.Optimizer,
                      pose_vecs: Optional[torch.Tensor] = None,
                      cam_opt: Optional[Dict[str, torch.Tensor]] = None,
-                     lr_cam: float = 1e-4) -> Callable:
+                     lr_cam: float = 1e-4, mesh=None,
+                     min_table_rows: int = 1024) -> Callable:
     """One train step over ``model``'s parameters, updated in place:
     ``step(scene, img_idx, pixel_idx, generator, alpha, draws=None)`` returns
-    the detached loss terms (no host synchronisation).  With ``pose_vecs``
+    the detached loss terms; its one host read is ``update_is_finite``'s
+    check, and a step whose gradient is not finite takes no update (counted
+    in ``step.skipped``).  With ``pose_vecs``
     (a (V, 7) leaf that requires grad) and its ``cam_opt``
     (``sparse_adam_init``) the cameras train too: their unclipped gradient
-    takes a SparseAdam step at ``lr_cam`` over the rows ``img_idx``."""
+    takes a SparseAdam step at ``lr_cam`` over the rows ``img_idx``.
+
+    With ``mesh`` (``parallel.sharding.make_mesh``) the step is sharded
+    (``_sharded_step``); ``optimizer`` is then re-pointed at each
+    row-sharded table's rows on this rank."""
+    if mesh is not None:
+        return _sharded_step(model, loss_cfg, optimizer, pose_vecs, cam_opt, lr_cam,
+                             mesh, min_table_rows)
     params = [p for group in optimizer.param_groups for p in group["params"]]
 
     def step(scene, img_idx, pixel_idx, generator, alpha, draws=None):
@@ -147,12 +192,135 @@ def build_train_step(model: IDRNetwork, loss_cfg: IDRLossConfig,
         losses = loss_fn(model, loss_cfg, scene, img_idx, pixel_idx, generator, alpha,
                          draws=draws, pose_vecs=pose_vecs)
         losses["loss"].backward()
-        clip_by_global_norm(params, MAX_GRAD_NORM)
-        optimizer.step()
-        if pose_vecs is not None:
-            sparse_adam_update(pose_vecs, pose_vecs.grad, cam_opt, img_idx, lr_cam)
+        g_norm = clip_by_global_norm(params, MAX_GRAD_NORM)
+        if update_is_finite(step, g_norm, pose_vecs, losses):
+            optimizer.step()
+            if pose_vecs is not None:
+                sparse_adam_update(pose_vecs, pose_vecs.grad, cam_opt, img_idx, lr_cam)
         return {k: v.detach() for k, v in losses.items()}
 
+    step.skipped = 0
+    return step
+
+
+def _sharded_step(model, loss_cfg, optimizer, pose_vecs, cam_opt, lr_cam, mesh,
+                  min_table_rows):
+    """The step on a ('data', 'model') mesh, computing what the one-device
+    step computes (JAX :82-130, where XLA SPMD inserts the collectives):
+
+    * every rank takes the global pixel batch and the global draws (from
+      ``generator``, seeded alike on every rank, or ``draws``) and renders
+      its slice of the rays (``sharding.ray_sharding``) with its rows of
+      ``'eik'``; its loss terms divide by the global counts, so they are
+      partial sums, and the returned terms are their sums over the ranks;
+    * the replicated parameters' gradients (and the pose table's) are
+      summed over the ranks in one flat all-reduce; a gradient that is
+      None on a rank (a parameter its rays did not reach) counts as zeros,
+      and one that is None on every rank stays None, as in the one-device
+      step (Adam then skips the parameter);
+    * a row-sharded table (``sharding.param_sharding``) lives as this
+      rank's rows and their Adam moments; its gradient is reduce-scattered
+      over 'model' and summed over 'data', and the full table is gathered
+      back into the module after the update;
+    * the clip is by the global norm: the replicated gradients once, the
+      table rows' squares summed over 'model'; the cameras stay unclipped;
+      a norm that is not finite skips the update on every rank alike.
+
+    The returned step carries the ``ShardedTables`` as ``step.tables`` and
+    ``step.optimizer_state_dict()``, the optimizer's state with each
+    table's moments gathered whole (collective; for a checkpoint)."""
+    from ..parallel import sharding as sh
+
+    placement = sh.param_sharding(model, mesh, min_table_rows)
+    names = [n for n, spec in placement.items() if spec == sh.ROWS]
+    tables = sh.ShardedTables(model, mesh, names)
+    by_param = {id(p): n for n, p in tables.full.items()}
+    for group in optimizer.param_groups:
+        for i, p in enumerate(group["params"]):
+            n = by_param.get(id(p))
+            if n is None:
+                continue
+            shard = tables.shards[n]
+            group["params"][i] = shard
+            st = optimizer.state.pop(p, None)
+            if st:  # a restored state: keep this rank's rows of the moments
+                optimizer.state[shard] = {
+                    k: (v[tables.rows[n]].clone() if torch.is_tensor(v) and v.dim() == 2 else v)
+                    for k, v in st.items()}
+    params = [p for group in optimizer.param_groups for p in group["params"]]
+    shard_ids = {id(p) for p in tables.shards.values()}
+    replicated = [p for p in params if id(p) not in shard_ids]
+    reduced = replicated + ([pose_vecs] if pose_vecs is not None else [])
+    shard_slots = {n: next(i for i, p in enumerate(params) if p is tables.shards[n])
+                   for n in names}
+    world = mesh.size()
+    # CPU tensors go over gloo; under NCCL a gloo group carries them
+    host_group = dist.new_group(backend="gloo") if dist.get_backend() == "nccl" else None
+
+    def step(scene, img_idx, pixel_idx, generator, alpha, draws=None):
+        optimizer.zero_grad(set_to_none=True)
+        for p in tables.full.values():
+            p.grad = None
+        if pose_vecs is not None:
+            pose_vecs.grad = None
+        n_rays = img_idx.shape[0] * pixel_idx.shape[0]
+        if n_rays % (2 * world):
+            raise ValueError(f"{n_rays} rays do not split into even shares of {world} ranks")
+        if draws is None:
+            draws = model.draw_uniforms(generator, n_rays, scene["uv"].device)
+        local = dict(draws)
+        local["eik"] = sh.constrain_rays(torch.as_tensor(draws["eik"]), mesh)
+        losses = loss_fn(model, loss_cfg, scene, img_idx, sh.constrain_rays(pixel_idx, mesh),
+                         generator, alpha, draws=local, pose_vecs=pose_vecs, n_rays=n_rays)
+        losses["loss"].backward()
+        with torch.no_grad():
+            # which gradients exist on some rank: a host-side exchange
+            counts = torch.tensor([float(p.grad is not None) for p in reduced])
+            dist.all_reduce(counts, group=host_group)
+            flat = torch.cat([(p.grad if p.grad is not None else torch.zeros_like(p)).reshape(-1)
+                              for p in reduced])
+            dist.all_reduce(flat)
+            counts = counts.tolist()
+            offset = 0
+            for p, count in zip(reduced, counts):
+                p.grad = flat[offset:offset + p.numel()].view_as(p) if count > 0 else None
+                offset += p.numel()
+            tables.reduce_grads()
+            # the global norm: replicated gradients once, table rows over 'model'
+            sq = torch.stack([(p.grad ** 2).sum() for p in replicated
+                              if p.grad is not None]).sum()
+            if len(tables):
+                sq_rows = torch.stack([(p.grad ** 2).sum() for p in tables.shards.values()]).sum()
+                dist.all_reduce(sq_rows, group=tables.model_group)
+                sq = sq + sq_rows
+            g_norm = torch.sqrt(sq)
+            keep = g_norm < MAX_GRAD_NORM
+            for p in params:
+                if p.grad is not None:
+                    p.grad.copy_(torch.where(keep, p.grad, (p.grad / g_norm) * MAX_GRAD_NORM))
+        # the norm and the camera gradient are alike on every rank: all skip alike
+        if update_is_finite(step, g_norm, pose_vecs, losses):
+            optimizer.step()
+            if pose_vecs is not None:
+                sparse_adam_update(pose_vecs, pose_vecs.grad, cam_opt, img_idx, lr_cam)
+        tables.gather()
+        terms = torch.stack([v.detach() for v in losses.values()])
+        dist.all_reduce(terms)
+        return dict(zip(losses, terms.unbind()))
+
+    def optimizer_state_dict():
+        sd = optimizer.state_dict()
+        for n, slot in shard_slots.items():
+            st = sd["state"].get(slot)
+            if st is not None:
+                sd["state"][slot] = {
+                    k: (tables.gather_rows(n, v) if torch.is_tensor(v) and v.dim() == 2 else v)
+                    for k, v in st.items()}
+        return sd
+
+    step.skipped = 0
+    step.tables = tables
+    step.optimizer_state_dict = optimizer_state_dict
     return step
 
 
@@ -163,7 +331,15 @@ class IDRTrainRunner:
     ``"cpu"`` to train on the CPU.  The initial weights come from ``seed``,
     the pixel and tracer draws from a generator on the device seeded with
     ``seed + 1``, the image order from a host generator seeded with
-    ``seed + 2``.  These streams differ from the JAX runner's."""
+    ``seed + 2``.  These streams differ from the JAX runner's.
+
+    With ``mesh`` (``parallel.sharding.make_mesh``; every rank builds the
+    runner alike) the step is ``build_train_step(mesh=...)``: the seeds give
+    every rank the same weights and draws.  In a process
+    group of more than one rank, rank 0 builds the CUDA kernel first
+    (``utils/compile_cache.py:build_once``) and alone writes the run
+    directory, checkpoints, scalars and plots; a checkpoint holds the
+    tables' Adam moments whole, so it resumes with or without a mesh."""
 
     def __init__(
         self,
@@ -181,12 +357,20 @@ class IDRTrainRunner:
         seed: int = 42,
         log_tensorboard: bool = True,
         device=None,
+        mesh=None,
     ):
         self.device = resolve_device(device)
         self.conf = parse_file(conf) if isinstance(conf, str) else conf
         self.batch_size = batch_size
         self.nepochs = nepochs
         self.train_cameras = train_cameras
+        self.mesh = mesh
+        self.rank, self.world = ((dist.get_rank(), dist.get_world_size())
+                                 if dist.is_initialized() else (0, 1))
+        self.is_writer = self.rank == 0
+        enable_compile_cache()  # JAX :177-179
+        if self.device.type == "cuda" and self.world > 1:
+            build_once(fm.load_library)
 
         # a non-empty --expname REPLACES the conf expname (JAX :186-196;
         # idr_train.py:35 would append)
@@ -210,14 +394,17 @@ class IDRTrainRunner:
                     resume_dir = os.path.join(self.expdir, stamps[-1])
         elif is_continue:
             resume_dir = os.path.join(self.expdir, timestamp)
+        if self.world > 1:  # every rank has its resume_dir before rank 0 adds a run
+            dist.barrier()
         self.timestamp = "{:%Y_%m_%d_%H_%M_%S}".format(datetime.now())
         self.rundir = os.path.join(self.expdir, self.timestamp)
         self.plots_dir = os.path.join(self.rundir, "plots")
         self.checkpoints_path = os.path.join(self.rundir, "checkpoints")
-        os.makedirs(self.plots_dir, exist_ok=True)
-        os.makedirs(self.checkpoints_path, exist_ok=True)
-        with open(os.path.join(self.rundir, "runconf.conf"), "w") as f:
-            f.write(self.conf.dump())
+        if self.is_writer:
+            os.makedirs(self.plots_dir, exist_ok=True)
+            os.makedirs(self.checkpoints_path, exist_ok=True)
+            with open(os.path.join(self.rundir, "runconf.conf"), "w") as f:
+                f.write(self.conf.dump())
 
         # data
         dataset_conf = dict(self.conf.get_config("dataset").data)
@@ -267,23 +454,37 @@ class IDRTrainRunner:
             loaded = ckpt.load_checkpoint(os.path.join(resume_dir, "checkpoints"), checkpoint,
                                           self.model, self.optimizer, cameras=self._cameras())
             self.start_epoch, self.step_count = loaded["epoch"], loaded["step"]
-            print(f"resumed from {resume_dir} at epoch {self.start_epoch} "
-                  f"(step {self.step_count})")
+            if self.is_writer:
+                print(f"resumed from {resume_dir} at epoch {self.start_epoch} "
+                      f"(step {self.step_count})")
 
         self.generator = torch.Generator(device=self.device).manual_seed(seed + 1)
         self.order_generator = torch.Generator().manual_seed(seed + 2)
         self.scene = self.train_dataset.device_arrays(self.device)
-        self.logger = ScalarLogger(os.path.join(self.rundir, "logs"),
-                                   use_tensorboard=log_tensorboard)
-        self._step_fn = build_train_step(self.model, self.loss_cfg, self.optimizer,
-                                         pose_vecs=self.pose_vecs, cam_opt=self.cam_opt,
-                                         lr_cam=self.lr_cam)
+        self.logger = (ScalarLogger(os.path.join(self.rundir, "logs"),
+                                    use_tensorboard=log_tensorboard)
+                       if self.is_writer else None)
+        # the built step, whose count of skipped updates each epoch logs;
+        # run() calls _step_fn, which a caller may wrap
+        self.train_step = build_train_step(self.model, self.loss_cfg, self.optimizer,
+                                           pose_vecs=self.pose_vecs, cam_opt=self.cam_opt,
+                                           lr_cam=self.lr_cam, mesh=mesh)
+        self._step_fn = self.train_step
 
     def _cameras(self) -> Optional[Dict]:
         """The trainable cameras' checkpoint entries, or None."""
         if not self.train_cameras:
             return None
         return {"pose_vecs": self.pose_vecs, "cam_opt": self.cam_opt}
+
+    def _save(self, epoch: int) -> None:
+        """A checkpoint from rank 0; under a mesh every rank joins the
+        gather of the tables' moments first."""
+        opt_state = self._step_fn.optimizer_state_dict() if self.mesh is not None else None
+        if self.is_writer:
+            ckpt.save_checkpoint(self.checkpoints_path, epoch, self.model, self.optimizer,
+                                 self.step_count, cameras=self._cameras(),
+                                 optimizer_state=opt_state)
 
     def lr_at(self, count: int) -> float:
         """The LR of the step taken at optimizer count ``count``, as optax's
@@ -292,16 +493,17 @@ class IDRTrainRunner:
         return self.lr * self.sched_factor ** sum(count >= m for m in self.milestone_steps)
 
     def run(self):
-        print(f"training {self.expname} for {self.nepochs} epochs "
-              f"({self.steps_per_epoch} steps/epoch, {self.num_pixels} rays/step) "
-              f"on {self.device}")
+        if self.is_writer:
+            print(f"training {self.expname} for {self.nepochs} epochs "
+                  f"({self.steps_per_epoch} steps/epoch, {self.num_pixels} rays/step) "
+                  f"on {self.device}"
+                  + (f", mesh {tuple(self.mesh.shape)}" if self.mesh is not None else ""))
         B = self.batch_size
         for epoch in range(self.start_epoch, self.nepochs + 1):
             alpha = annealed_alpha(self.loss_cfg.alpha, self.alpha_milestones,
                                    self.alpha_factor, epoch)
             if epoch % CHECKPOINT_EVERY == 0:
-                ckpt.save_checkpoint(self.checkpoints_path, epoch, self.model,
-                                     self.optimizer, self.step_count, cameras=self._cameras())
+                self._save(epoch)
             if self.plot_freq and epoch % self.plot_freq == 0 and epoch > 0:
                 try:
                     self._plot(epoch)
@@ -313,6 +515,7 @@ class IDRTrainRunner:
             pixel_idx = sample_pixels(self.generator, self.total_pixels, self.num_pixels)
             order = torch.randperm(self.n_images, generator=self.order_generator).to(self.device)
             launched = {k: c["launches"] for k, c in fm.launch_counts.items()}
+            skipped = self.train_step.skipped
 
             t0 = time.perf_counter()
             for i in range(self.steps_per_epoch):
@@ -321,23 +524,26 @@ class IDRTrainRunner:
                 losses = self._step_fn(self.scene, order[i * B:(i + 1) * B], pixel_idx,
                                        self.generator, alpha)
                 self.step_count += 1
-            # one device->host read an epoch: the step itself adds no sync
+            # one device->host read of the losses an epoch (the step's own
+            # read is its finiteness check)
             host_losses = dict(zip(losses, torch.stack(list(losses.values())).tolist()))
             dt = time.perf_counter() - t0
             rays_per_s = self.steps_per_epoch * self.num_pixels / dt
             kernel_launches = {f"{k}_launches": c["launches"] - launched[k]
                                for k, c in fm.launch_counts.items()}
+            if not self.is_writer:
+                continue
             self.logger.log(epoch, rays_per_s=rays_per_s, alpha=alpha, **host_losses,
-                            **kernel_launches)
+                            skipped_steps=self.train_step.skipped - skipped, **kernel_launches)
             if epoch % 10 == 0:
                 print(f"[{epoch}] loss={host_losses['loss']:.5f} "
                       f"rgb={host_losses['rgb_loss']:.5f} "
                       f"eik={host_losses['eikonal_loss']:.5f} "
                       f"mask={host_losses['mask_loss']:.6f} "
                       f"rays/s={rays_per_s:.0f}")
-        ckpt.save_checkpoint(self.checkpoints_path, self.nepochs, self.model,
-                             self.optimizer, self.step_count, cameras=self._cameras())
-        self.logger.close()
+        self._save(self.nepochs)
+        if self.is_writer:
+            self.logger.close()
 
     def _plot(self, epoch: int):
         """Per-plot-epoch artifacts (idr_train.py:231-273 role; JAX
@@ -347,11 +553,14 @@ class IDRTrainRunner:
         from ..eval.evaluator import Evaluator
         from ..eval.plots import plot_epoch
 
+        # every rank draws the view, so that the image order stays alike
+        idx = int(torch.randint(0, self.n_images, (), generator=self.order_generator))
+        if not self.is_writer:
+            return
         if self._plot_ev is None:
             self._plot_ev = Evaluator(self.conf, self.model, dataset=self.train_dataset)
         if self.train_cameras:
             self._plot_ev.pose_vecs = self.pose_vecs.detach()
-        idx = int(torch.randint(0, self.n_images, (), generator=self.order_generator))
         view = self._plot_ev.render_view(idx)
         plot_epoch(self.plots_dir, epoch, view, self.model.implicit_network.sdf,
                    self.train_dataset.pose_all,

@@ -7,7 +7,8 @@ transposed from JAX's ``(in, out)`` to ``(out, in)``; a hash table may come
 as ``(rows, C)`` or as the JAX package's ``(P, 128)`` page image.  Adam's
 moment trees have the params' structure and map the same way.  The
 trainable cameras' (V, 7) pose table and SparseAdam state carry over as they
-are (``load_jax_camera_state``).
+are (``load_jax_camera_state``).  Any module with the JAX names bridges the
+same way: ``ops/style.py:StyleModulation``'s two linears too.
 """
 
 from __future__ import annotations

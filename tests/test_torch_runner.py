@@ -146,6 +146,7 @@ def test_cli_writes_checkpoints_and_logs(two_epochs):
         assert all(np.isfinite(r[k]) for k in ("loss", "rgb_loss", "eikonal_loss",
                                                "mask_loss", "rays_per_s"))
         assert r["alpha"] == 50.0
+        assert r["skipped_steps"] == 0  # every step's gradient was finite
         # the CPU runs the kernel's plain twin: no launch is counted
         assert r["fused_sdf_raw_bf16_launches"] == r["fused_sdf_raw_f32_launches"] == 0
     assert os.path.exists(os.path.join(runner.rundir, "runconf.conf"))
@@ -249,10 +250,15 @@ def test_runner_path_needs_neither_cv2_nor_msgpack(tmp_path, monkeypatch):
 
 
 def test_unported_runner_options_raise(tmp_path):
-    """The multi-host flags raise; ``--train_cameras`` is ported and trains
+    """Every runner option is ported now.  The multi-host flags join a
+    process group: more than one process without ``--coordinator`` raises
+    (tests/test_torch_multihost.py runs the CLI in two processes), one
+    process skips the join.  ``--train_cameras`` trains
     (tests/test_torch_cameras.py holds it against JAX)."""
     args = _write_setup(tmp_path)
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match="coordinator"):
         exp_runner.main(args + ["--num_processes", "2"])
+    runner = exp_runner.main(args + ["--num_processes", "1", "--nepoch", "0"])
+    assert runner.world == 1 and runner.is_writer
     runner = exp_runner.main(args + ["--train_cameras", "--nepoch", "0"])
     assert runner.pose_vecs.shape == (3, 7) and int(runner.cam_opt["step"]) == 3
