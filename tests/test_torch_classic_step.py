@@ -12,8 +12,8 @@ NerfPos SDF encoders.
 The 'fast' tracer runs every tracer query in bf16.  Off the TPU the JAX
 renderer takes its jnp bf16 path, which rounds the skip input after scaling
 it; here its bf16 queries go through ``make_fast_sdf(..., interpret=True)``
-instead, the Pallas kernel that the port's fused kernel replaces and whose
-rounding its plain twin follows.  Hit masks agree on >= 99% of rays; hit
+instead (``jax_kernel_guidance``), the Pallas kernel that the port's fused
+kernel replaces and whose rounding its plain twin follows.  Hit masks agree on >= 99% of rays; hit
 distances differ by bf16 noise in the secant's root: median <= 2e-3, max
 <= 2e-2 (on rays at distance 1.4-2).
 """
@@ -23,8 +23,8 @@ import pytest
 
 from hashmodnffbanks_idr_tpu_torch.testing import flagship_conf
 
-from torch_step_parity import (N_RAYS, check_exact_step, classic_conf, forward_pair, narrow,
-                               ngp_k3, setup)
+from torch_step_parity import (N_RAYS, check_exact_step, classic_conf, forward_pair,
+                               jax_kernel_guidance, narrow, ngp_k3, setup)
 
 
 @pytest.mark.parametrize("case", ["tv_ngp", "nerfpos_view", "no_view_dir", "no_normal"])
@@ -44,17 +44,8 @@ def test_classic_and_tv_steps_match_jax(case):
 def test_fast_tracer_matches_jax_kernel_path():
     conf = narrow(flagship_conf(num_pixels=N_RAYS), "fast", view="StyleModNFFB")
     jmodel, params, model, scene_np, pixel_idx = setup(conf, perturb=False)
-    jnet = jmodel.implicit_network
-    plain_apply = jnet.apply
-
-    def apply(p, x, fast=False, max_level=None, floor_interp=False):
-        if not fast:
-            return plain_apply(p, x, max_level=max_level, floor_interp=floor_interp)
-        return jnet.make_fast_sdf(p, interpret=True, max_level=max_level,
-                                  floor_interp=floor_interp)(x)[:, None]
-
-    jnet.apply = apply
-    jout, out, agree = forward_pair(jmodel, params, model, scene_np, pixel_idx, seed=13)
+    with jax_kernel_guidance(jmodel):
+        jout, out, agree = forward_pair(jmodel, params, model, scene_np, pixel_idx, seed=13)
     assert agree >= 0.99, agree
     hit = out["network_object_mask"].numpy() & np.asarray(jout["network_object_mask"])
     diff = np.abs(out["dists"].numpy()[hit] - np.asarray(jout["dists"])[hit])
