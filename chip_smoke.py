@@ -7,12 +7,17 @@ Run from the repository root on a machine with one NVIDIA H100:
 
 It builds the CUDA kernel from ``hashmodnffbanks_idr_tpu_torch/ops/csrc``
 into ``build/``, holds each kernel variant against its plain PyTorch twin at
-the flagship widths, checks small train steps on the card against the
+the flagship widths, and the f32 kernel at every cluster size (C = 1, 2, 4
+CTAs sharing a 64-point tile) against the twin and bit for bit against
+C = 1 (N = 1, 63, 64, 65, 2048, 2049, 4096, 4113), prints the C that
+``fused_mlp.cluster_size`` takes at each timed call with the card's slots,
+checks small train steps on the card against the
 same steps on the CPU (the flagship in exact+fused, the instant-ngp log2=15
 preset unfused and in ``mixed``, through the bf16 kernel: loss within 1%,
 hit masks on 98% of the rays), launches each variant 100 times at each
-compiled first-layer depth on one input of 4113 points and requires the
-same bits every time (``deterministic`` in the kernels line), then drives
+compiled first-layer depth (the f32 kernel at each C) on one input of 4113
+points and requires the same bits every time (``deterministic`` in the
+kernels line), then drives
 the flagship StyleModNFFB training step
 (2048 rays, 1200x1600 synthetic two-view scene, random weights from a seed)
 in four tracer configurations and times it.  Then it runs the user's path:
@@ -53,7 +58,10 @@ rank and held against its plain twin on the largest call the sharded step
 gave it, a parameter checksum equal across ranks), times 10 steps of each,
 and trains the dummy conf (mixed) through ``IDRTrainRunner(mesh=...)``.  It
 fails if ``-Xptxas -v`` reports a spill in either kernel at any
-compiled first-layer depth.  Every runner record reports the steps
+compiled first-layer depth and (f32) cluster size.  The kernels line gives
+the f32 kernel's cluster sizes (``cluster`` by N, ``slots``,
+``launches_by_cluster`` on the exact+fused step, which must run clusters
+where the rule chooses them).  Every runner record reports the steps
 whose update the train step skipped (``skipped_steps``).  Any failed check
 raises and the script exits non-zero.  The second-to-last line is the kernels' JSON
 record, the last line ``{"ok": true, "device": {...}}``.
@@ -102,13 +110,20 @@ ALPHA = 50.0
 TILE = 64
 CHECK_N = (1, TILE - 1, TILE, TILE + 1, 513, 2048, 4096, 24576, 49152, 69632)
 # each variant's largest call on the main path, where its time is reported;
-# it is also timed at the small calls (secant, march), which fill few SMs
+# it is also timed at the small calls (the camera step's 256 rays, secant,
+# march), which fill few SMs
 TIME_N = {"fused_sdf_raw_f32": 49152, "fused_sdf_raw_bf16": 69632}
-TIME_SMALL_N = (2048, 4096)
+TIME_SMALL_N = (256, 2048, 4096)
+# the f32 kernel at every cluster size (fm.CLUSTER_SIZES), forced, against
+# the plain twin and bit for bit against C = 1 on the same input: the tile's
+# edges, the secant's and the march's sizes and one past them, and the
+# determinism input
+CLUSTER_CHECK_N = (1, TILE - 1, TILE, TILE + 1, 2048, 2049, 4096, 4113)
 # each variant's kernel in the ``-Xptxas -v`` report, by its namespace in the
-# mangled name (csrc/fused_mlp.cu: f32::, bf16k::)
-PTXAS_ENTRY = {"fused_sdf_raw_f32": "3f3216fused_sdf_kernel",
-               "fused_sdf_raw_bf16": "5bf16k16fused_sdf_kernel"}
+# mangled name (csrc/fused_mlp.cu: f32::, bf16k::), and the template
+# arguments after K0 of its instantiations (f32: the cluster size C)
+PTXAS_ENTRY = {"fused_sdf_raw_f32": ("3f3216fused_sdf_kernel", (1, 2, 4)),
+               "fused_sdf_raw_bf16": ("5bf16k16fused_sdf_kernel", (None,))}
 # the runner phase: the repo's dummy check (read in place, not imported)
 DUMMY_CONF = Path(__file__).resolve().parent / "hashmodnffbanks_idr_tpu/config/confs/dummy_stylemodnffb.conf"
 RUNNER_EPOCHS = 30
@@ -250,10 +265,36 @@ def hold_against_plain(fm, name, x, packed, where="") -> float:
 
 
 @torch.no_grad()
+def hold_clusters(fm, x, packed, where="") -> dict:
+    """The f32 kernel at every cluster size, forced, on one input: each within
+    TOL_F32 of the plain twin and equal to the C = 1 launch bit for bit
+    (every C keeps each column's k order).  Returns the error by C."""
+    want = fm.fused_sdf_raw_plain(x, packed)
+    got = {c: fm._launch(x, packed, cluster=c) for c in fm.CLUSTER_SIZES}
+    torch.cuda.synchronize()
+    errs = {}
+    for c, out in got.items():
+        errs[c] = float((out - want).abs().max())
+        same = torch.equal(out.view(torch.int32), got[1].view(torch.int32))
+        print(f"[cluster] f32 C={c} N={x.shape[0]}{where}: max_abs_err={errs[c]:.3e} "
+              f"(tol {TOL_F32:g}), {'bit-identical to' if same else 'DIFFERS from'} C=1")
+        if not errs[c] <= TOL_F32:
+            raise AssertionError(f"f32 C={c} N={x.shape[0]}{where}: max abs err {errs[c]}")
+        if not same:
+            raise AssertionError(f"f32 C={c} N={x.shape[0]}{where}: differs from C=1")
+    return errs
+
+
+@torch.no_grad()
 def phase_kernels(dev, fm, model):
-    """Each variant against its plain twin at the tracer's batch sizes."""
+    """Each variant against its plain twin at the tracer's batch sizes; the
+    f32 kernel at every cluster size against the plain twin and C = 1
+    (``CLUSTER_CHECK_N``); each timed at its small calls and its largest,
+    the f32 kernel with the cluster size the rule chose, its slots, and each
+    cluster size forced."""
     net = model.implicit_network
     d_in, hidden = net.dims[0], net.dims[1]
+    k0 = fm.kernel_depth(d_in)
     gen = torch.Generator(device=dev).manual_seed(1)
     records = {}
     for name, dtype, _, peak_key, products in VARIANTS:
@@ -263,6 +304,13 @@ def phase_kernels(dev, fm, model):
             pts = (torch.rand(n, 3, generator=gen, device=dev) * 2 - 1) * 0.6
             x = net._embed(pts).contiguous()
             max_err = max(max_err, hold_against_plain(fm, name, x, packed))
+        cluster_err = {c: 0.0 for c in fm.CLUSTER_SIZES}
+        if dtype == torch.float32:
+            for n in CLUSTER_CHECK_N:
+                pts = (torch.rand(n, 3, generator=gen, device=dev) * 2 - 1) * 0.6
+                errs = hold_clusters(fm, net._embed(pts).contiguous(), packed)
+                cluster_err = {c: max(cluster_err[c], e) for c, e in errs.items()}
+            max_err = max([max_err] + list(cluster_err.values()))
         timed = []
         for n in TIME_SMALL_N + (TIME_N[name],):
             pts = (torch.rand(n, 3, generator=gen, device=dev) * 2 - 1) * 0.6
@@ -279,9 +327,17 @@ def phase_kernels(dev, fm, model):
                    "achieved_tflops": flops / (ms * 1e-3) / 1e12}
             if dtype == torch.float32:
                 rec["bound_fp32_cores_ms"] = max(flops / PEAK_FLOPS["f32"] * 1e3, t_bytes)
+                rec["slots"] = fm.cluster_slots(k0, dev)
+                rec["cluster"] = fm.cluster_size(n, rec["slots"])
+                rec["ms_by_cluster"] = {c: cuda_ms(lambda: fm._launch(x, packed, cluster=c))
+                                        for c in fm.CLUSTER_SIZES}
             print(f"[kernel] {name} N={n}: " + json.dumps(rec))
             timed.append(rec)
         records[name] = dict(timed[-1], max_abs_err=max_err, small_calls=timed[:-1])
+        if dtype == torch.float32:
+            records[name]["cluster_check"] = {"n": list(CLUSTER_CHECK_N), "tol": TOL_F32,
+                                              "max_abs_err_by_cluster": cluster_err,
+                                              "bit_identical_to_c1": True}
     fm.reset_launch_counts()
     return records
 
@@ -413,6 +469,8 @@ def phase_step(dev, fm, scene, label, mode, fused, warmup, steps, expect=None, c
            "rays_per_s": N_RAYS / (ms * 1e-3), "tracer_ms_median": tracer_ms, "loss": loss,
            "launches_per_step": {k: v["launches"] / steps for k, v in counts.items()},
            "points_per_step": {k: v["points"] / steps for k, v in counts.items()},
+           "f32_launches_per_step_by_cluster": {
+               c: counts["fused_sdf_raw_f32"][f"cluster_{c}"] / steps for c in fm.CLUSTER_SIZES},
            "max_memory_allocated_mib": torch.cuda.max_memory_allocated() / 2**20}
     print(f"[{tag}] {json.dumps(rec)}")
     fm.reset_launch_counts()
@@ -1215,16 +1273,19 @@ def phase_depths(dev, fm):
 @torch.no_grad()
 def phase_determinism(dev, fm):
     """Each variant at each compiled first-layer depth (d_in 59, 102, 198,
-    510 of ``CHECK_D_IN``, input weights spread) launched DETERMINISM_LAUNCHES
-    times on one input of DETERMINISM_N points, a ragged last block: every
-    output must equal the first launch's bit for bit.  The launches are a
-    check, not the main path: the counts are reset after."""
+    510 of ``CHECK_D_IN``, input weights spread), the f32 kernel at each
+    cluster size, launched DETERMINISM_LAUNCHES times on one input of
+    DETERMINISM_N points, a ragged last tile: every output must equal the
+    first launch's bit for bit, and each cluster size's the C = 1 launch's.
+    The launches are a check, not the main path: the counts are reset
+    after."""
     from hashmodnffbanks_idr_tpu_torch.models.renderer import IDRNetwork
     from hashmodnffbanks_idr_tpu_torch.testing import flagship_conf
 
     gen = torch.Generator(device=dev).manual_seed(4)
     records = {name: {"n": DETERMINISM_N, "launches": DETERMINISM_LAUNCHES, "k0": [],
                       "bit_identical": True} for name, *_ in VARIANTS}
+    records["fused_sdf_raw_f32"]["clusters"] = list(fm.CLUSTER_SIZES)
     for d_in in (59, 102, 198, 510):
         embed_type, puts = CHECK_D_IN[d_in]
         conf = flagship_conf(num_pixels=N_RAYS, embed_type=embed_type)
@@ -1236,16 +1297,23 @@ def phase_determinism(dev, fm):
         x = net._embed(pts).contiguous()
         for name, dtype, *_ in VARIANTS:
             packed = fm.pack_params(net.lin, d_in, net.dims[1], dtype=dtype)
-            first = fm.fused_sdf_raw(x, packed).view(torch.int32)
-            same = all(torch.equal(fm.fused_sdf_raw(x, packed).view(torch.int32), first)
-                       for _ in range(DETERMINISM_LAUNCHES - 1))
             records[name]["k0"].append(fm.kernel_depth(d_in))
-            records[name]["bit_identical"] &= same
-            print(f"[determinism] {name} K0={fm.kernel_depth(d_in)} N={DETERMINISM_N}: "
-                  f"{DETERMINISM_LAUNCHES} launches {'bit-identical' if same else 'DIFFER'}")
-            if not same:
-                raise AssertionError(f"{name} K0={fm.kernel_depth(d_in)}: repeated launches "
-                                     "on one input differ")
+            # the f32 kernel at each cluster size, each also equal to C = 1
+            clusters = fm.CLUSTER_SIZES if dtype == torch.float32 else (None,)
+            outs = {}
+            for c in clusters:
+                first = fm._launch(x, packed, cluster=c).view(torch.int32)
+                same = all(torch.equal(fm._launch(x, packed, cluster=c).view(torch.int32), first)
+                           for _ in range(DETERMINISM_LAUNCHES - 1))
+                outs[c] = first
+                where = f"{name} K0={fm.kernel_depth(d_in)}" + (f" C={c}" if c else "")
+                records[name]["bit_identical"] &= same
+                print(f"[determinism] {where} N={DETERMINISM_N}: "
+                      f"{DETERMINISM_LAUNCHES} launches {'bit-identical' if same else 'DIFFER'}")
+                if not same:
+                    raise AssertionError(f"{where}: repeated launches on one input differ")
+                if c is not None and not torch.equal(first, outs[1]):
+                    raise AssertionError(f"{where}: differs from C=1 on the same input")
     fm.reset_launch_counts()
     return records
 
@@ -1327,26 +1395,32 @@ def phase_ngp_runner(fm, smi: str, workdir: str, data_root: str) -> dict:
 
 
 def check_spills(ptxas_log: str, depths) -> dict:
-    """Each kernel, at every compiled first-layer depth, must keep its 128
-    float accumulators and its fragments in registers: no spills in the
-    ``-Xptxas -v`` report.  Returns each variant's registers a thread and
-    spill bytes (stores + loads) by depth."""
+    """Each kernel, at every compiled first-layer depth (and the f32 kernel
+    at every cluster size), must keep its float accumulators and its
+    fragments in registers: no spills in the ``-Xptxas -v`` report.  Returns
+    each variant's registers a thread and spill bytes (stores + loads) by
+    instantiation ("K0" or "K0,C")."""
     out = {}
-    for name, mangled in PTXAS_ENTRY.items():
+    for name, (mangled, rest) in PTXAS_ENTRY.items():
         out[name] = {}
         for k0 in depths:
-            entries = [e for e in ptxas_log.split("Compiling entry function")[1:]
-                       if f"{mangled}ILi{k0}E" in e]
-            if len(entries) != 1:
-                raise AssertionError(f"ptxas report: {len(entries)} entries of {name} K0={k0}")
-            spills = [int(b) for b in re.findall(r"(\d+) bytes spill (?:stores|loads)",
-                                                 entries[0])]
-            regs = re.search(r"Used (\d+) registers", entries[0])
-            print(f"[ptxas] {name} K0={k0}: {regs.group(1) if regs else '?'} registers, "
-                  f"spill stores/loads {spills} bytes")
-            if len(spills) != 2 or any(spills) or regs is None:
-                raise AssertionError(f"{name} K0={k0} spills registers: {entries[0].strip()}")
-            out[name][k0] = {"registers": int(regs.group(1)), "spill_bytes": sum(spills)}
+            for c in rest:
+                args = f"ILi{k0}E" + (f"Li{c}E" if c else "") + "E"
+                label = f"{k0}" + (f",{c}" if c else "")
+                entries = [e for e in ptxas_log.split("Compiling entry function")[1:]
+                           if f"{mangled}{args}" in e]
+                if len(entries) != 1:
+                    raise AssertionError(f"ptxas report: {len(entries)} entries of {name} "
+                                         f"<{label}>")
+                spills = [int(b) for b in re.findall(r"(\d+) bytes spill (?:stores|loads)",
+                                                     entries[0])]
+                regs = re.search(r"Used (\d+) registers", entries[0])
+                print(f"[ptxas] {name} <{label}>: {regs.group(1) if regs else '?'} registers, "
+                      f"spill stores/loads {spills} bytes")
+                if len(spills) != 2 or any(spills) or regs is None:
+                    raise AssertionError(f"{name} <{label}> spills registers: "
+                                         f"{entries[0].strip()}")
+                out[name][label] = {"registers": int(regs.group(1)), "spill_bytes": sum(spills)}
     return out
 
 
@@ -1505,6 +1579,17 @@ def main() -> int:
         if name == "fused_sdf_raw_f32":  # the [parallel] phase's sharded step
             rec["parallel_largest_call"] = parallel_largest
             rec["max_abs_err"] = max(rec["max_abs_err"], parallel_largest["max_abs_err"])
+            # the cluster sizes: the rule's choice at each timed call, the
+            # slots it read, the main path's launches by C, the forced checks
+            rec["cluster"] = {c["n"]: c["cluster"] for c in r["small_calls"] + [r]}
+            rec["slots"] = r["slots"]
+            rec["launches_by_cluster"] = {c: phases[cell][name][f"cluster_{c}"]
+                                          for c in fm.CLUSTER_SIZES}
+            rec["cluster_check"] = r["cluster_check"]
+            if max(rec["cluster"].values()) > 1 and not any(
+                    n for c, n in rec["launches_by_cluster"].items() if c > 1):
+                raise AssertionError(f"{cell}: the f32 kernel never ran as a cluster: "
+                                     f"{rec['launches_by_cluster']}")
         out.append(rec)
     print(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": out}))

@@ -25,34 +25,78 @@
 // cores every product a*b becomes three TF32 products, a_lo*b_hi + a_hi*b_lo
 // + a_hi*b_hi (x = hi + lo, hi = tf32_rna(x), lo = tf32_rna(x - hi)), so the
 // bound is 3 x 3.67 MFLOP per point at the H100's 495 TFLOP/s dense TF32:
-// 1.094 ms at N=49152 and 0.091 ms at N=4096.  (On the CUDA cores' 67
-// TFLOP/s FP32 the same chain is bound at 2.693 ms at N=49152.)
+// 1.094 ms at N=49152, 0.091 ms at N=4096 and 0.045 ms at N=2048.  (On the
+// CUDA cores' 67 TFLOP/s FP32 the same chain is bound at 2.693 ms at
+// N=49152.)
 //
 // float variant: design.  The Pallas kernel keeps all 7.4 MB of weights
-// resident in VMEM; an SM has 227 KB.  So a block keeps a tile of 64 points
-// on chip across all nine layers (a 64x512 float activation tile in shared
-// memory, never in device memory) and streams the weights through a ring of
-// three 16-row stages filled by 16-byte cp.async (commit/wait groups): while
-// chunk k is multiplied, chunks k+1 and k+2 are in flight, also across layer
-// boundaries, so the next layer's first weights arrive during the epilogue.
-// 64 rows per block halve the L2 weight traffic of a 32-row tile (at
-// N=49152, 768 blocks x 7.4 MB).  Eight warps each own 64 output columns for
-// all 64 rows.  Per 8-deep k-step a warp reads 4 A and 8 B fragments of
-// mma.sync.m16n8k8 from shared memory with plain loads (row strides padded so
-// that both are free of bank conflicts), splits each value into hi and lo in
-// registers (the weights are stored once, as float) and runs 3 x 32
-// mma.sync.m16n8k8.tf32, the two small products before hi*hi.  The tensor
-// cores truncate when they add into their accumulator, which over a layer
-// would miss float32 accuracy; so each k-step's three products go into a
-// fresh partial sum that a round-to-nearest add folds into the 128 float
-// accumulators a thread holds.  The epilogue stores the accumulators to the
-// tile, then a pass over the tile adds the bias, applies softplus (fast exp
-// and log) and after l3 writes x/sqrt(2) (read from device memory) into the
-// tail columns.  The last layer is a 512-long float dot per point with a warp
-// reduction.  x is read at its real width and only (N,) is written.  What
-// keeps this design from the bound: mma.sync does not reach the tensor
-// cores' full rate (only wgmma does), and the splits, partial-sum adds and
-// softplus compete with it for instruction slots.
+// resident in VMEM; an SM has 227 KB.  So a tile of 64 points stays on chip
+// across all nine layers (a 64x512 float activation tile in shared memory,
+// 132,096 B, never in device memory) and the weights stream through a ring
+// of stages filled by 16-byte cp.async (commit/wait groups): while chunk k
+// is multiplied, the next one or two chunks are in flight, also across layer
+// boundaries, so the next layer's first weights arrive during the epilogue.  64 rows a tile halve the L2 weight traffic of a 32-row tile.
+// Per 8-deep k-step a warp reads its A and B fragments of mma.sync.m16n8k8
+// from shared memory with plain loads (row strides padded so that both are
+// free of bank conflicts), splits each value into hi and lo in registers
+// (the weights are stored once, as float) and runs three mma.sync.tf32 per
+// product tile, the two small products before hi*hi.  The tensor cores
+// truncate when they add into their accumulator, which over a layer would
+// miss float32 accuracy; so each k-step's three products go into a fresh
+// partial sum that a round-to-nearest add folds into the float accumulators.
+//
+// One tile is a cluster of C CTAs (C = 1, 2 or 4, a template parameter).
+// With one CTA a tile, a tile takes about 0.62 ms on one SM whatever else
+// runs (NVIDIA H100 80GB HBM3, 700 W: 0.61-0.69 ms at every N <= 4096 and
+// about 0.64 ms a wave of 132 tiles at N=49152), so the tracer's small calls
+// (32 tiles at N=2048, 64 at N=4096) left 68-100 of the 132 SMs idle for the
+// whole call.  A cluster spreads a tile over C SMs: each CTA holds the whole
+// tile, the A operand of every layer, and computes HIDDEN / C output columns
+// of each layer over the full depth, in the same k order at every C (so every
+// C gives the same bits), streaming through its ring only those columns'
+// weights: the cluster reads each weight from L2 once a tile, as one CTA did.
+// Its 8 warps split the CTA's block over rows as well as columns: 8 x (64 x
+// 64) at C = 1 (128 accumulators a thread), 2 x 4 warps of 32 x 64 at C = 2
+// and of 32 x 32 at C = 4, so that the hi/lo splits of A, which each warp
+// of a row half repeats, stay a small share beside the products.  Shared
+// memory: the tile plus a ring of STAGES x KC x (512/C + 8) floats, three
+// 16-row stages at C = 1 (231,936 B in all), two 32-row stages at C = 2
+// (199,680 B) and three at C = 4 (184,320 B): one CTA an SM.  At a
+// layer's end the epilogue runs on the accumulators in registers (bias,
+// branch-free softplus on the fast exp and log, after l3 x/sqrt(2), read
+// from device memory, in the tail columns), a cluster barrier waits until
+// every CTA is done reading its tile, each CTA writes its activated columns
+// into the tile of every CTA of the cluster (its own by a plain store, the
+// others' through distributed shared memory, mapa + st.shared::cluster), and
+// a second cluster barrier (release / acquire) makes them visible before
+// anyone reads the new tile; after the last layer's second barrier no CTA
+// touches another's shared memory, so each may exit.  The last layer is a
+// 512-long float dot per point with a warp reduction, the cluster's CTAs
+// taking 64 / C rows each.  x is read at its real width and only (N,) is
+// written.
+//
+// C is chosen from N by the caller (ops/fused_mlp.py:cluster_size): of 1, 2
+// and 4 the one with the fewest waves per CTA share, ceil(tiles C / slots_C)
+// / C, where slots_C is C x the clusters of C that can run at once
+// (cudaOccupancyMaxActiveClusters, fused_sdf_raw_f32_slots); a tie goes to
+// the smaller C.  At 132 slots: C = 4 at N=2048, C = 2 at N=4096, C = 1 at
+// N=24576 and N=49152.
+//
+// What keeps the design from the bound, measured on an NVIDIA H100 80GB HBM3
+// at 700 W (scripts/bench_fused_mlp_f32.py and its variants): a tile-wave
+// takes 0.572 ms at C = 1, 0.322 at C = 2 and 0.207 at C = 4 (1.78x and
+// 2.76x for 2x and 4x the SMs), so N=2048 and N=4096 take 0.32-0.33 ms at
+// C = 2 against 0.60-0.62 with one CTA a tile (bound 0.045 and 0.091).  The
+// card seats 132 CTAs at C = 1 and 2 but 120 at C = 4, so N=2048's 32 tiles
+// would need two waves of clusters of 4 and the rule takes C = 2.  With
+// each mma.sync replaced by a float add, 58% (C = 1), 64% (C = 2) and 70%
+// (C = 4) of the time remains: the hi/lo splits, fragment loads,
+// partial-sum adds and barriers, with 8 warps an SM to hide their latency,
+// bound the kernel before the tensor cores do (and mma.sync does not reach
+// their full rate; only wgmma does).  The stores into the other CTAs'
+// tiles cost 6% at C = 2 and 16% at C = 4.  Registers: 255, 244 and 137 a
+// thread at C = 1, 2 and 4 under the 255 cap of one CTA an SM, no spill at
+// any K0.
 //
 // bf16 variant: bound.  The same 3.67 MFLOP per point, one bf16 product per
 // product, at the H100's 989 TFLOP/s dense bf16: 0.258 ms at N=69632 and
@@ -120,32 +164,60 @@ __device__ __forceinline__ void cp_async16(void* dst, const void* src, bool vali
 }
 
 // ---------------------------------------------------------------------------
-// float weights: split-TF32 mma.sync fed by a cp.async weight ring
+// float weights: split-TF32 mma.sync fed by a cp.async weight ring, one tile
+// of 64 points shared by a cluster of C CTAs
 // ---------------------------------------------------------------------------
 
 namespace f32 {
 
-constexpr int TM = 64;                  // points per block
-constexpr int NT = 256;                 // 8 warps
-constexpr int WARP_COLS = HIDDEN / (NT / 32);  // 64 output columns a warp
-constexpr int MI = TM / 16, NI = WARP_COLS / 8;  // m16n8 tiles a warp: 4 x 8
-constexpr int KC = 16;                  // weight rows per ring stage
-constexpr int STAGES = 3;
-// row strides: A fragments read rows g at column t (stride = 4 mod 32 banks),
-// B fragments rows t at column g (stride = 8 mod 32): no bank conflicts
+constexpr int TM = 64;                  // points per tile (per cluster)
+// the tile's row stride: A fragments read rows g at column t (stride = 4
+// mod 32 banks), free of bank conflicts
 constexpr int LDA = HIDDEN + 4;
-constexpr int LDW = HIDDEN + 8;
-constexpr int CHUNKS_MID = HIDDEN / KC;     // each of l1..l7's chunks
-constexpr size_t SMEM = sizeof(float) * (TM * LDA + STAGES * KC * LDW);
-static_assert(SMEM <= MAX_SMEM, "f32 tile and weight ring exceed shared memory");
-static_assert(KC % 8 == 0 && HIDDEN % KC == 0, "chunking");
+constexpr size_t TILE_BYTES = sizeof(float) * TM * LDA;
+
+// How a cluster of C CTAs splits one tile's work.  Every CTA holds the whole
+// 64 x 512 tile (the A operand of every layer) and computes HIDDEN / C output
+// columns of each layer, streaming only those columns' weights through its
+// ring.  Its 8 warps split the CTA's block over rows as well as columns
+// (WR x WC), so that each warp's hi/lo splits of A stay few beside its
+// products; at C = 1, 8 warps of 64 x 64.
+template <int C>
+struct Split {
+  static_assert(C == 1 || C == 2 || C == 4, "cluster sizes 1, 2 and 4");
+  static constexpr int NT = 256;                  // 8 warps a CTA
+  static constexpr int WARPS = NT / 32;
+  static constexpr int COLS = HIDDEN / C;         // a CTA's output columns
+  static constexpr int WR = C == 1 ? 1 : 2;       // warps over rows
+  static constexpr int WC = WARPS / WR;           // warps over columns
+  static constexpr int WARP_ROWS = TM / WR, WARP_COLS = COLS / WC;
+  static constexpr int MI = WARP_ROWS / 16, NI = WARP_COLS / 8;  // m16n8 tiles a warp
+  // 8-deep k-steps unrolled together: C = 1 holds 128 accumulators a thread
+  // and has no registers for a second step's fragments
+  static constexpr int K_UNROLL = C == 1 ? 1 : 2;
+  // weight rows per ring stage, and stages: 32-row stages halve the block
+  // barriers a layer at C = 2 and 4 (2-3% and 8-11% faster than three
+  // 16-row stages on the card); at C = 2 two of them fit beside the tile
+  static constexpr int KC = C == 1 ? 16 : 32;
+  static constexpr int STAGES = C == 2 ? 2 : 3;
+  // the stage's row stride: B fragments read rows t at column g (stride = 8
+  // mod 32 banks)
+  static constexpr int LDW = COLS + 8;
+  static constexpr int CHUNKS_MID = HIDDEN / KC;  // each of l1..l7's chunks
+  static constexpr size_t SMEM = TILE_BYTES + sizeof(float) * STAGES * KC * LDW;
+  static_assert(SMEM <= MAX_SMEM, "f32 tile and weight ring exceed shared memory");
+  static_assert(KC % (8 * K_UNROLL) == 0 && HIDDEN % KC == 0, "chunking");
+  static_assert(TM % WR == 0 && WARP_ROWS % 16 == 0 && WARP_COLS % 8 == 0, "warp blocks");
+  static_assert(TM % (C * WARPS) == 0, "the last layer's rows: whole rows a warp");
+};
 
 // the chunk stream of first-layer depth K0: l0's chunks, then l1..l7's
-template <int K0>
+template <int K0, int C>
 struct Stream {
+  static constexpr int KC = Split<C>::KC;
   static_assert(K0 % KC == 0 && K0 <= HIDDEN, "l0 depth: whole chunks, inside the tile");
   static constexpr int CHUNKS_IN = K0 / KC;
-  static constexpr int CHUNKS = CHUNKS_IN + N_MID * CHUNKS_MID;
+  static constexpr int CHUNKS = CHUNKS_IN + N_MID * Split<C>::CHUNKS_MID;
 };
 
 // x = hi + lo, both TF32 rounded to nearest, ties away from zero (x - hi is
@@ -176,56 +248,61 @@ __device__ __forceinline__ void mma_add(float (&c)[4], const uint32_t (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
 }
 
-// chunk c of the whole weight stream (l0's K0 rows, then l1..l7's 512 rows
-// each, KC rows a chunk) into its ring stage, as one commit group; rows at or
-// past d_in in l0 are zero.  Past the end it commits an empty group, so that
-// the group count stays uniform for wait_group.
-template <int K0>
-__device__ __forceinline__ void prefetch_chunk(float* ring, int c, int d_in,
-                                            const float* __restrict__ w_in,
-                                            const float* __restrict__ w_mid) {
-  constexpr int CHUNKS_IN = Stream<K0>::CHUNKS_IN;
-  if (c < Stream<K0>::CHUNKS) {
+// The CTA's columns [col_base, col_base + COLS) of chunk c of the whole
+// weight stream (l0's K0 rows, then l1..l7's 512 rows each, KC rows a chunk)
+// into its ring stage, as one commit group; rows at or past d_in in l0 are
+// zero.  Past the end it commits an empty group, so that the group count
+// stays uniform for wait_group.
+template <int K0, int C>
+__device__ __forceinline__ void prefetch_chunk(float* ring, int c, int d_in, int col_base,
+                                               const float* __restrict__ w_in,
+                                               const float* __restrict__ w_mid) {
+  using S = Split<C>;
+  constexpr int CHUNKS_IN = Stream<K0, C>::CHUNKS_IN;
+  if (c < Stream<K0, C>::CHUNKS) {
     const bool first = c < CHUNKS_IN;
-    const int m = (c - CHUNKS_IN) / CHUNKS_MID;
+    const int m = (c - CHUNKS_IN) / S::CHUNKS_MID;
     const float* W = first ? w_in : w_mid + (size_t)m * HIDDEN * HIDDEN;
-    const int k0 = first ? c * KC : (c - CHUNKS_IN - m * CHUNKS_MID) * KC;
+    const int k0 = first ? c * S::KC : (c - CHUNKS_IN - m * S::CHUNKS_MID) * S::KC;
     const int k_real = first ? d_in : HIDDEN;
     // thread -> column col of rows r0, r0 + ROW_STEP, ...
-    constexpr int PER_ROW = HIDDEN / 4;  // 16-byte copies a row
-    constexpr int ROW_STEP = NT / PER_ROW;
-    static_assert(NT % PER_ROW == 0 && KC % ROW_STEP == 0, "copies per thread");
+    constexpr int PER_ROW = S::COLS / 4;  // 16-byte copies a row
+    constexpr int ROW_STEP = S::NT / PER_ROW;
+    static_assert(S::NT % PER_ROW == 0 && S::KC % ROW_STEP == 0, "copies per thread");
     const int r0 = threadIdx.x / PER_ROW, col = (threadIdx.x % PER_ROW) * 4;
-    float* dst = ring + (c % STAGES) * KC * LDW + r0 * LDW + col;
-    const float* src = W + (size_t)(k0 + r0) * HIDDEN + col;
+    float* dst = ring + (c % S::STAGES) * S::KC * S::LDW + r0 * S::LDW + col;
+    const float* src = W + (size_t)(k0 + r0) * HIDDEN + col_base + col;
 #pragma unroll
-    for (int r = 0; r < KC; r += ROW_STEP) {
+    for (int r = 0; r < S::KC; r += ROW_STEP) {
       const bool valid = k0 + r0 + r < k_real;
-      cp_async16(dst + r * LDW, valid ? src + r * HIDDEN : W, valid);
+      cp_async16(dst + r * S::LDW, valid ? src + r * HIDDEN : W, valid);
     }
   }
   asm volatile("cp.async.commit_group;" ::: "memory");
 }
 
-// acc += a[:, 0:KC] @ w[0:KC, :] for the warp's 64 x 64 block, in split-TF32
-// (a: act at the chunk's first column; w: the stage at the warp's first
-// column).  The tensor cores truncate when they add into their accumulator;
-// over a 512-deep layer (192 mma per output) that bias reaches ~2e-5 in the
-// SDF.  So each 8-deep step's three products go into a fresh partial sum,
-// which a round-to-nearest add folds into acc.
-__device__ __forceinline__ void mma_chunk(float (&acc)[MI][NI][4], const float* a,
-                                          const float* w, int g, int t) {
-#pragma unroll 1
-  for (int kk = 0; kk < KC; kk += 8) {
-    uint32_t bh[NI][2], bl[NI][2];
+// acc += a[:, 0:KC] @ w[0:KC, :] for the warp's block, in split-TF32 (a: the
+// tile at the warp's first row and the chunk's first column; w: the stage at
+// the warp's first column).  The tensor cores truncate when they add into
+// their accumulator; over a 512-deep layer (192 mma per output) that bias
+// reaches ~2e-5 in the SDF.  So each 8-deep step's three products go into a
+// fresh partial sum, which a round-to-nearest add folds into acc.  Every
+// output column sees the same k order at every C.
+template <int C>
+__device__ __forceinline__ void mma_chunk(float (&acc)[Split<C>::MI][Split<C>::NI][4],
+                                          const float* a, const float* w, int g, int t) {
+  using S = Split<C>;
+#pragma unroll (S::K_UNROLL)
+  for (int kk = 0; kk < S::KC; kk += 8) {
+    uint32_t bh[S::NI][2], bl[S::NI][2];
 #pragma unroll
-    for (int ni = 0; ni < NI; ++ni) {
-      const float* p = w + (kk + t) * LDW + ni * 8 + g;
+    for (int ni = 0; ni < S::NI; ++ni) {
+      const float* p = w + (kk + t) * S::LDW + ni * 8 + g;
       split(p[0], bh[ni][0], bl[ni][0]);             // (k=t,   n=g)
-      split(p[4 * LDW], bh[ni][1], bl[ni][1]);       // (k=t+4, n=g)
+      split(p[4 * S::LDW], bh[ni][1], bl[ni][1]);    // (k=t+4, n=g)
     }
 #pragma unroll
-    for (int mi = 0; mi < MI; ++mi) {
+    for (int mi = 0; mi < S::MI; ++mi) {
       uint32_t ah[4], al[4];
       const float* p = a + (mi * 16 + g) * LDA + kk + t;
       split(p[0], ah[0], al[0]);                     // (g,   t)
@@ -233,15 +310,15 @@ __device__ __forceinline__ void mma_chunk(float (&acc)[MI][NI][4], const float* 
       split(p[4], ah[2], al[2]);                     // (g,   t+4)
       split(p[8 * LDA + 4], ah[3], al[3]);           // (g+8, t+4)
       // the two small products first, then hi*hi
-      float part[NI][4];
+      float part[S::NI][4];
 #pragma unroll
-      for (int ni = 0; ni < NI; ++ni) mma_set(part[ni], al, bh[ni]);
+      for (int ni = 0; ni < S::NI; ++ni) mma_set(part[ni], al, bh[ni]);
 #pragma unroll
-      for (int ni = 0; ni < NI; ++ni) mma_add(part[ni], ah, bl[ni]);
+      for (int ni = 0; ni < S::NI; ++ni) mma_add(part[ni], ah, bl[ni]);
 #pragma unroll
-      for (int ni = 0; ni < NI; ++ni) mma_add(part[ni], ah, bh[ni]);
+      for (int ni = 0; ni < S::NI; ++ni) mma_add(part[ni], ah, bh[ni]);
 #pragma unroll
-      for (int ni = 0; ni < NI; ++ni)
+      for (int ni = 0; ni < S::NI; ++ni)
 #pragma unroll
         for (int e = 0; e < 4; ++e) acc[mi][ni][e] += part[ni][e];
     }
@@ -249,115 +326,183 @@ __device__ __forceinline__ void mma_chunk(float (&acc)[MI][NI][4], const float* 
 }
 
 // torch Softplus(beta=100, threshold=20) on the fast exp and log: within
-// ~5e-8 of softplus100 (MUFU ex2/lg2 errors, scaled down by beta)
+// ~5e-8 of softplus100 (MUFU ex2/lg2 errors, scaled down by beta).  Branch
+// free: both sides are computed and one is selected (a C++ ternary that
+// evaluates only its taken side compiles to a branch per element).
 __device__ __forceinline__ float softplus100_fast(float x) {
   const float bx = 100.f * x;
-  return bx > 20.f ? x : __logf(1.f + __expf(fminf(bx, 20.f))) * 0.01f;
+  const float soft = __logf(1.f + __expf(fminf(bx, 20.f))) * 0.01f;
+  return bx > 20.f ? x : soft;
 }
 
-// act <- acc for the warp's 64 x 64 block; zeroes acc for the next layer
-__device__ __forceinline__ void store_acc(float (&acc)[MI][NI][4], float* act, int col0, int g,
-                                          int t) {
+// acc <- softplus(acc + bias) in registers for the warp's block (columns
+// col0.., tile rows wrow0..); after l3 (SKIP) the tail columns take
+// x/sqrt(2) (x read at its real width from device memory) and the rest
+// softplus/sqrt(2).  SKIP is a template parameter, so that the common
+// epilogue is one basic block.
+template <int C, bool SKIP>
+__device__ __forceinline__ void activate(float (&acc)[Split<C>::MI][Split<C>::NI][4],
+                                         const float* __restrict__ bias,
+                                         const float* __restrict__ x, int row0, int n, int d_in,
+                                         int wrow0, int col0, int g, int t) {
+  const int skip_cols = HIDDEN - d_in;
 #pragma unroll
-  for (int mi = 0; mi < MI; ++mi)
+  for (int ni = 0; ni < Split<C>::NI; ++ni) {
+    const int col = col0 + ni * 8 + 2 * t;  // accumulator columns col, col+1
+    const float2 b = *reinterpret_cast<const float2*>(bias + col);
 #pragma unroll
-    for (int ni = 0; ni < NI; ++ni)
+    for (int mi = 0; mi < Split<C>::MI; ++mi)
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {  // rows g and g+8
+        float& v0 = acc[mi][ni][2 * half];
+        float& v1 = acc[mi][ni][2 * half + 1];
+        v0 = softplus100_fast(v0 + b.x);
+        v1 = softplus100_fast(v1 + b.y);
+        if (SKIP) {
+          const int row = row0 + wrow0 + mi * 16 + g + 8 * half;
+          if (col >= skip_cols) v0 = row < n ? x[(size_t)row * d_in + col - skip_cols] : 0.f;
+          if (col + 1 >= skip_cols)
+            v1 = row < n ? x[(size_t)row * d_in + col + 1 - skip_cols] : 0.f;
+          v0 *= INV_SQRT2;
+          v1 *= INV_SQRT2;
+        }
+      }
+  }
+}
+
+// the CTA's rank in its cluster
+__device__ __forceinline__ uint32_t cluster_rank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;" : "=r"(r));
+  return r;
+}
+
+// the shared::cluster address of the shared::cta address `addr` in CTA
+// `rank` of the cluster (distributed shared memory)
+__device__ __forceinline__ uint32_t map_rank(uint32_t addr, uint32_t rank) {
+  uint32_t r;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;" : "=r"(r) : "r"(addr), "r"(rank));
+  return r;
+}
+
+// Every thread of the cluster (C > 1) or of the CTA (C = 1) has arrived.
+// The release and acquire make each thread's stores into any CTA's shared
+// memory before the barrier visible to every thread after it.
+template <int C>
+__device__ __forceinline__ void tile_barrier() {
+  if constexpr (C == 1) {
+    __syncthreads();
+  } else {
+    asm volatile("barrier.cluster.arrive.release.aligned;\n\t"
+                 "barrier.cluster.wait.acquire.aligned;" ::: "memory");
+  }
+}
+
+// the warp's activated block into the tile of every CTA of the cluster: its
+// own through a plain store, the others' through st.shared::cluster at the
+// addresses `remote` (ranks rank+1, ..., rank+C-1).  Zeroes acc for the
+// next layer.
+template <int C>
+__device__ __forceinline__ void store_tile(float (&acc)[Split<C>::MI][Split<C>::NI][4],
+                                           float* act, const uint32_t (&remote)[C],
+                                           int wrow0, int col0, int g, int t) {
+#pragma unroll
+  for (int mi = 0; mi < Split<C>::MI; ++mi)
+#pragma unroll
+    for (int ni = 0; ni < Split<C>::NI; ++ni)
 #pragma unroll
       for (int half = 0; half < 2; ++half) {  // rows g and g+8, columns 2t and 2t+1
-        float* p = act + (mi * 16 + g + 8 * half) * LDA + col0 + ni * 8 + 2 * t;
-        *reinterpret_cast<float2*>(p) =
-            make_float2(acc[mi][ni][2 * half], acc[mi][ni][2 * half + 1]);
+        const int off = (wrow0 + mi * 16 + g + 8 * half) * LDA + col0 + ni * 8 + 2 * t;
+        const float v0 = acc[mi][ni][2 * half], v1 = acc[mi][ni][2 * half + 1];
+        *reinterpret_cast<float2*>(act + off) = make_float2(v0, v1);
+#pragma unroll
+        for (int q = 1; q < C; ++q)
+          asm volatile("st.shared::cluster.v2.f32 [%0], {%1, %2};" ::"r"(
+                           remote[q] + (uint32_t)(sizeof(float) * off)),
+                       "f"(v0), "f"(v1)
+                       : "memory");
         acc[mi][ni][2 * half] = acc[mi][ni][2 * half + 1] = 0.f;
       }
 }
 
-// act <- softplus(act + bias) in place, after l3 (skip) with x/sqrt(2) in
-// the tail columns.  A pass of its own over the tile, four columns a thread,
-// so that the accumulators are not live while softplus runs.
-__device__ __forceinline__ void activate(float* act, const float* __restrict__ bias, bool skip,
-                                         const float* __restrict__ x, int row0, int n,
-                                         int d_in) {
-  const int skip_cols = HIDDEN - d_in;
-  static_assert(NT * 4 % HIDDEN == 0, "a thread keeps its four columns");
-  const int col = threadIdx.x * 4 % HIDDEN;
-  const float4 b = *reinterpret_cast<const float4*>(bias + col);
-#pragma unroll 4
-  for (int r = threadIdx.x * 4 / HIDDEN; r < TM; r += NT * 4 / HIDDEN) {
-    float4* p = reinterpret_cast<float4*>(act + r * LDA + col);
-    float v[4] = {p->x + b.x, p->y + b.y, p->z + b.z, p->w + b.w};
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      v[e] = softplus100_fast(v[e]);
-      if (skip) {
-        if (col + e >= skip_cols)
-          v[e] = row0 + r < n ? x[(size_t)(row0 + r) * d_in + col + e - skip_cols] : 0.f;
-        v[e] *= INV_SQRT2;
-      }
-    }
-    *p = make_float4(v[0], v[1], v[2], v[3]);
-  }
-}
-
-template <int K0>
-__global__ void __launch_bounds__(NT, 1)
+template <int K0, int C>
+__global__ void __launch_bounds__(Split<C>::NT, 1)
     fused_sdf_kernel(const float* __restrict__ x, int n, int d_in,
                      const float* __restrict__ w_in, const float* __restrict__ b_in,
                      const float* __restrict__ w_mid, const float* __restrict__ b_mid,
                      const float* __restrict__ w_out, const float* __restrict__ b_out,
                      float* __restrict__ out) {
-  constexpr int CHUNKS_IN = Stream<K0>::CHUNKS_IN, CHUNKS = Stream<K0>::CHUNKS;
+  using S = Split<C>;
+  constexpr int CHUNKS_IN = Stream<K0, C>::CHUNKS_IN, CHUNKS = Stream<K0, C>::CHUNKS;
   extern __shared__ __align__(128) unsigned char smem[];
   float* act = reinterpret_cast<float*>(smem);  // (TM, LDA)
   float* ring = act + TM * LDA;                 // STAGES x (KC, LDW)
-  const int row0 = blockIdx.x * TM;
+  // a 1-D cluster is C consecutive blocks, one tile
+  const int rank = C == 1 ? 0 : (int)cluster_rank();
+  const int row0 = blockIdx.x / C * TM;
+  const int col_base = rank * S::COLS;          // the CTA's first output column
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int g = lane / 4, t = lane % 4;  // mma fragment coordinates
-  const int col0 = warp * WARP_COLS;
+  const int wrow0 = warp / S::WC * S::WARP_ROWS;                 // the warp's first row
+  const int wcol0 = warp % S::WC * S::WARP_COLS;                 // ... column in the CTA's
+  uint32_t remote[C] = {};  // remote[q]: the tile of rank + q (q >= 1)
+#pragma unroll
+  for (int q = 1; q < C; ++q)
+    remote[q] = map_rank(static_cast<uint32_t>(__cvta_generic_to_shared(act)), (rank + q) % C);
 
 #pragma unroll
-  for (int c = 0; c < STAGES - 1; ++c) prefetch_chunk<K0>(ring, c, d_in, w_in, w_mid);
+  for (int c = 0; c < S::STAGES - 1; ++c)
+    prefetch_chunk<K0, C>(ring, c, d_in, col_base, w_in, w_mid);
 
   // the point tile at its real width, zero padded to K0 columns and TM rows
-  for (int i = threadIdx.x; i < TM * K0; i += NT) {
+  for (int i = threadIdx.x; i < TM * K0; i += S::NT) {
     const int r = i / K0, col = i % K0, row = row0 + r;
     act[r * LDA + col] = (row < n && col < d_in) ? x[(size_t)row * d_in + col] : 0.f;
   }
 
-  float acc[MI][NI][4];
+  float acc[S::MI][S::NI][4];
 #pragma unroll
-  for (int mi = 0; mi < MI; ++mi)
+  for (int mi = 0; mi < S::MI; ++mi)
 #pragma unroll
-    for (int ni = 0; ni < NI; ++ni)
+    for (int ni = 0; ni < S::NI; ++ni)
 #pragma unroll
       for (int e = 0; e < 4; ++e) acc[mi][ni][e] = 0.f;
 
   for (int c = 0; c < CHUNKS; ++c) {
     // chunk c has landed for every thread, and every warp is done with chunk
     // c-1, whose stage the next copy overwrites
-    asm volatile("cp.async.wait_group %0;" ::"n"(STAGES - 2) : "memory");
+    asm volatile("cp.async.wait_group %0;" ::"n"(S::STAGES - 2) : "memory");
     __syncthreads();
-    prefetch_chunk<K0>(ring, c + STAGES - 1, d_in, w_in, w_mid);
+    prefetch_chunk<K0, C>(ring, c + S::STAGES - 1, d_in, col_base, w_in, w_mid);
 
     const bool first = c < CHUNKS_IN;
-    const int layer = first ? 0 : 1 + (c - CHUNKS_IN) / CHUNKS_MID;
-    const int kc = first ? c : (c - CHUNKS_IN) % CHUNKS_MID;  // chunk within the layer
-    mma_chunk(acc, act + kc * KC, ring + (c % STAGES) * KC * LDW + col0, g, t);
+    const int layer = first ? 0 : 1 + (c - CHUNKS_IN) / S::CHUNKS_MID;
+    const int kc = first ? c : (c - CHUNKS_IN) % S::CHUNKS_MID;  // chunk within the layer
+    mma_chunk<C>(acc, act + wrow0 * LDA + kc * S::KC,
+                 ring + (c % S::STAGES) * S::KC * S::LDW + wcol0, g, t);
 
-    if (kc == (first ? CHUNKS_IN : CHUNKS_MID) - 1) {
-      __syncthreads();  // every warp has read act: overwrite it
-      store_acc(acc, act, col0, g, t);
-      __syncthreads();
-      activate(act, layer == 0 ? b_in : b_mid + (layer - 1) * HIDDEN,
-               layer == 1 + SKIP_AFTER_MID, x, row0, n, d_in);
+    if (kc == (first ? CHUNKS_IN : S::CHUNKS_MID) - 1) {
+      // the layer's end: activate in registers, then replace the tile of
+      // every CTA of the cluster once all of them are done reading it
+      const float* bias = layer == 0 ? b_in : b_mid + (layer - 1) * HIDDEN;
+      if (layer == 1 + SKIP_AFTER_MID)
+        activate<C, true>(acc, bias, x, row0, n, d_in, wrow0, col_base + wcol0, g, t);
+      else
+        activate<C, false>(acc, bias, x, row0, n, d_in, wrow0, col_base + wcol0, g, t);
+      tile_barrier<C>();  // every CTA of the cluster has read its tile
+      store_tile<C>(acc, act, remote, wrow0, col_base + wcol0, g, t);
+      // the new tile, complete in every CTA; after the last layer's, no CTA
+      // touches another's shared memory, so that each may exit
+      tile_barrier<C>();
     }
   }
   asm volatile("cp.async.wait_group 0;" ::: "memory");
-  __syncthreads();
 
-  // last layer: the SDF column only, one 512-long float dot per point
-  constexpr int ROWS_PER_WARP = TM / (NT / 32);
+  // last layer: the SDF column only, one 512-long float dot per point; the
+  // cluster's CTAs split the tile's rows
+  constexpr int ROWS_PER_WARP = TM / C / S::WARPS;
   for (int rr = 0; rr < ROWS_PER_WARP; ++rr) {
-    const int r = warp * ROWS_PER_WARP + rr;
+    const int r = rank * (TM / C) + warp * ROWS_PER_WARP + rr;
     float s = 0.f;
     for (int k = lane; k < HIDDEN; k += 32) s = fmaf(act[r * LDA + k], w_out[k], s);
 #pragma unroll
@@ -367,34 +512,111 @@ __global__ void __launch_bounds__(NT, 1)
   }
 }
 
-template <int K0>
-int launch(const float* x, int n, int d_in, const float* w_in, const float* b_in,
-           const float* w_mid, const float* b_mid, const float* w_out, const float* b_out,
-           float* out, cudaStream_t stream) {
+// the kernel's dynamic shared memory limit, set once per instantiation
+template <int K0, int C>
+int prepare() {
   static bool attr_set = false;
   if (!attr_set) {
     const cudaError_t err = cudaFuncSetAttribute(
-        fused_sdf_kernel<K0>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)SMEM);
+        fused_sdf_kernel<K0, C>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)Split<C>::SMEM);
     if (err != cudaSuccess) return (int)err;
     attr_set = true;
   }
-  fused_sdf_kernel<K0><<<(n + TM - 1) / TM, NT, SMEM, stream>>>(x, n, d_in, w_in, b_in, w_mid,
-                                                               b_mid, w_out, b_out, out);
+  return 0;
+}
+
+// a launch of `tiles` tiles in clusters of C along x
+template <int C>
+cudaLaunchConfig_t launch_config(int tiles, cudaStream_t stream, cudaLaunchAttribute& attr) {
+  attr.id = cudaLaunchAttributeClusterDimension;
+  attr.val.clusterDim.x = C;
+  attr.val.clusterDim.y = 1;
+  attr.val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(tiles * C);
+  cfg.blockDim = dim3(Split<C>::NT);
+  cfg.dynamicSmemBytes = Split<C>::SMEM;
+  cfg.stream = stream;
+  cfg.attrs = &attr;
+  cfg.numAttrs = 1;
+  return cfg;
+}
+
+template <int K0, int C>
+int launch(const float* x, int n, int d_in, const float* w_in, const float* b_in,
+           const float* w_mid, const float* b_mid, const float* w_out, const float* b_out,
+           float* out, cudaStream_t stream) {
+  if (const int err = prepare<K0, C>()) return err;
+  cudaLaunchAttribute attr;
+  cudaLaunchConfig_t cfg = launch_config<C>((n + TM - 1) / TM, stream, attr);
+  if (C == 1) cfg.numAttrs = 0;  // a plain launch
+  const cudaError_t err = cudaLaunchKernelEx(&cfg, fused_sdf_kernel<K0, C>, x, n, d_in, w_in,
+                                             b_in, w_mid, b_mid, w_out, b_out, out);
+  if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
+}
+
+// C x the number of clusters of C CTAs that can run at once on the current
+// device
+template <int K0, int C>
+int slots(int* out) {
+  if (const int err = prepare<K0, C>()) return err;
+  cudaLaunchAttribute attr;
+  const cudaLaunchConfig_t cfg = launch_config<C>(1, nullptr, attr);
+  int clusters = 0;
+  const cudaError_t err =
+      cudaOccupancyMaxActiveClusters(
+      &clusters, reinterpret_cast<const void*>(&fused_sdf_kernel<K0, C>), &cfg);
+  if (err != cudaSuccess) return (int)err;
+  *out = clusters * C;
+  return 0;
 }
 
 // k0: the compiled first-layer depth to launch, chosen by the caller (the
 // smallest that covers d_in); the skip fills columns >= 512 - d_in, so d_in
-// < 512
-int launch_depth(int k0, const float* x, int n, int d_in, const float* w_in, const float* b_in,
-                 const float* w_mid, const float* b_mid, const float* w_out, const float* b_out,
-                 float* out, cudaStream_t stream) {
+// < 512.  cluster: C, the CTAs that share a tile.
+template <int K0>
+int launch_cluster(int cluster, const float* x, int n, int d_in, const float* w_in,
+                   const float* b_in, const float* w_mid, const float* b_mid,
+                   const float* w_out, const float* b_out, float* out, cudaStream_t stream) {
+  switch (cluster) {
+    case 1: return launch<K0, 1>(x, n, d_in, w_in, b_in, w_mid, b_mid, w_out, b_out, out, stream);
+    case 2: return launch<K0, 2>(x, n, d_in, w_in, b_in, w_mid, b_mid, w_out, b_out, out, stream);
+    case 4: return launch<K0, 4>(x, n, d_in, w_in, b_in, w_mid, b_mid, w_out, b_out, out, stream);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+int launch_depth(int k0, int cluster, const float* x, int n, int d_in, const float* w_in,
+                 const float* b_in, const float* w_mid, const float* b_mid, const float* w_out,
+                 const float* b_out, float* out, cudaStream_t stream) {
   if (n <= 0 || d_in <= 0 || d_in > k0 || d_in >= HIDDEN) return (int)cudaErrorInvalidValue;
   switch (k0) {
-    case 64: return launch<64>(x, n, d_in, w_in, b_in, w_mid, b_mid, w_out, b_out, out, stream);
-    case 128: return launch<128>(x, n, d_in, w_in, b_in, w_mid, b_mid, w_out, b_out, out, stream);
-    case 256: return launch<256>(x, n, d_in, w_in, b_in, w_mid, b_mid, w_out, b_out, out, stream);
-    case 512: return launch<512>(x, n, d_in, w_in, b_in, w_mid, b_mid, w_out, b_out, out, stream);
+    case 64: return launch_cluster<64>(cluster, x, n, d_in, w_in, b_in, w_mid, b_mid, w_out, b_out, out, stream);
+    case 128: return launch_cluster<128>(cluster, x, n, d_in, w_in, b_in, w_mid, b_mid, w_out, b_out, out, stream);
+    case 256: return launch_cluster<256>(cluster, x, n, d_in, w_in, b_in, w_mid, b_mid, w_out, b_out, out, stream);
+    case 512: return launch_cluster<512>(cluster, x, n, d_in, w_in, b_in, w_mid, b_mid, w_out, b_out, out, stream);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+template <int K0>
+int slots_cluster(int cluster, int* out) {
+  switch (cluster) {
+    case 1: return slots<K0, 1>(out);
+    case 2: return slots<K0, 2>(out);
+    case 4: return slots<K0, 4>(out);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+int slots_depth(int k0, int cluster, int* out) {
+  switch (k0) {
+    case 64: return slots_cluster<64>(cluster, out);
+    case 128: return slots_cluster<128>(cluster, out);
+    case 256: return slots_cluster<256>(cluster, out);
+    case 512: return slots_cluster<512>(cluster, out);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -742,13 +964,13 @@ int launch_depth(int k0, const float* x, int n, int d_in, const bf16* w_in, cons
 
 // Plain C interface for ctypes.  Pointers are device pointers; the stream is
 // the caller's cudaStream_t; k0 is the compiled first-layer depth to launch
-// (64, 128, 256 or 512, at least d_in).  Returns the cudaError_t of the launch
-// (0 = ok).
-extern "C" int fused_sdf_raw_f32(const void* x, int n, int d_in, int k0, const void* w_in,
-                                 const void* b_in, const void* w_mid, const void* b_mid,
-                                 const void* w_out, const void* b_out, void* out,
-                                 void* stream) {
-  return f32::launch_depth(k0, static_cast<const float*>(x), n, d_in,
+// (64, 128, 256 or 512, at least d_in); cluster (f32 only) the CTAs that
+// share a tile (1, 2 or 4).  Returns the cudaError_t of the launch (0 = ok).
+extern "C" int fused_sdf_raw_f32(const void* x, int n, int d_in, int k0, int cluster,
+                                 const void* w_in, const void* b_in, const void* w_mid,
+                                 const void* b_mid, const void* w_out, const void* b_out,
+                                 void* out, void* stream) {
+  return f32::launch_depth(k0, cluster, static_cast<const float*>(x), n, d_in,
                            static_cast<const float*>(w_in), static_cast<const float*>(b_in),
                            static_cast<const float*>(w_mid), static_cast<const float*>(b_mid),
                            static_cast<const float*>(w_out), static_cast<const float*>(b_out),
@@ -764,4 +986,11 @@ extern "C" int fused_sdf_raw_bf16(const void* x, int n, int d_in, int k0, const 
                              static_cast<const bf16*>(w_mid), static_cast<const float*>(b_mid),
                              static_cast<const bf16*>(w_out), static_cast<const float*>(b_out),
                              static_cast<float*>(out), static_cast<cudaStream_t>(stream));
+}
+
+// *slots <- cluster x the clusters of the f32 kernel at depth k0 that can run
+// at once on the current device (cudaOccupancyMaxActiveClusters).  Returns
+// the cudaError_t (0 = ok).
+extern "C" int fused_sdf_raw_f32_slots(int k0, int cluster, int* slots) {
+  return f32::slots_depth(k0, cluster, slots);
 }

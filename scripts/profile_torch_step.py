@@ -14,6 +14,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import re
 import sys
 import time
 from pathlib import Path
@@ -51,8 +52,9 @@ def measure(fn, reps: int) -> dict:
     then the same under ``torch.profiler``: device-busy ms (the sum of kernel
     times), the device's idle share against the unprofiled wall time, kernel
     launches, host waits on the device (``cudaStreamSynchronize``: a
-    device-to-host read such as the tracer's ``.any()`` loop tests) and the
-    largest kernels, all per call."""
+    device-to-host read such as the tracer's ``.any()`` loop tests), the
+    fused SDF-MLP kernels' device ms and launches by variant (the f32
+    kernel's also by cluster size) and the largest kernels, all per call."""
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     for _ in range(reps):
@@ -72,11 +74,21 @@ def measure(fn, reps: int) -> dict:
                and not getattr(e, "is_user_annotation", False)]
     busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3 / reps
     top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:12]
+    fused = {}
+    for e in kernels:
+        m = re.search(r"(f32|bf16k)::fused_sdf_kernel<([^>]*)>", e.key)
+        if m:
+            rec = fused.setdefault(m.group(1), {"ms": 0.0, "launches": 0, "by_args": {}})
+            rec["ms"] += e.self_device_time_total / 1e3 / reps
+            rec["launches"] += e.count / reps
+            rec["by_args"][m.group(2).replace(" ", "")] = {
+                "ms": e.self_device_time_total / 1e3 / reps, "launches": e.count / reps}
     return {"wall_ms": wall_ms, "wall_ms_under_profiler": prof_ms, "device_busy_ms": busy_ms,
             "device_idle_share": 1 - busy_ms / wall_ms,
             "kernel_launches": sum(e.count for e in kernels) / reps,
             "device_syncs": sum(e.count for e in events
                                 if e.key == "cudaStreamSynchronize") / reps,
+            "fused_sdf_kernels": fused,
             "top_kernels_ms": [[e.key[:120], e.self_device_time_total / 1e3 / reps]
                                for e in top]}
 

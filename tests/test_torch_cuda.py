@@ -27,10 +27,11 @@ NET_KW = dict(feature_vector_size=256, d_in=3, d_out=1, dims=[512] * 8,
 TOL = {"f32": 1e-5, "bf16": 3e-2}
 DTYPE = {"f32": torch.float32, "bf16": torch.bfloat16}
 # each variant: the edges of its 64-point tile (csrc/fused_mlp.cu, f32::TM
-# and bf16k::TM) and the tracer's batch sizes up to its largest call
+# and bf16k::TM) and the tracer's batch sizes up to its largest call (the
+# f32 kernel's rule runs 2048 on clusters of 4, 4096 on 2, 49152 on 1)
 F32_TILE = 64
 BF16_TILE = 64
-CHECK_N = {"f32": (1, F32_TILE - 1, F32_TILE, F32_TILE + 1, 513, 4096, 49152),
+CHECK_N = {"f32": (1, F32_TILE - 1, F32_TILE, F32_TILE + 1, 513, 2048, 4096, 49152),
            "bf16": (1, BF16_TILE - 1, BF16_TILE, BF16_TILE + 1, 513, 4096, 69632)}
 
 
@@ -85,6 +86,44 @@ def test_cuda_wrapper_refuses_what_the_kernel_does_not_take(net):
         fm.fused_sdf_raw(x.t().contiguous().t(), packed)        # layout
     with pytest.raises(ValueError):
         fm.fused_sdf_raw(x, dict(packed, b_in=packed["b_in"].cpu()))  # device
+    with pytest.raises(ValueError):
+        fm._launch(x, packed, cluster=3)                        # cluster size
+    with pytest.raises(ValueError):
+        fm._launch(x, fm.pack_params(net.lin, 59, 512, dtype=torch.bfloat16), cluster=2)
+
+
+@pytest.mark.parametrize("cluster", [1, 2, 4])
+def test_cuda_f32_cluster_matches_c1_bit_for_bit(net, cluster):
+    """Each cluster size (the CTAs that share a 64-point tile through
+    distributed shared memory) within the f32 tolerance of the plain twin
+    and equal to the C = 1 launch bit for bit, since every column keeps its
+    k order; at the tile's edges, the secant's and the march's sizes and one
+    past them."""
+    packed = fm.pack_params(net.lin, 59, 512, dtype=torch.float32)
+    for n in (1, F32_TILE - 1, F32_TILE, F32_TILE + 1, 2048, 2049, 4096, 4113):
+        x = _points(net, n, seed=n)
+        fm.reset_launch_counts()
+        got = fm._launch(x, packed, cluster=cluster)
+        ref = fm._launch(x, packed, cluster=1)
+        want = fm.fused_sdf_raw_plain(x, packed)
+        torch.cuda.synchronize()
+        counts = fm.launch_counts["fused_sdf_raw_f32"]
+        assert counts[f"cluster_{cluster}"] == (2 if cluster == 1 else 1)
+        assert float((got - want).abs().max()) <= TOL["f32"], n
+        assert torch.equal(got.view(torch.int32), ref.view(torch.int32)), n
+
+
+def test_cuda_f32_wrapper_takes_the_rules_cluster_size(net):
+    """The card seats a cluster of each size (the occupancy query), and the
+    wrapper launches the size that ``cluster_size`` gives for N."""
+    packed = fm.pack_params(net.lin, 59, 512, dtype=torch.float32)
+    slots = fm.cluster_slots(fm.kernel_depth(59), net.lin[0].b.device)
+    assert all(slots[c] >= c for c in fm.CLUSTER_SIZES), slots
+    for n in (256, 2048, 4096, 49152):
+        fm.reset_launch_counts()
+        fm.fused_sdf_raw(_points(net, n, seed=n), packed)
+        torch.cuda.synchronize()
+        assert fm.launch_counts["fused_sdf_raw_f32"][f"cluster_{fm.cluster_size(n, slots)}"] == 1
 
 
 # every encoder's first-layer depth (chip_smoke.py CHECK_D_IN): the kernel

@@ -8,6 +8,8 @@ kernel itself is held against the plain twin by tests/test_torch_cuda.py
 (skipped without a card) and by chip_smoke.py.
 """
 
+from fractions import Fraction
+
 import numpy as np
 import jax
 import jax.numpy as jnp
@@ -156,3 +158,46 @@ def test_wrapper_refuses_gradients(nets):
     x = torch.zeros(4, 59, requires_grad=True)
     with pytest.raises(ValueError):
         fm.fused_sdf_raw(x, packed)
+
+
+# the f32 kernel's cluster size from N (ops/fused_mlp.py:cluster_size): an
+# H100's 132 SMs, one CTA an SM at every cluster size
+SLOTS_132 = {1: 132, 2: 132, 4: 132}
+
+
+def _waves_per_share(n, slots, c):
+    tiles = -(-n // fm.TILE)
+    return Fraction(-(-tiles * c // slots[c]), c)
+
+
+@pytest.mark.parametrize("n, want", [(2048, 4), (4096, 2), (256, 4), (1, 4), (24576, 1),
+                                     (49152, 1)])
+def test_cluster_size_at_132_slots(n, want):
+    """The secant's calls (2048) on clusters of 4, the march's (4096) on
+    clusters of 2 (a tie with 4 goes to the smaller), the camera step's
+    (256) on 4, the exact sweep's probes (24576, 49152) one CTA a tile."""
+    assert fm.cluster_size(n, SLOTS_132) == want
+
+
+@pytest.mark.parametrize("slots", [SLOTS_132, {1: 132, 2: 132, 4: 120},
+                                   {1: 132, 2: 130, 4: 128}, {1: 132, 2: 132, 4: 0},
+                                   {1: 114, 2: 114, 4: 112}])
+def test_cluster_size_never_worse_than_one_cta_a_tile(slots):
+    """Over N up to 200,000 the rule takes the fewest waves per CTA share,
+    never more than C = 1's, the smaller C on a tie, and no C that the card
+    cannot seat."""
+    for n in range(1, 200_000, 89):
+        c = fm.cluster_size(n, slots)
+        assert slots[c] > 0
+        best = min(_waves_per_share(n, slots, d) for d in fm.CLUSTER_SIZES if slots[d] > 0)
+        assert _waves_per_share(n, slots, c) == best <= _waves_per_share(n, slots, 1)
+        assert all(_waves_per_share(n, slots, d) > best
+                   for d in fm.CLUSTER_SIZES if d < c and slots[d] > 0)
+
+
+def test_cluster_size_moves_to_two_with_fewer_slots_for_four():
+    """Where the card seats fewer clusters of 4 than 132 / 4 (GPCs whose SM
+    count is not a multiple of 4), N=2048 needs two waves of clusters of 4,
+    a tie with one wave of clusters of 2, which the smaller C takes."""
+    assert fm.cluster_size(2048, {1: 132, 2: 132, 4: 120}) == 2
+    assert fm.cluster_size(4096, {1: 132, 2: 132, 4: 120}) == 2
