@@ -75,12 +75,15 @@
 // taking 64 / C rows each.  x is read at its real width and only (N,) is
 // written.
 //
-// C is chosen from N by the caller (ops/fused_mlp.py:cluster_size): of 1, 2
-// and 4 the one with the fewest waves per CTA share, ceil(tiles C / slots_C)
-// / C, where slots_C is C x the clusters of C that can run at once
-// (cudaOccupancyMaxActiveClusters, fused_sdf_raw_f32_slots); a tie goes to
-// the smaller C.  At 132 slots: C = 4 at N=2048, C = 2 at N=4096, C = 1 at
-// N=24576 and N=49152.
+// C is chosen from N by the caller, for both variants by one rule
+// (ops/fused_mlp.py:cluster_size): of 1, 2 and 4 the one of least
+// ceil(tiles C / slots_C) x wave_ms_C, where slots_C is C x the clusters of C
+// that can run at once (cudaOccupancyMaxActiveClusters, fused_sdf_raw_*_slots)
+// and wave_ms_C the variant's measured time of one full wave of clusters of
+// C (fused_mlp.WAVE_MS); a tie goes to the smaller C.  A wave of clusters of
+// 2 does not take half the time of a wave of single CTAs, so the rule keeps
+// C = 1 where the card is full anyway: f32 at 132 / 132 / 120 slots takes
+// C = 4 at N=256, C = 2 at N=2048 and 4096, C = 1 at N=24576 and above.
 //
 // What keeps the design from the bound, measured on an NVIDIA H100 80GB HBM3
 // at 700 W (scripts/bench_fused_mlp_f32.py and its variants): a tile-wave
@@ -105,20 +108,26 @@
 // bf16 variant: design.  The skeleton of the float variant: a tile of 64
 // points stays on chip across all nine layers, as a 64x520 bf16 activation
 // tile (66,560 B), and the weights stream through a cp.async ring of two
-// 64-row bf16 stages (133,120 B; 199,680 B in all, one block per SM): one
-// uniform chunk stream over l0 (K0 rows, rows >= d_in zero-filled) and
-// l1..l7, the next chunk in flight while the current one is multiplied,
-// across layer boundaries too.  Eight warps each own 64 output columns for
-// all 64 rows (128 float accumulators a thread under the 255 cap of 256
-// threads); of the two layouts that fit it reads the least from shared
-// memory (per 16-deep k-step 32 KB through ldmatrix, against 48 KB for
-// sixteen warps of 64x32, which also spill at their 128-register cap).  Per
-// k-step a warp loads 4 A fragments with ldmatrix.x4 and 8 B fragments with
-// ldmatrix.x4.trans straight from the input-major (k, n) weight stage, and
-// issues 32 mma.sync.m16n8k16.bf16 accumulating in float in the tensor
-// cores (their truncating adds stay far below bf16 rounding).  Row strides
-// of 520 elements make both ldmatrix reads free of bank conflicts.  Three
-// choices, each measured on the card by scripts/ablate_fused_mlp_bf16.py:
+// 64-row bf16 stages: one uniform chunk stream over l0 (K0 rows, rows >=
+// d_in zero-filled) and l1..l7, the next chunk in flight while the current
+// one is multiplied, across layer boundaries too.  One tile is a cluster of
+// C CTAs (C = 1, 2 or 4) as in the float variant: each CTA holds the whole
+// tile and computes 512 / C columns of each layer, streaming only their
+// weights (stages of 64 x (512/C + 8): 199,680 B in all at C = 1, 134,144 B
+// at 2, 101,376 B at 4; one CTA an SM).  Its eight warps each own 64 / C
+// output columns for all 64 rows (128, 64 or 32 float accumulators a
+// thread); at C = 1, of the two layouts that fit, this one reads the least
+// from shared memory (per 16-deep k-step 32 KB through ldmatrix, against 48
+// KB for sixteen warps of 64x32, which also spill at their 128-register
+// cap).  Per k-step a warp loads 4 A fragments with ldmatrix.x4 and 16 / C
+// B fragments with ldmatrix.x4.trans straight from the input-major (k, n)
+// weight stage, and issues 32 / C mma.sync.m16n8k16.bf16 accumulating in
+// float in the tensor cores (their truncating adds stay far below bf16
+// rounding).  Row strides of 16 mod 128 bytes make both ldmatrix reads free
+// of bank conflicts.  Every output column keeps its k order and its m16n8k16
+// grouping, so every C gives the bits of C = 1, and C = 1 those of the
+// kernel before clusters.  Three choices, each measured on the card
+// against a version without it when the design was set:
 // the fragments of k-step s+1 are loaded before k-step s's products; each
 // warp copies exactly the weights it reads, so that it waits for its own
 // copies (wait_group + __syncwarp) and the block meets only around the
@@ -126,12 +135,33 @@
 // instead of one a chunk); and softplus is branch free.  The epilogue runs
 // on the accumulators in registers: bias, softplus on MUFU ex2/lg2, after l3
 // bf16(x)/sqrt(2) (x read at its real width from device memory) in the tail
-// columns, rounded to bf16 and stored as pairs into the tile.  The last
-// layer is a 512-long float dot per point with a warp reduction; only (N,)
-// is written.  What bounds it: mma.sync, which alone runs at about 37% of
-// the H100's dense bf16 peak (the ablation's mma_only at N=69632), then the
-// weight copies, softplus and the layer barriers, which no other work
-// overlaps while every warp runs its epilogue.
+// columns, rounded to bf16 and stored as pairs into the tile.  At C > 1 the
+// pairs go into the CTA's own tile by 4-byte stores (free of bank
+// conflicts) and into the other CTAs' tiles by 16-byte st.shared::cluster:
+// the four lanes of a quad hold the 8 columns of one n8 tile's row, and a
+// 4x4 transpose by shuffles gives each lane all 8 of one row.  Around the
+// stores the cluster meets as the float variant's does, but the first
+// barrier is split: a warp arrives once it has loaded its last fragments of
+// the tile and waits only after its last products and its activation.
+// The last layer is a 512-long float dot per point with a warp reduction,
+// the cluster's CTAs taking 64 / C rows each; only (N,) is written.  What
+// bounds it at the large calls (C = 1): mma.sync, which alone runs at about
+// 37% of the H100's dense bf16 peak (the mma_only variant at N=69632),
+// then the weight copies, softplus and the layer barriers, which no other
+// work overlaps while every warp runs its epilogue.  At the small calls
+// (NVIDIA H100 80GB HBM3, 700 W; scripts/bench_fused_mlp_f32.py --dtype bf16
+// beside the kernel before clusters): N=256 takes 0.072 ms on clusters of 4
+// against 0.099, N=2048 0.085-0.089 on clusters of 2 against 0.099-0.102,
+// but N=4096 0.094-0.098 against 0.099-0.105, and a full wave of clusters
+// takes 0.146 / 0.098 / 0.089 ms at C = 1 / 2 / 4.  A cluster divides a
+// tile's products and its weight stream, not the weights the call reads
+// from L2: every tile still reads all 3.73 MB, 239 MB at N=4096, which
+// arrive at about 2.4 TB/s when every CTA starts at once, at C = 1 and 2
+// alike (4.5 TB/s in the steady waves of N=69632).  With the weight
+// copies taken out N=4096 at C = 2 runs 28% faster; with the products
+// taken out 8%; without the stores into other tiles 8% (40% at C = 4,
+// N=256); what remains is the per-layer latency of eight epilogues, their
+// softplus on MUFU and their barrier pairs.
 //
 // Left for later: wgmma (the only path to the full tensor-core rate, with B
 // read from shared memory without per-warp ldmatrix traffic) and TMA; and
@@ -143,6 +173,7 @@
 
 #include <cstddef>
 #include <cstdint>
+#include <type_traits>
 
 namespace {
 
@@ -161,6 +192,135 @@ __device__ __forceinline__ void cp_async16(void* dst, const void* src, bool vali
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;" ::"r"(s), "l"(src),
                "r"(valid ? 16 : 0)
                : "memory");
+}
+
+// ---------------------------------------------------------------------------
+// thread-block clusters: both variants run a 64-point tile on a cluster of C
+// CTAs (C = 1, 2 or 4) that share it through distributed shared memory
+// ---------------------------------------------------------------------------
+
+// the CTA's rank in its cluster
+__device__ __forceinline__ uint32_t cluster_rank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;" : "=r"(r));
+  return r;
+}
+
+// the shared::cluster address of the shared::cta address `addr` in CTA
+// `rank` of the cluster (distributed shared memory)
+__device__ __forceinline__ uint32_t map_rank(uint32_t addr, uint32_t rank) {
+  uint32_t r;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;" : "=r"(r) : "r"(addr), "r"(rank));
+  return r;
+}
+
+// Every thread of the cluster (C > 1) or of the CTA (C = 1) has arrived.
+// The release and acquire make each thread's stores into any CTA's shared
+// memory before the barrier visible to every thread after it.
+template <int C>
+__device__ __forceinline__ void tile_barrier() {
+  if constexpr (C == 1) {
+    __syncthreads();
+  } else {
+    asm volatile("barrier.cluster.arrive.release.aligned;\n\t"
+                 "barrier.cluster.wait.acquire.aligned;" ::: "memory");
+  }
+}
+
+// The two halves of tile_barrier at C > 1, so that work that touches no
+// other CTA's tile can run between them: arrive releases this thread's
+// accesses of shared memory before it; wait returns once every thread of the
+// cluster has arrived, and acquires theirs.
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release.aligned;" ::: "memory");
+}
+
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire.aligned;" ::: "memory");
+}
+
+// a launch of `tiles` tiles in clusters of C CTAs of `threads` along x
+template <int C>
+cudaLaunchConfig_t launch_config(int tiles, int threads, size_t smem, cudaStream_t stream,
+                                 cudaLaunchAttribute& attr) {
+  attr.id = cudaLaunchAttributeClusterDimension;
+  attr.val.clusterDim.x = C;
+  attr.val.clusterDim.y = 1;
+  attr.val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(tiles * C);
+  cfg.blockDim = dim3(threads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cfg.attrs = &attr;
+  cfg.numAttrs = 1;
+  return cfg;
+}
+
+// `kernel`'s dynamic shared memory limit, set on its first use (`ready`)
+template <typename... P>
+int allow_smem(void (*kernel)(P...), size_t smem, bool& ready) {
+  if (!ready) {
+    const cudaError_t err =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+    ready = true;
+  }
+  return 0;
+}
+
+// one launch of `kernel` over `tiles` tiles in clusters of C (C = 1: a plain
+// launch)
+template <int C, typename... P, typename... A>
+int launch_tiles(void (*kernel)(P...), int threads, size_t smem, bool& ready, int tiles,
+                 cudaStream_t stream, A... args) {
+  if (const int err = allow_smem(kernel, smem, ready)) return err;
+  cudaLaunchAttribute attr;
+  cudaLaunchConfig_t cfg = launch_config<C>(tiles, threads, smem, stream, attr);
+  if (C == 1) cfg.numAttrs = 0;  // a plain launch
+  const cudaError_t err = cudaLaunchKernelEx(&cfg, kernel, args...);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaGetLastError();
+}
+
+// *out <- C x the number of clusters of C CTAs of `kernel` that can run at
+// once on the current device
+template <int C, typename... P>
+int count_slots(void (*kernel)(P...), int threads, size_t smem, bool& ready, int* out) {
+  if (const int err = allow_smem(kernel, smem, ready)) return err;
+  cudaLaunchAttribute attr;
+  const cudaLaunchConfig_t cfg = launch_config<C>(1, threads, smem, nullptr, attr);
+  int clusters = 0;
+  const cudaError_t err =
+      cudaOccupancyMaxActiveClusters(&clusters, reinterpret_cast<const void*>(kernel), &cfg);
+  if (err != cudaSuccess) return (int)err;
+  *out = clusters * C;
+  return 0;
+}
+
+template <int V>
+using Int = std::integral_constant<int, V>;
+
+// f(Int<K0>(), Int<C>()) for the compiled first-layer depth k0 (64, 128, 256
+// or 512) and the cluster size (1, 2 or 4); cudaErrorInvalidValue for any
+// other
+template <class F>
+int dispatch(int k0, int cluster, F&& f) {
+  const auto at_depth = [&](auto k) -> int {
+    switch (cluster) {
+      case 1: return f(k, Int<1>());
+      case 2: return f(k, Int<2>());
+      case 4: return f(k, Int<4>());
+      default: return (int)cudaErrorInvalidValue;
+    }
+  };
+  switch (k0) {
+    case 64: return at_depth(Int<64>());
+    case 128: return at_depth(Int<128>());
+    case 256: return at_depth(Int<256>());
+    case 512: return at_depth(Int<512>());
+    default: return (int)cudaErrorInvalidValue;
+  }
 }
 
 // ---------------------------------------------------------------------------
@@ -370,34 +530,6 @@ __device__ __forceinline__ void activate(float (&acc)[Split<C>::MI][Split<C>::NI
   }
 }
 
-// the CTA's rank in its cluster
-__device__ __forceinline__ uint32_t cluster_rank() {
-  uint32_t r;
-  asm volatile("mov.u32 %0, %%cluster_ctarank;" : "=r"(r));
-  return r;
-}
-
-// the shared::cluster address of the shared::cta address `addr` in CTA
-// `rank` of the cluster (distributed shared memory)
-__device__ __forceinline__ uint32_t map_rank(uint32_t addr, uint32_t rank) {
-  uint32_t r;
-  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;" : "=r"(r) : "r"(addr), "r"(rank));
-  return r;
-}
-
-// Every thread of the cluster (C > 1) or of the CTA (C = 1) has arrived.
-// The release and acquire make each thread's stores into any CTA's shared
-// memory before the barrier visible to every thread after it.
-template <int C>
-__device__ __forceinline__ void tile_barrier() {
-  if constexpr (C == 1) {
-    __syncthreads();
-  } else {
-    asm volatile("barrier.cluster.arrive.release.aligned;\n\t"
-                 "barrier.cluster.wait.acquire.aligned;" ::: "memory");
-  }
-}
-
 // the warp's activated block into the tile of every CTA of the cluster: its
 // own through a plain store, the others' through st.shared::cluster at the
 // addresses `remote` (ranks rank+1, ..., rank+C-1).  Zeroes acc for the
@@ -512,139 +644,55 @@ __global__ void __launch_bounds__(Split<C>::NT, 1)
   }
 }
 
-// the kernel's dynamic shared memory limit, set once per instantiation
+// the kernel's dynamic shared memory limit is set (on its first use)
 template <int K0, int C>
-int prepare() {
-  static bool attr_set = false;
-  if (!attr_set) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        fused_sdf_kernel<K0, C>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)Split<C>::SMEM);
-    if (err != cudaSuccess) return (int)err;
-    attr_set = true;
-  }
-  return 0;
-}
-
-// a launch of `tiles` tiles in clusters of C along x
-template <int C>
-cudaLaunchConfig_t launch_config(int tiles, cudaStream_t stream, cudaLaunchAttribute& attr) {
-  attr.id = cudaLaunchAttributeClusterDimension;
-  attr.val.clusterDim.x = C;
-  attr.val.clusterDim.y = 1;
-  attr.val.clusterDim.z = 1;
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(tiles * C);
-  cfg.blockDim = dim3(Split<C>::NT);
-  cfg.dynamicSmemBytes = Split<C>::SMEM;
-  cfg.stream = stream;
-  cfg.attrs = &attr;
-  cfg.numAttrs = 1;
-  return cfg;
-}
-
-template <int K0, int C>
-int launch(const float* x, int n, int d_in, const float* w_in, const float* b_in,
-           const float* w_mid, const float* b_mid, const float* w_out, const float* b_out,
-           float* out, cudaStream_t stream) {
-  if (const int err = prepare<K0, C>()) return err;
-  cudaLaunchAttribute attr;
-  cudaLaunchConfig_t cfg = launch_config<C>((n + TM - 1) / TM, stream, attr);
-  if (C == 1) cfg.numAttrs = 0;  // a plain launch
-  const cudaError_t err = cudaLaunchKernelEx(&cfg, fused_sdf_kernel<K0, C>, x, n, d_in, w_in,
-                                             b_in, w_mid, b_mid, w_out, b_out, out);
-  if (err != cudaSuccess) return (int)err;
-  return (int)cudaGetLastError();
-}
-
-// C x the number of clusters of C CTAs that can run at once on the current
-// device
-template <int K0, int C>
-int slots(int* out) {
-  if (const int err = prepare<K0, C>()) return err;
-  cudaLaunchAttribute attr;
-  const cudaLaunchConfig_t cfg = launch_config<C>(1, nullptr, attr);
-  int clusters = 0;
-  const cudaError_t err =
-      cudaOccupancyMaxActiveClusters(
-      &clusters, reinterpret_cast<const void*>(&fused_sdf_kernel<K0, C>), &cfg);
-  if (err != cudaSuccess) return (int)err;
-  *out = clusters * C;
-  return 0;
-}
-
-// k0: the compiled first-layer depth to launch, chosen by the caller (the
-// smallest that covers d_in); the skip fills columns >= 512 - d_in, so d_in
-// < 512.  cluster: C, the CTAs that share a tile.
-template <int K0>
-int launch_cluster(int cluster, const float* x, int n, int d_in, const float* w_in,
-                   const float* b_in, const float* w_mid, const float* b_mid,
-                   const float* w_out, const float* b_out, float* out, cudaStream_t stream) {
-  switch (cluster) {
-    case 1: return launch<K0, 1>(x, n, d_in, w_in, b_in, w_mid, b_mid, w_out, b_out, out, stream);
-    case 2: return launch<K0, 2>(x, n, d_in, w_in, b_in, w_mid, b_mid, w_out, b_out, out, stream);
-    case 4: return launch<K0, 4>(x, n, d_in, w_in, b_in, w_mid, b_mid, w_out, b_out, out, stream);
-    default: return (int)cudaErrorInvalidValue;
-  }
-}
-
-int launch_depth(int k0, int cluster, const float* x, int n, int d_in, const float* w_in,
-                 const float* b_in, const float* w_mid, const float* b_mid, const float* w_out,
-                 const float* b_out, float* out, cudaStream_t stream) {
-  if (n <= 0 || d_in <= 0 || d_in > k0 || d_in >= HIDDEN) return (int)cudaErrorInvalidValue;
-  switch (k0) {
-    case 64: return launch_cluster<64>(cluster, x, n, d_in, w_in, b_in, w_mid, b_mid, w_out, b_out, out, stream);
-    case 128: return launch_cluster<128>(cluster, x, n, d_in, w_in, b_in, w_mid, b_mid, w_out, b_out, out, stream);
-    case 256: return launch_cluster<256>(cluster, x, n, d_in, w_in, b_in, w_mid, b_mid, w_out, b_out, out, stream);
-    case 512: return launch_cluster<512>(cluster, x, n, d_in, w_in, b_in, w_mid, b_mid, w_out, b_out, out, stream);
-    default: return (int)cudaErrorInvalidValue;
-  }
-}
-
-template <int K0>
-int slots_cluster(int cluster, int* out) {
-  switch (cluster) {
-    case 1: return slots<K0, 1>(out);
-    case 2: return slots<K0, 2>(out);
-    case 4: return slots<K0, 4>(out);
-    default: return (int)cudaErrorInvalidValue;
-  }
-}
-
-int slots_depth(int k0, int cluster, int* out) {
-  switch (k0) {
-    case 64: return slots_cluster<64>(cluster, out);
-    case 128: return slots_cluster<128>(cluster, out);
-    case 256: return slots_cluster<256>(cluster, out);
-    case 512: return slots_cluster<512>(cluster, out);
-    default: return (int)cudaErrorInvalidValue;
-  }
-}
+bool ready = false;
 
 }  // namespace f32
 
 // ---------------------------------------------------------------------------
-// bf16 weights: bf16 mma.sync fed by a cp.async weight ring
+// bf16 weights: bf16 mma.sync fed by a cp.async weight ring, one tile of 64
+// points shared by a cluster of C CTAs
 // ---------------------------------------------------------------------------
 
 namespace bf16k {
 
-constexpr int TM = 64;                  // points per block
-constexpr int NT = 256;                 // 8 warps
-constexpr int WARP_COLS = HIDDEN / (NT / 32);  // 64 output columns a warp
-constexpr int MI = TM / 16, NI = WARP_COLS / 8;  // m16n8 tiles a warp: 4 x 8
+constexpr int TM = 64;                  // points per tile (per cluster)
 constexpr int KC = 64;                  // weight rows per ring stage
-constexpr int STAGES = 2;
-// row strides of 1040 B (16 mod 128): the eight 16-byte rows an ldmatrix
-// phase reads fall in distinct banks, for A and for B
+// the tile's row stride, 1040 B (16 mod 128): the eight 16-byte rows an
+// ldmatrix phase reads fall in distinct banks
 constexpr int LDA = HIDDEN + 8;
-constexpr int LDW = HIDDEN + 8;
+constexpr size_t TILE_BYTES = sizeof(bf16) * TM * LDA;
 constexpr int CHUNKS_MID = HIDDEN / KC;     // each of l1..l7's chunks
-constexpr size_t SMEM = sizeof(bf16) * (TM * LDA + STAGES * KC * LDW);
-static_assert(SMEM <= MAX_SMEM, "bf16 tile and weight ring exceed shared memory");
 // an even number of 16-deep k-steps a chunk: the main loop's two fragment
 // buffers then alternate from chunk to chunk
 static_assert(KC % 32 == 0 && HIDDEN % KC == 0, "chunking");
+
+// How a cluster of C CTAs splits one tile's work.  Every CTA holds the whole
+// 64 x 512 tile (the A operand of every layer) and computes HIDDEN / C output
+// columns of each layer, streaming only those columns' weights through its
+// ring.  Each of its 8 warps owns WARP_COLS of those columns for all 64
+// rows and copies exactly their weights, so that it waits for its own
+// copies only: 64 x 64 at C = 1, 64 x 32 at C = 2, 64 x 16 at C = 4.
+template <int C>
+struct Split {
+  static_assert(C == 1 || C == 2 || C == 4, "cluster sizes 1, 2 and 4");
+  static constexpr int NT = 256;                  // 8 warps a CTA
+  static constexpr int WARPS = NT / 32;
+  static constexpr int COLS = HIDDEN / C;         // a CTA's output columns
+  static constexpr int WARP_COLS = COLS / WARPS;  // a warp's
+  static constexpr int MI = TM / 16, NI = WARP_COLS / 8;  // m16n8 tiles a warp
+  // ring stages: two fill shared memory beside the tile at C = 1; at C = 2
+  // and 4 four fit, but ran 1-8% slower on the card than two
+  static constexpr int STAGES = 2;
+  // the stage's row stride, COLS + 8 elements: 16 mod 128 bytes at every C
+  static constexpr int LDW = COLS + 8;
+  static constexpr size_t SMEM = TILE_BYTES + sizeof(bf16) * STAGES * KC * LDW;
+  static_assert(SMEM <= MAX_SMEM, "bf16 tile and weight ring exceed shared memory");
+  static_assert(NI % 2 == 0, "ldmatrix.x4.trans loads two n8 tiles");
+  static_assert(MI * NI * 2 % 4 == 0, "the stores into other tiles: four fragments a store");
+  static_assert(TM % (C * WARPS) == 0, "the last layer's rows: whole rows a warp");
+};
 
 // the chunk stream of first-layer depth K0: l0's chunks, then l1..l7's
 template <int K0>
@@ -653,7 +701,6 @@ struct Stream {
   static constexpr int CHUNKS_IN = K0 / KC;
   static constexpr int CHUNKS = CHUNKS_IN + N_MID * CHUNKS_MID;
 };
-static_assert(NI % 2 == 0, "ldmatrix.x4.trans loads two n8 tiles");
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -683,68 +730,75 @@ __device__ __forceinline__ void mma(float (&c)[4], const uint32_t (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
 }
 
-// the warp's columns [col0, col0 + WARP_COLS) of chunk c of the whole weight
-// stream (l0's K0 rows, then l1..l7's 512 rows each, KC rows a chunk) into
-// its ring stage, as one commit group; rows at or past d_in in l0 are zero.
-// A warp copies exactly the part of each stage that it reads, so it waits
-// for its own copies only.  Past the end it commits an empty group, so that
-// the group count stays uniform for wait_group.
-template <int K0>
-__device__ __forceinline__ void prefetch_chunk(bf16* ring, int c, int d_in, int col0, int lane,
-                                               const bf16* __restrict__ w_in,
+// the warp's columns of chunk c of the whole weight stream (l0's K0 rows,
+// then l1..l7's 512 rows each, KC rows a chunk) into its ring stage, as one
+// commit group: weight columns [col0, col0 + WARP_COLS) into stage columns
+// [scol0, scol0 + WARP_COLS); rows at or past d_in in l0 are zero.  A warp
+// copies exactly the part of each stage that it reads, so it waits for its
+// own copies only.  Past the end it commits an empty group, so that the
+// group count stays uniform for wait_group.
+template <int K0, int C>
+__device__ __forceinline__ void prefetch_chunk(bf16* ring, int c, int d_in, int scol0, int col0,
+                                               int lane, const bf16* __restrict__ w_in,
                                                const bf16* __restrict__ w_mid) {
+  using S = Split<C>;
   constexpr int CHUNKS_IN = Stream<K0>::CHUNKS_IN, CHUNKS = Stream<K0>::CHUNKS;
-  // lane -> 16-byte piece col of rows r0, r0 + ROW_STEP, ...
-  constexpr int PER_ROW = WARP_COLS / 8;  // 16-byte copies a row
+  // lane -> 16-byte piece of rows r0, r0 + ROW_STEP, ...
+  constexpr int PER_ROW = S::WARP_COLS / 8;  // 16-byte copies a row
   constexpr int ROW_STEP = 32 / PER_ROW;
   static_assert(32 % PER_ROW == 0 && KC % ROW_STEP == 0, "copies per lane");
-  const int r0 = lane / PER_ROW, col = col0 + (lane % PER_ROW) * 8;
-  bf16* dst = ring + (c % STAGES) * KC * LDW + r0 * LDW + col;
+  const int r0 = lane / PER_ROW, piece = (lane % PER_ROW) * 8, col = col0 + piece;
+  bf16* dst = ring + (c % S::STAGES) * KC * S::LDW + r0 * S::LDW + scol0 + piece;
   if (c < CHUNKS_IN) {
     const int k0 = c * KC;
 #pragma unroll
     for (int r = 0; r < KC; r += ROW_STEP) {
       const bool valid = k0 + r0 + r < d_in;
-      cp_async16(dst + r * LDW, valid ? w_in + (size_t)(k0 + r0 + r) * HIDDEN + col : w_in,
+      cp_async16(dst + r * S::LDW, valid ? w_in + (size_t)(k0 + r0 + r) * HIDDEN + col : w_in,
                  valid);
     }
   } else if (c < CHUNKS) {
     // l1..l7 are one contiguous stream of full rows
     const bf16* src = w_mid + ((size_t)(c - CHUNKS_IN) * KC + r0) * HIDDEN + col;
 #pragma unroll
-    for (int r = 0; r < KC; r += ROW_STEP) cp_async16(dst + r * LDW, src + r * HIDDEN, true);
+    for (int r = 0; r < KC; r += ROW_STEP) cp_async16(dst + r * S::LDW, src + r * HIDDEN, true);
   }
   asm volatile("cp.async.commit_group;" ::: "memory");
 }
 
-// one 16-deep k-step's fragments of the warp's 64 x 64 block
+// one 16-deep k-step's fragments of the warp's block
+template <int C>
 struct Frags {
-  uint32_t a[MI][4];
-  uint32_t b[NI][2];
+  uint32_t a[Split<C>::MI][4];
+  uint32_t b[Split<C>::NI][2];
 };
 
 // a_addr: the thread's ldmatrix address in the tile at the k-step's first
 // column; w_addr: its address in the stage at the k-step's first row and the
 // warp's first column
-__device__ __forceinline__ void load_frags(Frags& f, uint32_t a_addr, uint32_t w_addr) {
+template <int C>
+__device__ __forceinline__ void load_frags(Frags<C>& f, uint32_t a_addr, uint32_t w_addr) {
   // A: matrices (rows 0-7, k 0-7), (8-15, 0-7), (0-7, 8-15), (8-15, 8-15)
   // give a0..a3 of m16n8k16
 #pragma unroll
-  for (int mi = 0; mi < MI; ++mi) ldsm_x4(f.a[mi], a_addr + sizeof(bf16) * mi * 16 * LDA);
+  for (int mi = 0; mi < Split<C>::MI; ++mi)
+    ldsm_x4(f.a[mi], a_addr + sizeof(bf16) * mi * 16 * LDA);
   // B from (k, n) rows, transposed: (k 0-7, n 0-7), (8-15, 0-7),
   // (0-7, 8-15), (8-15, 8-15) give b0, b1 of two n8 tiles
 #pragma unroll
-  for (int nj = 0; nj < NI / 2; ++nj)
+  for (int nj = 0; nj < Split<C>::NI / 2; ++nj)
     ldsm_x4_trans(f.b[2 * nj][0], f.b[2 * nj][1], f.b[2 * nj + 1][0], f.b[2 * nj + 1][1],
                   w_addr + sizeof(bf16) * nj * 16);
 }
 
-// acc += the k-step's 64 x 16 by 16 x 64 product
-__device__ __forceinline__ void mma_step(float (&acc)[MI][NI][4], const Frags& f) {
+// acc += the k-step's 64 x 16 by 16 x WARP_COLS product
+template <int C>
+__device__ __forceinline__ void mma_step(float (&acc)[Split<C>::MI][Split<C>::NI][4],
+                                         const Frags<C>& f) {
 #pragma unroll
-  for (int mi = 0; mi < MI; ++mi)
+  for (int mi = 0; mi < Split<C>::MI; ++mi)
 #pragma unroll
-    for (int ni = 0; ni < NI; ++ni) mma(acc[mi][ni], f.a[mi], f.b[ni]);
+    for (int ni = 0; ni < Split<C>::NI; ++ni) mma(acc[mi][ni], f.a[mi], f.b[ni]);
 }
 
 // chunk c's first column in its layer's input
@@ -775,23 +829,26 @@ __device__ __forceinline__ float skip_input(const float* __restrict__ x, int row
   return row < n ? __bfloat162float(__float2bfloat16_rn(x[(size_t)row * d_in + j])) : 0.f;
 }
 
-// tile <- bf16(softplus(acc + bias)) for the warp's 64 x 64 block, from the
-// accumulators in registers; after l3 (SKIP) the tail columns take
-// bf16(bf16(x)/sqrt(2)) and the rest bf16(softplus/sqrt(2)).  Zeroes acc
-// for the next layer.  SKIP is a template parameter, so that the common
-// epilogue is one basic block.
-template <bool SKIP>
-__device__ __forceinline__ void epilogue(float (&acc)[MI][NI][4], bf16* act,
-                                         const float* __restrict__ bias,
+// bf16(softplus(acc + bias)) for the warp's block (columns col0.. of the
+// layer), from the accumulators in registers; after l3 (SKIP) the tail
+// columns take bf16(bf16(x)/sqrt(2)) and the rest bf16(softplus/sqrt(2)).
+// At C = 1 the pairs of columns go straight into the tile, at C > 1 into
+// `pairs` (pairs[mi][ni][half]: row mi*16 + g + 8*half, columns ni*8 + 2t
+// and + 1) for store_tile.  Zeroes acc for the next layer.  SKIP is a
+// template parameter, so that the common epilogue is one basic block.
+template <int C, bool SKIP>
+__device__ __forceinline__ void epilogue(float (&acc)[Split<C>::MI][Split<C>::NI][4],
+                                         uint32_t (&pairs)[Split<C>::MI][Split<C>::NI][2],
+                                         bf16* act, const float* __restrict__ bias,
                                          const float* __restrict__ x, int row0, int n,
                                          int d_in, int col0, int g, int t) {
   const int skip_cols = HIDDEN - d_in;
 #pragma unroll
-  for (int ni = 0; ni < NI; ++ni) {
+  for (int ni = 0; ni < Split<C>::NI; ++ni) {
     const int col = col0 + ni * 8 + 2 * t;  // accumulator columns col, col+1
     const float2 b = *reinterpret_cast<const float2*>(bias + col);
 #pragma unroll
-    for (int mi = 0; mi < MI; ++mi)
+    for (int mi = 0; mi < Split<C>::MI; ++mi)
 #pragma unroll
       for (int half = 0; half < 2; ++half) {  // rows g and g+8
         const int r = mi * 16 + g + 8 * half;
@@ -803,49 +860,126 @@ __device__ __forceinline__ void epilogue(float (&acc)[MI][NI][4], bf16* act,
           v0 *= INV_SQRT2;
           v1 *= INV_SQRT2;
         }
-        *reinterpret_cast<__nv_bfloat162*>(act + r * LDA + col) = __floats2bfloat162_rn(v0, v1);
+        const __nv_bfloat162 v = __floats2bfloat162_rn(v0, v1);
+        if constexpr (C == 1)
+          *reinterpret_cast<__nv_bfloat162*>(act + r * LDA + col) = v;
+        else
+          pairs[mi][ni][half] = *reinterpret_cast<const uint32_t*>(&v);
         acc[mi][ni][2 * half] = acc[mi][ni][2 * half + 1] = 0.f;
       }
   }
 }
 
-template <int K0>
-__global__ void __launch_bounds__(NT, 1)
+// v[j] of lane j of each quad (lanes 4g .. 4g+3) -> v[j] of lane t: lane
+// j's v[t].  A 4x4 transpose in two rounds of shuffles: lanes t and t^1 swap
+// the entries whose index differs from t in bit 0, then t and t^2 in bit 1.
+__device__ __forceinline__ void quad_transpose(uint32_t (&v)[4], int t) {
+  const bool odd = t & 1, high = t & 2;
+  uint32_t s0 = __shfl_xor_sync(0xffffffffu, odd ? v[0] : v[1], 1);
+  uint32_t s1 = __shfl_xor_sync(0xffffffffu, odd ? v[2] : v[3], 1);
+  if (odd) {
+    v[0] = s0;
+    v[2] = s1;
+  } else {
+    v[1] = s0;
+    v[3] = s1;
+  }
+  s0 = __shfl_xor_sync(0xffffffffu, high ? v[0] : v[2], 2);
+  s1 = __shfl_xor_sync(0xffffffffu, high ? v[1] : v[3], 2);
+  if (high) {
+    v[0] = s0;
+    v[1] = s1;
+  } else {
+    v[2] = s0;
+    v[3] = s1;
+  }
+}
+
+// The warp's activated block (C > 1) into the tile of every CTA of the
+// cluster: its own through 4-byte stores, free of bank conflicts; the
+// others' (`remote`: ranks rank+1, ..., rank+C-1) through 16-byte
+// st.shared::cluster.  The four lanes of a quad hold the 8 columns of one
+// n8 tile's row, so a quad transposes each four of its fragments
+// (fragment i: mi = i / (2 NI), half = i / NI % 2, ni = i % NI), after which
+// lane t holds all 8 columns of fragment t of the four.
+template <int C>
+__device__ __forceinline__ void store_tile(const uint32_t (&pairs)[Split<C>::MI][Split<C>::NI][2],
+                                           bf16* act, const uint32_t (&remote)[C], int col0,
+                                           int g, int t) {
+  constexpr int MI = Split<C>::MI, NI = Split<C>::NI;
+#pragma unroll
+  for (int mi = 0; mi < MI; ++mi)
+#pragma unroll
+    for (int ni = 0; ni < NI; ++ni)
+#pragma unroll
+      for (int half = 0; half < 2; ++half)
+        *reinterpret_cast<uint32_t*>(act + (mi * 16 + g + 8 * half) * LDA + col0 + ni * 8 +
+                                     2 * t) = pairs[mi][ni][half];
+#pragma unroll
+  for (int q = 0; q < MI * NI * 2 / 4; ++q) {
+    uint32_t v[4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int i = 4 * q + j;
+      v[j] = pairs[i / (2 * NI)][i % NI][i / NI % 2];
+    }
+    quad_transpose(v, t);
+    const int i = 4 * q + t;
+    const uint32_t off = sizeof(bf16) * ((i / (2 * NI) * 16 + g + 8 * (i / NI % 2)) * LDA +
+                                         col0 + i % NI * 8);
+#pragma unroll
+    for (int other = 1; other < C; ++other)
+      asm volatile("st.shared::cluster.v4.b32 [%0], {%1, %2, %3, %4};" ::"r"(remote[other] + off),
+                   "r"(v[0]), "r"(v[1]), "r"(v[2]), "r"(v[3])
+                   : "memory");
+  }
+}
+
+template <int K0, int C>
+__global__ void __launch_bounds__(Split<C>::NT, 1)
     fused_sdf_kernel(const float* __restrict__ x, int n, int d_in,
                      const bf16* __restrict__ w_in, const float* __restrict__ b_in,
                      const bf16* __restrict__ w_mid, const float* __restrict__ b_mid,
                      const bf16* __restrict__ w_out, const float* __restrict__ b_out,
                      float* __restrict__ out) {
+  using S = Split<C>;
   constexpr int CHUNKS_IN = Stream<K0>::CHUNKS_IN, CHUNKS = Stream<K0>::CHUNKS;
   extern __shared__ __align__(128) unsigned char smem[];
   bf16* act = reinterpret_cast<bf16*>(smem);  // (TM, LDA)
   bf16* ring = act + TM * LDA;                // STAGES x (KC, LDW)
-  const int row0 = blockIdx.x * TM;
+  // a 1-D cluster is C consecutive blocks, one tile
+  const int rank = C == 1 ? 0 : (int)cluster_rank();
+  const int row0 = blockIdx.x / C * TM;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int g = lane / 4, t = lane % 4;  // mma fragment coordinates
-  const int col0 = warp * WARP_COLS;
+  const int scol0 = warp * S::WARP_COLS;      // the warp's first column in the stage
+  const int col0 = rank * S::COLS + scol0;    // ... in the layer
   // ldmatrix row addresses: lanes 0-15 rows 0-15 at column 0, lanes 16-31
   // the same rows at column 8
   const int lrow = lane % 16, lcol = lane / 16 * 8;
   const uint32_t a_base = smem_addr(act + lrow * LDA + lcol);
-  const uint32_t w_base = smem_addr(ring + lrow * LDW + col0 + lcol);
+  const uint32_t w_base = smem_addr(ring + lrow * S::LDW + scol0 + lcol);
+  uint32_t remote[C] = {};  // remote[q]: the tile of rank + q (q >= 1)
+#pragma unroll
+  for (int q = 1; q < C; ++q) remote[q] = map_rank(smem_addr(act), (rank + q) % C);
 
 #pragma unroll
-  for (int c = 0; c < STAGES - 1; ++c) prefetch_chunk<K0>(ring, c, d_in, col0, lane, w_in, w_mid);
+  for (int c = 0; c < S::STAGES - 1; ++c)
+    prefetch_chunk<K0, C>(ring, c, d_in, scol0, col0, lane, w_in, w_mid);
 
   // the point tile at its real width in bf16, zero padded to K0 columns and
   // TM rows
-  for (int i = threadIdx.x; i < TM * K0; i += NT) {
+  for (int i = threadIdx.x; i < TM * K0; i += S::NT) {
     const int r = i / K0, col = i % K0, row = row0 + r;
     act[r * LDA + col] =
         __float2bfloat16_rn((row < n && col < d_in) ? x[(size_t)row * d_in + col] : 0.f);
   }
 
-  float acc[MI][NI][4];
+  float acc[S::MI][S::NI][4];
 #pragma unroll
-  for (int mi = 0; mi < MI; ++mi)
+  for (int mi = 0; mi < S::MI; ++mi)
 #pragma unroll
-    for (int ni = 0; ni < NI; ++ni)
+    for (int ni = 0; ni < S::NI; ++ni)
 #pragma unroll
       for (int e = 0; e < 4; ++e) acc[mi][ni][e] = 0.f;
 
@@ -856,60 +990,74 @@ __global__ void __launch_bounds__(NT, 1)
   // copies of chunk j have landed, and __syncwarp makes them visible to all
   // its lanes.  The copy of chunk j+STAGES-1 goes into chunk j-1's stage,
   // which the warp finished reading before, after k-step 0's products of
-  // chunk j.  Only the tile, which every warp reads and each warp writes in
-  // part, needs the block: one barrier before an epilogue overwrites it and
-  // one after.
+  // chunk j.  Only the tile, which every warp of the cluster reads and each
+  // writes in part, needs the others: a barrier before an epilogue
+  // overwrites it and one after.
   constexpr int KSTEPS = KC / 16, LAST = (KSTEPS - 1) % 2;
   const auto wait_chunk = [&]() {
-    asm volatile("cp.async.wait_group %0;" ::"n"(STAGES - 2) : "memory");
+    asm volatile("cp.async.wait_group %0;" ::"n"(S::STAGES - 2) : "memory");
     __syncwarp();
   };
   const auto frag_addr = [&](int j, int s, uint32_t& a, uint32_t& w) {
     a = a_base + sizeof(bf16) * (chunk_col<K0>(j) + s * 16);
-    w = w_base + sizeof(bf16) * ((j % STAGES) * KC + s * 16) * LDW;
+    w = w_base + sizeof(bf16) * ((j % S::STAGES) * KC + s * 16) * S::LDW;
   };
-  Frags f[2];
+  Frags<C> f[2];
   uint32_t a_addr, w_addr;
   __syncthreads();  // the point tile
   wait_chunk();
   frag_addr(0, 0, a_addr, w_addr);
-  load_frags(f[0], a_addr, w_addr);
+  load_frags<C>(f[0], a_addr, w_addr);
 
   for (int c = 0; c < CHUNKS; ++c) {
 #pragma unroll
     for (int s = 0; s + 1 < KSTEPS; ++s) {
       frag_addr(c, s + 1, a_addr, w_addr);
-      load_frags(f[(s + 1) % 2], a_addr, w_addr);
-      mma_step(acc, f[s % 2]);
-      if (s == 0) prefetch_chunk<K0>(ring, c + STAGES - 1, d_in, col0, lane, w_in, w_mid);
+      load_frags<C>(f[(s + 1) % 2], a_addr, w_addr);
+      mma_step<C>(acc, f[s % 2]);
+      if (s == 0)
+        prefetch_chunk<K0, C>(ring, c + S::STAGES - 1, d_in, scol0, col0, lane, w_in, w_mid);
     }
     const bool first = c < CHUNKS_IN;
     const bool layer_end = chunk_col<K0>(c) == (first ? K0 : HIDDEN) - KC;
     if (layer_end) {
-      __syncthreads();  // every warp has loaded its last fragments of the tile
-      mma_step(acc, f[LAST]);
+      // every warp of the cluster has loaded its last fragments of the tile
+      // (at C > 1 the wait comes after the products and the activation)
+      if constexpr (C == 1)
+        __syncthreads();
+      else
+        cluster_arrive();
+      mma_step<C>(acc, f[LAST]);
       const int layer = first ? 0 : 1 + (c - CHUNKS_IN) / CHUNKS_MID;
       const float* bias = layer == 0 ? b_in : b_mid + (layer - 1) * HIDDEN;
+      uint32_t pairs[S::MI][S::NI][2];
       if (layer == 1 + SKIP_AFTER_MID)
-        epilogue<true>(acc, act, bias, x, row0, n, d_in, col0, g, t);
+        epilogue<C, true>(acc, pairs, act, bias, x, row0, n, d_in, col0, g, t);
       else
-        epilogue<false>(acc, act, bias, x, row0, n, d_in, col0, g, t);
-      __syncthreads();  // the new tile
+        epilogue<C, false>(acc, pairs, act, bias, x, row0, n, d_in, col0, g, t);
+      if constexpr (C > 1) {
+        cluster_wait();
+        store_tile<C>(pairs, act, remote, col0, g, t);
+      }
+      // the new tile, complete in every CTA; after the last layer's, no CTA
+      // touches another's shared memory, so that each may exit
+      tile_barrier<C>();
     }
     if (c + 1 < CHUNKS) {
       wait_chunk();
       frag_addr(c + 1, 0, a_addr, w_addr);
-      load_frags(f[(LAST + 1) % 2], a_addr, w_addr);
+      load_frags<C>(f[(LAST + 1) % 2], a_addr, w_addr);
     }
-    if (!layer_end) mma_step(acc, f[LAST]);
+    if (!layer_end) mma_step<C>(acc, f[LAST]);
   }
   asm volatile("cp.async.wait_group 0;" ::: "memory");
   __syncthreads();
 
-  // last layer: the SDF column only, one 512-long float dot per point
-  constexpr int ROWS_PER_WARP = TM / (NT / 32);
+  // last layer: the SDF column only, one 512-long float dot per point; the
+  // cluster's CTAs split the tile's rows
+  constexpr int ROWS_PER_WARP = TM / C / S::WARPS;
   for (int rr = 0; rr < ROWS_PER_WARP; ++rr) {
-    const int r = warp * ROWS_PER_WARP + rr;
+    const int r = rank * (TM / C) + warp * ROWS_PER_WARP + rr;
     float s = 0.f;
 #pragma unroll
     for (int k = 2 * lane; k < HIDDEN; k += 64) {
@@ -926,71 +1074,79 @@ __global__ void __launch_bounds__(NT, 1)
   }
 }
 
-template <int K0>
-int launch(const float* x, int n, int d_in, const bf16* w_in, const float* b_in,
-           const bf16* w_mid, const float* b_mid, const bf16* w_out, const float* b_out,
-           float* out, cudaStream_t stream) {
-  static bool attr_set = false;
-  if (!attr_set) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        fused_sdf_kernel<K0>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)SMEM);
-    if (err != cudaSuccess) return (int)err;
-    attr_set = true;
-  }
-  fused_sdf_kernel<K0><<<(n + TM - 1) / TM, NT, SMEM, stream>>>(x, n, d_in, w_in, b_in, w_mid,
-                                                               b_mid, w_out, b_out, out);
-  return (int)cudaGetLastError();
-}
-
-// k0: the compiled first-layer depth to launch, chosen by the caller (the
-// smallest that covers d_in); the skip fills columns >= 512 - d_in, so d_in
-// < 512
-int launch_depth(int k0, const float* x, int n, int d_in, const bf16* w_in, const float* b_in,
-                 const bf16* w_mid, const float* b_mid, const bf16* w_out, const float* b_out,
-                 float* out, cudaStream_t stream) {
-  if (n <= 0 || d_in <= 0 || d_in > k0 || d_in >= HIDDEN) return (int)cudaErrorInvalidValue;
-  switch (k0) {
-    case 64: return launch<64>(x, n, d_in, w_in, b_in, w_mid, b_mid, w_out, b_out, out, stream);
-    case 128: return launch<128>(x, n, d_in, w_in, b_in, w_mid, b_mid, w_out, b_out, out, stream);
-    case 256: return launch<256>(x, n, d_in, w_in, b_in, w_mid, b_mid, w_out, b_out, out, stream);
-    case 512: return launch<512>(x, n, d_in, w_in, b_in, w_mid, b_mid, w_out, b_out, out, stream);
-    default: return (int)cudaErrorInvalidValue;
-  }
-}
+// the kernel's dynamic shared memory limit is set (on its first use)
+template <int K0, int C>
+bool ready = false;
 
 }  // namespace bf16k
+
+// a launch's shape: k0 the compiled first-layer depth, at least d_in; the
+// skip fills columns >= 512 - d_in, so d_in < 512
+bool valid_shape(int n, int d_in, int k0) {
+  return n > 0 && d_in > 0 && d_in <= k0 && d_in < HIDDEN;
+}
 
 }  // namespace
 
 // Plain C interface for ctypes.  Pointers are device pointers; the stream is
 // the caller's cudaStream_t; k0 is the compiled first-layer depth to launch
-// (64, 128, 256 or 512, at least d_in); cluster (f32 only) the CTAs that
-// share a tile (1, 2 or 4).  Returns the cudaError_t of the launch (0 = ok).
+// (64, 128, 256 or 512: the smallest that covers d_in, chosen by the
+// caller); cluster the CTAs that share a tile (1, 2 or 4).  Returns the
+// cudaError_t of the launch (0 = ok).
+
 extern "C" int fused_sdf_raw_f32(const void* x, int n, int d_in, int k0, int cluster,
                                  const void* w_in, const void* b_in, const void* w_mid,
                                  const void* b_mid, const void* w_out, const void* b_out,
                                  void* out, void* stream) {
-  return f32::launch_depth(k0, cluster, static_cast<const float*>(x), n, d_in,
+  if (!valid_shape(n, d_in, k0)) return (int)cudaErrorInvalidValue;
+  return dispatch(k0, cluster, [&](auto k, auto c) {
+    constexpr int K0 = decltype(k)::value, C = decltype(c)::value;
+    using S = f32::Split<C>;
+    return launch_tiles<C>(f32::fused_sdf_kernel<K0, C>, S::NT, S::SMEM, f32::ready<K0, C>,
+                           (n + f32::TM - 1) / f32::TM, static_cast<cudaStream_t>(stream),
+                           static_cast<const float*>(x), n, d_in,
                            static_cast<const float*>(w_in), static_cast<const float*>(b_in),
                            static_cast<const float*>(w_mid), static_cast<const float*>(b_mid),
                            static_cast<const float*>(w_out), static_cast<const float*>(b_out),
-                           static_cast<float*>(out), static_cast<cudaStream_t>(stream));
+                           static_cast<float*>(out));
+  });
 }
 
-extern "C" int fused_sdf_raw_bf16(const void* x, int n, int d_in, int k0, const void* w_in,
-                                  const void* b_in, const void* w_mid, const void* b_mid,
-                                  const void* w_out, const void* b_out, void* out,
-                                  void* stream) {
-  return bf16k::launch_depth(k0, static_cast<const float*>(x), n, d_in,
-                             static_cast<const bf16*>(w_in), static_cast<const float*>(b_in),
-                             static_cast<const bf16*>(w_mid), static_cast<const float*>(b_mid),
-                             static_cast<const bf16*>(w_out), static_cast<const float*>(b_out),
-                             static_cast<float*>(out), static_cast<cudaStream_t>(stream));
+extern "C" int fused_sdf_raw_bf16(const void* x, int n, int d_in, int k0, int cluster,
+                                  const void* w_in, const void* b_in, const void* w_mid,
+                                  const void* b_mid, const void* w_out, const void* b_out,
+                                  void* out, void* stream) {
+  if (!valid_shape(n, d_in, k0)) return (int)cudaErrorInvalidValue;
+  return dispatch(k0, cluster, [&](auto k, auto c) {
+    constexpr int K0 = decltype(k)::value, C = decltype(c)::value;
+    using S = bf16k::Split<C>;
+    return launch_tiles<C>(bf16k::fused_sdf_kernel<K0, C>, S::NT, S::SMEM, bf16k::ready<K0, C>,
+                           (n + bf16k::TM - 1) / bf16k::TM, static_cast<cudaStream_t>(stream),
+                           static_cast<const float*>(x), n, d_in,
+                           static_cast<const bf16*>(w_in), static_cast<const float*>(b_in),
+                           static_cast<const bf16*>(w_mid), static_cast<const float*>(b_mid),
+                           static_cast<const bf16*>(w_out), static_cast<const float*>(b_out),
+                           static_cast<float*>(out));
+  });
 }
 
-// *slots <- cluster x the clusters of the f32 kernel at depth k0 that can run
-// at once on the current device (cudaOccupancyMaxActiveClusters).  Returns
-// the cudaError_t (0 = ok).
+// *slots <- cluster x the clusters of each variant's kernel at depth k0 that
+// can run at once on the current device (cudaOccupancyMaxActiveClusters).
+// Returns the cudaError_t (0 = ok).
 extern "C" int fused_sdf_raw_f32_slots(int k0, int cluster, int* slots) {
-  return f32::slots_depth(k0, cluster, slots);
+  return dispatch(k0, cluster, [&](auto k, auto c) {
+    constexpr int K0 = decltype(k)::value, C = decltype(c)::value;
+    using S = f32::Split<C>;
+    return count_slots<C>(f32::fused_sdf_kernel<K0, C>, S::NT, S::SMEM, f32::ready<K0, C>,
+                          slots);
+  });
+}
+
+extern "C" int fused_sdf_raw_bf16_slots(int k0, int cluster, int* slots) {
+  return dispatch(k0, cluster, [&](auto k, auto c) {
+    constexpr int K0 = decltype(k)::value, C = decltype(c)::value;
+    using S = bf16k::Split<C>;
+    return count_slots<C>(bf16k::fused_sdf_kernel<K0, C>, S::NT, S::SMEM, bf16k::ready<K0, C>,
+                          slots);
+  });
 }

@@ -15,10 +15,10 @@ cores in split-TF32, three TF32 products per float32 product, which keeps
 float32 accuracy) and bfloat16 weights with float32 accumulation (the
 'mixed'/'fast' tracer's guidance queries; bf16 ``mma.sync``).  Both stream
 the weights through a ``cp.async`` ring.  Biases, softplus and the skip
-scaling stay float32.  The float32 kernel runs each 64-point tile on a
-thread-block cluster of C CTAs (1, 2 or 4), each computing 512/C columns of
-every layer and sharing the activations through distributed shared memory;
-``cluster_size`` chooses C from N.
+scaling stay float32.  Both kernels run each 64-point tile on a thread-block
+cluster of C CTAs (1, 2 or 4), each computing 512/C columns of every layer
+and sharing the activations through distributed shared memory;
+``cluster_size`` chooses C from N and each C's measured cost.
 
 ``fused_sdf_raw`` launches the kernel for a CUDA tensor and raises if it
 cannot; for a CPU tensor it runs ``fused_sdf_raw_plain``, the same math in
@@ -36,7 +36,6 @@ import math
 import os
 import shutil
 import subprocess
-from fractions import Fraction
 from pathlib import Path
 from typing import Dict, List, Optional, Tuple
 
@@ -52,21 +51,27 @@ KERNEL_HIDDEN = 512    # the CUDA kernel's compiled width
 # that covers d_in (rows past d_in are zero); d_in < 512, as the skip after l3
 # fills columns >= 512 - d_in (JAX supports_fusion, :47-54)
 KERNEL_DEPTHS = (64, 128, 256, 512)
-# points per tile of both kernels; the f32 kernel's cluster sizes (CTAs that
-# share one tile)
+# points per tile of both kernels; their cluster sizes (CTAs that share one
+# tile)
 TILE = 64
 CLUSTER_SIZES = (1, 2, 4)
+# Each variant's time of one full wave of clusters of C (slots[C] / C tiles,
+# one CTA an SM), in ms, by C: the cost ``cluster_size`` weighs.  Measured on
+# an NVIDIA H100 80GB HBM3 at 700 W with scripts/bench_fused_mlp_f32.py
+# (``--dtype bf16``: 132, 66 and 30 tiles at C = 1, 2, 4; f32: the time of
+# a wave of tiles at each C).
+WAVE_MS = {"fused_sdf_raw_f32": {1: 0.572, 2: 0.322, 4: 0.207},
+           "fused_sdf_raw_bf16": {1: 0.146, 2: 0.098, 4: 0.089}}
 
 _CSRC = Path(__file__).resolve().parent / "csrc" / "fused_mlp.cu"
 
 # Kernel launches and points, per variant, counted by the wrapper only where
 # it launches the CUDA kernel (chip_smoke.py reads them to show that the
-# main path went through the kernel); the f32 kernel's launches also by
-# cluster size (``cluster_<C>``).
+# main path went through the kernel); the launches also by cluster size
+# (``cluster_<C>``).
 launch_counts: Dict[str, Dict[str, int]] = {
-    "fused_sdf_raw_f32": {"launches": 0, "points": 0,
-                          **{f"cluster_{c}": 0 for c in CLUSTER_SIZES}},
-    "fused_sdf_raw_bf16": {"launches": 0, "points": 0},
+    name: {"launches": 0, "points": 0, **{f"cluster_{c}": 0 for c in CLUSTER_SIZES}}
+    for name in WAVE_MS
 }
 
 
@@ -200,12 +205,11 @@ def load_library() -> ctypes.CDLL:
         os.replace(tmp, out)
     lib = ctypes.CDLL(str(out))
     ptr, c_int = ctypes.c_void_p, ctypes.c_int
-    # x, n, d_in, k0, [cluster,] w_in, b_in, w_mid, b_mid, w_out, b_out, out, stream
-    lib.fused_sdf_raw_f32.argtypes = [ptr, c_int, c_int, c_int, c_int] + [ptr] * 8
-    lib.fused_sdf_raw_bf16.argtypes = [ptr, c_int, c_int, c_int] + [ptr] * 8
-    lib.fused_sdf_raw_f32_slots.argtypes = [c_int, c_int, ctypes.POINTER(c_int)]
-    for fn in (lib.fused_sdf_raw_f32, lib.fused_sdf_raw_bf16, lib.fused_sdf_raw_f32_slots):
-        fn.restype = c_int
+    for name in WAVE_MS:
+        # x, n, d_in, k0, cluster, w_in, b_in, w_mid, b_mid, w_out, b_out, out, stream
+        getattr(lib, name).argtypes = [ptr, c_int, c_int, c_int, c_int] + [ptr] * 8
+        getattr(lib, f"{name}_slots").argtypes = [c_int, c_int, ctypes.POINTER(c_int)]
+        getattr(lib, name).restype = getattr(lib, f"{name}_slots").restype = c_int
     _lib = lib
     return lib
 
@@ -229,35 +233,37 @@ def kernel_depth(d_in: int) -> int:
     return next(k for k in KERNEL_DEPTHS if k >= d_in)
 
 
-def cluster_size(n: int, slots: Dict[int, int]) -> int:
-    """The f32 kernel's cluster size C for ``n`` points: of ``CLUSTER_SIZES``
-    the one with the fewest waves per CTA share, ``ceil(tiles C / slots[C]) /
-    C`` with ``tiles = ceil(n / TILE)``; a tie goes to the smaller C.
-    ``slots[C]`` is C times the clusters of size C that can run at once (the
-    card's occupancy query, ``cluster_slots``)."""
+def cluster_size(n: int, slots: Dict[int, int], wave_ms: Dict[int, float]) -> int:
+    """A kernel's cluster size C for ``n`` points: of ``CLUSTER_SIZES`` that
+    the card seats, the one of least modelled time, the waves of clusters
+    ``ceil(tiles C / slots[C])`` (``tiles = ceil(n / TILE)``) times the
+    measured time of one wave, ``wave_ms[C]`` (to 1e-9 ms); a tie goes to
+    the smaller C.  ``slots[C]`` is C times the clusters of size C that can
+    run at once (the card's occupancy query, ``cluster_slots``); ``wave_ms``
+    is the variant's ``WAVE_MS``."""
     tiles = -(-n // TILE)
-    cost = {c: Fraction(-(-tiles * c // slots[c]), c) for c in CLUSTER_SIZES if slots[c] > 0}
-    return min(cost, key=lambda c: (cost[c], c))
+    cost = {c: -(-tiles * c // slots[c]) * wave_ms[c] for c in CLUSTER_SIZES if slots[c] > 0}
+    return min(cost, key=lambda c: (round(cost[c], 9), c))
 
 
-_slots: Dict[Tuple[int, int], Dict[int, int]] = {}
+_slots: Dict[Tuple[str, int, int], Dict[int, int]] = {}
 
 
-def cluster_slots(k0: int, device: torch.device) -> Dict[int, int]:
-    """C -> C x the clusters of C CTAs of the f32 kernel at depth ``k0`` that
-    can run at once on ``device``, queried once per (device, K0) with
-    ``cudaOccupancyMaxActiveClusters``."""
+def cluster_slots(variant: str, k0: int, device: torch.device) -> Dict[int, int]:
+    """C -> C x the clusters of C CTAs of ``variant``'s kernel at depth ``k0``
+    that can run at once on ``device``, queried once per (variant, device,
+    K0) with ``cudaOccupancyMaxActiveClusters``."""
     with torch.cuda.device(device):
-        key = (torch.cuda.current_device(), k0)
+        key = (variant, torch.cuda.current_device(), k0)
         if key not in _slots:
-            lib = load_library()
+            query = getattr(load_library(), f"{variant}_slots")
             slots = {}
             for c in CLUSTER_SIZES:
                 got = ctypes.c_int(0)
-                err = lib.fused_sdf_raw_f32_slots(k0, c, ctypes.byref(got))
+                err = query(k0, c, ctypes.byref(got))
                 if err != 0:
-                    raise RuntimeError(f"occupancy query of the f32 kernel (K0={k0}, "
-                                       f"cluster {c}) failed: CUDA error {err}")
+                    raise RuntimeError(f"occupancy query of {variant} (K0={k0}, cluster {c}) "
+                                       f"failed: CUDA error {err}")
                 slots[c] = got.value
             _slots[key] = slots
     return _slots[key]
@@ -266,8 +272,8 @@ def cluster_slots(k0: int, device: torch.device) -> Dict[int, int]:
 def _launch(x: torch.Tensor, packed: Dict[str, torch.Tensor],
             cluster: Optional[int] = None) -> torch.Tensor:
     """Launch the kernel of ``packed``'s weight type on ``x``.  ``cluster``
-    forces the f32 kernel's cluster size (the card's checks hold every C
-    against C = 1); by default ``cluster_size`` chooses it from N."""
+    forces the cluster size (the card's checks hold every C against C = 1);
+    by default ``cluster_size`` chooses it from N."""
     n, d_in = x.shape
     wd = packed["w_in"].dtype
     if wd == torch.float32:
@@ -290,8 +296,6 @@ def _launch(x: torch.Tensor, packed: Dict[str, torch.Tensor],
     _check(packed["b_mid"], "b_mid", (N_MID, hidden), torch.float32, dev)
     _check(packed["w_out"], "w_out", (hidden,), wd, dev)
     _check(packed["b_out"], "b_out", (1,), torch.float32, dev)
-    if wd == torch.bfloat16 and cluster is not None:
-        raise ValueError(f"the bf16 kernel runs one CTA a tile; got cluster={cluster}")
     if cluster is not None and cluster not in CLUSTER_SIZES:
         raise ValueError(f"cluster must be one of {CLUSTER_SIZES}; got {cluster}")
     out = torch.empty(n, dtype=torch.float32, device=dev)
@@ -302,18 +306,13 @@ def _launch(x: torch.Tensor, packed: Dict[str, torch.Tensor],
                                                "b_out")]
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        if wd == torch.float32:
-            if cluster is None:
-                cluster = cluster_size(n, cluster_slots(k0, dev))
-            err = lib.fused_sdf_raw_f32(x.data_ptr(), n, d_in, k0, cluster, *pointers,
-                                        out.data_ptr(), stream)
-        else:
-            err = lib.fused_sdf_raw_bf16(x.data_ptr(), n, d_in, k0, *pointers, out.data_ptr(),
-                                         stream)
+        if cluster is None:
+            cluster = cluster_size(n, cluster_slots(variant, k0, dev), WAVE_MS[variant])
+        err = getattr(lib, variant)(x.data_ptr(), n, d_in, k0, cluster, *pointers,
+                                    out.data_ptr(), stream)
     if err != 0:
-        raise RuntimeError(f"{variant} launch failed: CUDA error {err}")
+        raise RuntimeError(f"{variant} launch failed (cluster {cluster}): CUDA error {err}")
     launch_counts[variant]["launches"] += 1
     launch_counts[variant]["points"] += n
-    if wd == torch.float32:
-        launch_counts[variant][f"cluster_{cluster}"] += 1
+    launch_counts[variant][f"cluster_{cluster}"] += 1
     return out

@@ -23,6 +23,7 @@ import torch
 import torch.distributed as dist
 import torch.multiprocessing as mp
 
+from .. import resolve_device
 from .sharding import make_mesh
 
 DEFAULT_TIMEOUT_S = 300.0
@@ -141,15 +142,17 @@ def _rank_main(rank, world, port, device, fn, args, results):
             dist.destroy_process_group()
 
 
-def spawn(fn: Callable, nprocs: int, args: Sequence = (), device="cpu",
+def spawn(fn: Callable, nprocs: int, args: Sequence = (), device=None,
           timeout: float = 600.0) -> List[Any]:
     """Run ``fn(rank, world, device, *args)`` in ``nprocs`` fresh processes
     joined into one process group on this machine (rank r on card
-    ``r % device_count`` for ``device='cuda'``, gloo ranks for 'cpu'), and
-    return the ranks' results in rank order.  ``fn`` must be importable
-    (a module-level function) and return something picklable on the CPU.
-    Raises with the rank's traceback if any rank fails, and kills every
-    rank if the group has not finished after ``timeout`` seconds."""
+    ``r % device_count`` for ``device`` None or 'cuda', gloo ranks for
+    'cpu'), and return the ranks' results in rank order.  Raises before it
+    starts a process when CUDA is asked for but absent.  ``fn`` must be
+    importable (a module-level function) and return something picklable on
+    the CPU.  Raises with the rank's traceback if any rank fails, and kills
+    every rank if the group has not finished after ``timeout`` seconds."""
+    device = resolve_device(device).type
     ctx = mp.get_context("spawn")
     results = ctx.Queue()
     port = free_port()

@@ -1,30 +1,36 @@
 #!/usr/bin/env python3
-"""The f32 fused SDF-MLP kernel at the tracer's call sizes: every cluster size,
-against other versions of its source and the cuBLAS chain.
+"""One fused SDF-MLP kernel variant (f32 or bf16 weights) at the tracer's call
+sizes: every cluster size, against other versions of its source and the
+cuBLAS chain, and the time of one full wave of clusters of each size.
 
-    python3 scripts/bench_fused_mlp_f32.py [--other OTHER.cu ...] [--variant NAME ...]
-        [--n 256 2048 ...]
+    python3 scripts/bench_fused_mlp_f32.py [--dtype f32|bf16] [--other OTHER.cu ...]
+        [--variant NAME ...] [--n 256 2048 ...]
 
 Builds the current ``hashmodnffbanks_idr_tpu_torch/ops/csrc/fused_mlp.cu``,
 each ``--other`` source and each ``--variant`` (a copy of the current source
-with one constant of the f32 kernel changed, or one part taken out, by a
-text substitution inside ``namespace f32``; see ``VARIANTS``) into
-``build/bench_f32/`` (one ``nvcc`` each, all started together).  A source whose C interface has no cluster argument (the
-kernel before clusters) is called as it is, with one CTA a tile; a source
-with one is called at every cluster size and at the size its own occupancy
-query and ``fused_mlp.cluster_size`` choose ("auto").  On the flagship's SDF
-network (d_in 59, random weights from seed 0) and seeded points at each N:
+with one constant of the variant's kernel changed, or one part taken out, by
+a text substitution inside its namespace, ``f32`` or ``bf16k``; see
+``VARIANTS``) into ``build/bench_<dtype>/`` (one ``nvcc`` each, all started
+together).  A source whose C interface for the variant has no cluster
+argument (a kernel before clusters) is called as it is, with one CTA a
+tile; a source with one is called at every cluster size and at the size its
+own occupancy query and ``fused_mlp.cluster_size`` (with the variant's
+``WAVE_MS``) choose ("auto").  On the flagship's SDF network (d_in 59,
+random weights from seed 0) and seeded points at each N:
 
   - every version and cluster size is held against the plain twin (the
-    card's f32 tolerance, 1e-5), and compared bit for bit with the current
-    source's C = 1 output;
+    card's tolerance: f32 1e-5, bf16 3e-2 with signs where |sdf| > 5e-2),
+    and compared bit for bit with the current source's C = 1 output;
   - each is timed with CUDA events (warm L2, mean of ``--iters`` launches)
     in two passes, the versions in opposite orders (others, current; then
     current, others), beside the cuBLAS chain and the plain twin.
 
-Prints the card's name and power limit, each version's registers and spills
-from ``-Xptxas -v``, the current source's slots per (K0, C), and one JSON
-line per (version, C, N).  Needs one CUDA card; imports nothing of JAX.
+Then each clustered version's ``wave_ms``: the time of a call of exactly one
+full wave of clusters of C (slots[C] / C tiles), and of four waves over
+four, in two passes.  Prints the card's name and power limit, each
+version's registers and spills from ``-Xptxas -v``, the current source's
+slots per (K0, C), and one JSON line per (version, C, N).  Needs one CUDA
+card; imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -51,17 +57,24 @@ from hashmodnffbanks_idr_tpu_torch.testing import flagship_conf  # noqa: E402
 from hashmodnffbanks_idr_tpu_torch.utils.profiling import (  # noqa: E402
     H100_PEAK_BYTES_PER_S, H100_PEAK_FLOPS)
 
-OUT_DIR = ROOT / "build" / "bench_f32"
-# the camera step's calls (256 rays), the secant (2048), the march and line
-# search (4096), the exact sweep's coarse and fine probes (24576, 49152)
-SIZES = (256, 2048, 4096, 24576, 49152)
-TOL = 1e-5
+# per weight type: the variant's entry point, its namespace in the source
+# and its mangled kernel name, its tolerance against the plain twin, the
+# peak and products per product of its bound, and its calls: the camera
+# step's (256 rays), the secant (2048), the march and line search (4096),
+# the exact sweep's coarse and fine probes (24576, 49152), the ngp cells'
+# and the mixed sweep's coarse probes (69632)
+DTYPES = {"f32": dict(name="fused_sdf_raw_f32", namespace="f32", dtype=torch.float32,
+                      mangled="3f3216fused_sdf_kernel", tol=1e-5, peak="tf32", products=3,
+                      sizes=(256, 2048, 4096, 24576, 49152)),
+          "bf16": dict(name="fused_sdf_raw_bf16", namespace="bf16k", dtype=torch.bfloat16,
+                       mangled="5bf16k16fused_sdf_kernel", tol=3e-2, peak="bf16", products=1,
+                       sizes=(256, 2048, 4096, 69632))}
 D_IN = 59  # the flagship's first-layer width: K0 = 64
-# variants of the current source: (pattern, replacement) pairs applied
-# inside namespace f32, every pattern must match.  The constants of the
-# cluster split and the ring keep the math; the others take a part out and
-# are for timing only
-VARIANTS = {
+# variants of the current source, by weight type: (pattern, replacement)
+# pairs applied inside the variant's namespace, every pattern must match.
+# The constants of the cluster split and the ring keep the math; the others
+# take a part out and are for timing only
+F32_VARIANTS = {
     # 16-row stages at C = 2 and 4 too, three of them
     "kc16": [(r"static constexpr int KC = C == 1 \? 16 : 32;", "static constexpr int KC = 16;"),
              (r"static constexpr int STAGES = C == 2 \? 2 : 3;",
@@ -86,14 +99,53 @@ VARIANTS = {
                 "c[0] = c[1] = c[2] = c[3] = __uint_as_float(a[0] ^ b[0]);"),
                (r'asm\("mma\.sync.*?"r"\(b\[1\]\)\);', "c[0] += __uint_as_float(a[1] ^ b[1]);")],
 }
-KEEPS_MATH = ("kc16", "ring4", "unroll1", "nt512", "warps_alt")
+# the bf16 kernel's parts, each taken out by itself (timing only)
+_BF16_PARTS = {
+    # bias and rounding stay; softplus becomes the identity
+    "softplus": [(r"softplus100\((acc\[mi\]\[ni\]\[2 \* half(?: \+ 1)?\] \+ b\.[xy])\)",
+                  r"(\1)")],
+    # fragments come from the address registers instead of ldmatrix
+    "ldmatrix": [(r'asm volatile\("ldmatrix\.sync\.aligned\.m8n8\.x4\.shared\.b16.*?\);',
+                  "r[0] = r[1] = r[2] = r[3] = addr;"),
+                 (r'asm volatile\("ldmatrix\.sync\.aligned\.m8n8\.x4\.trans\.shared\.b16.*?\);',
+                  "r0 = r1 = r2 = r3 = addr;")],
+    # the ring is never filled
+    "weight_copy": [(r"cp_async16\(dst \+ r \* S::LDW, .*?\);", ";")],
+}
+_BF16_STAGES = r"static constexpr int STAGES = 2;"
+BF16_VARIANTS = {
+    # four ring stages at C = 2 and 4
+    "stages4": [(_BF16_STAGES, "static constexpr int STAGES = C == 1 ? 2 : 4;")],
+    # 32-row stages, four of them
+    "kc32": [(r"constexpr int KC = 64;", "constexpr int KC = 32;"),
+             (_BF16_STAGES, "static constexpr int STAGES = 4;")],
+    # sixteen warps a CTA at C = 1 and 2 (64 x 32 and 64 x 16 a warp)
+    "warps16": [(r"static constexpr int NT = 256;",
+                 "static constexpr int NT = C == 4 ? 256 : 512;")],
+    # two CTAs an SM at C = 4 (128 registers a thread)
+    "c4_two_ctas": [(r"__launch_bounds__\(Split<C>::NT, 1\)",
+                     "__launch_bounds__(Split<C>::NT, C == 4 ? 2 : 1)")],
+    # timing only: no store into another CTA's tile
+    "no_dsmem": [(r'asm volatile\("st\.shared::cluster\.v4\.b32.*?: "memory"\);', ";")],
+    # timing only: each mma.sync becomes one float add that reads its operands
+    "no_mma": [(r'asm\("mma\.sync.*?"r"\(b\[1\]\)\);',
+                "c[0] += __uint_as_float(a[0] ^ b[0]);")],
+    "no_softplus": _BF16_PARTS["softplus"],
+    "no_ldmatrix": _BF16_PARTS["ldmatrix"],
+    "no_weight_copy": _BF16_PARTS["weight_copy"],
+    # timing only: the products, the barriers and the stores alone
+    "mma_only": sum(_BF16_PARTS.values(), []),
+}
+VARIANTS = {"f32": F32_VARIANTS, "bf16": BF16_VARIANTS}
+KEEPS_MATH = ("kc16", "ring4", "unroll1", "nt512", "warps_alt", "stages4", "kc32", "warps16",
+              "c4_two_ctas")
 
 
-def variant_source(src: str, subs) -> str:
-    head, sep, body = src.partition("namespace f32 {")
-    body, sep2, tail = body.partition("}  // namespace f32")
+def variant_source(src: str, namespace: str, subs) -> str:
+    head, sep, body = src.partition(f"namespace {namespace} {{")
+    body, sep2, tail = body.partition(f"}}  // namespace {namespace}")
     if not sep or not sep2:
-        raise ValueError("no namespace f32 in the source")
+        raise ValueError(f"no namespace {namespace} in the source")
     for pat, repl in subs:
         body, k = re.subn(pat, repl, body, flags=re.S)
         if k == 0:
@@ -101,13 +153,13 @@ def variant_source(src: str, subs) -> str:
     return head + sep + body + sep2 + tail
 
 
-def build_all(sources):
+def build_all(sources, out_dir: Path):
     """{name: path} -> {name: (library, ptxas report)}, all nvcc runs in
     parallel."""
-    OUT_DIR.mkdir(parents=True, exist_ok=True)
+    out_dir.mkdir(parents=True, exist_ok=True)
     procs = {}
     for name, path in sources.items():
-        lib = OUT_DIR / f"lib{name}.so"
+        lib = out_dir / f"lib{name}.so"
         cmd = [fm._nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
                "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-o", str(lib), str(path)]
         procs[name] = (lib, subprocess.Popen(cmd, stdout=subprocess.PIPE,
@@ -121,12 +173,12 @@ def build_all(sources):
     return built
 
 
-def f32_ptxas(log: str) -> dict:
-    """Registers and spill bytes of each f32:: kernel instantiation in a
-    ``-Xptxas -v`` report, by its template arguments."""
+def kernel_ptxas(log: str, mangled: str) -> dict:
+    """Registers and spill bytes of each instantiation of the kernel named
+    ``mangled`` in a ``-Xptxas -v`` report, by its template arguments."""
     out = {}
     for entry in log.split("Compiling entry function")[1:]:
-        m = re.search(r"3f3216fused_sdf_kernelI((?:Li\d+E)+)E", entry)
+        m = re.search(mangled + r"I((?:Li\d+E)+)E", entry)
         if not m:
             continue
         args = ",".join(re.findall(r"Li(\d+)E", m.group(1)))
@@ -137,25 +189,26 @@ def f32_ptxas(log: str) -> dict:
     return out
 
 
-def bind(path: Path):
-    """The library's f32 entry and whether it takes a cluster size."""
+def bind(path: Path, name: str):
+    """The library's entry ``name`` and its occupancy query, or None where
+    the entry takes no cluster size."""
     lib = ctypes.CDLL(str(path))
     ptr, c_int = ctypes.c_void_p, ctypes.c_int
-    clustered = hasattr(lib, "fused_sdf_raw_f32_slots")
-    fn = lib.fused_sdf_raw_f32
-    fn.argtypes = [ptr, c_int, c_int, c_int] + ([c_int] if clustered else []) + [ptr] * 8
+    slots = getattr(lib, f"{name}_slots", None)
+    fn = getattr(lib, name)
+    fn.argtypes = [ptr, c_int, c_int, c_int] + ([c_int] if slots else []) + [ptr] * 8
     fn.restype = c_int
-    if clustered:
-        lib.fused_sdf_raw_f32_slots.argtypes = [c_int, c_int, ctypes.POINTER(c_int)]
-        lib.fused_sdf_raw_f32_slots.restype = c_int
-    return lib, clustered
+    if slots:
+        slots.argtypes = [c_int, c_int, ctypes.POINTER(c_int)]
+        slots.restype = c_int
+    return fn, slots
 
 
-def lib_slots(lib, k0: int) -> dict:
+def lib_slots(query, k0: int) -> dict:
     slots = {}
     for c in fm.CLUSTER_SIZES:
         got = ctypes.c_int(0)
-        err = lib.fused_sdf_raw_f32_slots(k0, c, ctypes.byref(got))
+        err = query(k0, c, ctypes.byref(got))
         if err:
             raise RuntimeError(f"occupancy query K0={k0} C={c}: CUDA error {err}")
         slots[c] = got.value
@@ -164,13 +217,19 @@ def lib_slots(lib, k0: int) -> dict:
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--dtype", choices=sorted(DTYPES), default="f32",
+                    help="the kernel variant: f32 or bf16 weights")
     ap.add_argument("--other", action="append", default=[],
                     help="another version of fused_mlp.cu, built and timed as it is")
-    ap.add_argument("--variant", action="append", default=[], choices=sorted(VARIANTS),
-                    help="a variant of the current source (VARIANTS)")
-    ap.add_argument("--n", type=int, nargs="+", default=list(SIZES))
+    ap.add_argument("--variant", action="append", default=[],
+                    help="a variant of the current source (VARIANTS of --dtype)")
+    ap.add_argument("--n", type=int, nargs="+", help="call sizes (default: the variant's)")
     ap.add_argument("--iters", type=int, default=20)
     args = ap.parse_args()
+    spec, variants = DTYPES[args.dtype], VARIANTS[args.dtype]
+    unknown = sorted(set(args.variant) - set(variants))
+    if unknown:
+        ap.error(f"--variant {unknown}: {args.dtype} has {sorted(variants)}")
     if not torch.cuda.is_available():
         print("bench_fused_mlp_f32: CUDA is not available", file=sys.stderr)
         return 2
@@ -180,58 +239,57 @@ def main() -> int:
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"device {torch.cuda.get_device_name(0)}")
 
+    out_dir = ROOT / "build" / f"bench_{args.dtype}"
     sources = {"current": fm._CSRC}
     for path in args.other:
         sources[Path(path).stem] = Path(path)
-    OUT_DIR.mkdir(parents=True, exist_ok=True)
+    out_dir.mkdir(parents=True, exist_ok=True)
     for name in args.variant:
-        path = OUT_DIR / f"{name}.cu"
-        path.write_text(variant_source(fm._CSRC.read_text(), VARIANTS[name]))
+        path = out_dir / f"{name}.cu"
+        path.write_text(variant_source(fm._CSRC.read_text(), spec["namespace"], variants[name]))
         sources[name] = path
-    built = build_all(sources)
+    built = build_all(sources, out_dir)
     libs = {}
     for name, (path, log) in built.items():
-        libs[name] = bind(path)
-        print(json.dumps({"version": name, "clustered": libs[name][1],
-                          "ptxas": f32_ptxas(log)}))
-    cur = libs["current"][0]
-    slots = {k0: lib_slots(cur, k0) for k0 in fm.KERNEL_DEPTHS}
+        libs[name] = bind(path, spec["name"])
+        print(json.dumps({"version": name, "clustered": libs[name][1] is not None,
+                          "ptxas": kernel_ptxas(log, spec["mangled"])}))
+    slots = {k0: lib_slots(libs["current"][1], k0) for k0 in fm.KERNEL_DEPTHS}
     print(json.dumps({"slots": slots}))
 
     net = IDRNetwork(flagship_conf(num_pixels=2048).get_config("model"), device=dev,
                      seed=0).implicit_network
     assert net.dims[0] == D_IN
     k0 = fm.kernel_depth(D_IN)
-    packed = fm.pack_params(net.lin, D_IN, net.dims[1], dtype=torch.float32)
+    packed = fm.pack_params(net.lin, D_IN, net.dims[1], dtype=spec["dtype"])
     pointers = [packed[k].data_ptr() for k in ("w_in", "b_in", "w_mid", "b_mid", "w_out",
                                                "b_out")]
     stream = torch.cuda.current_stream(dev).cuda_stream
     gen = torch.Generator(device=dev).manual_seed(1)
+    wave_ms = fm.WAVE_MS[spec["name"]]
 
-    # (version, C) -> a launch writing out; C is "auto", 1, 2, 4, or None (no
+    # (version, C) -> (entry, its slots); C is "auto", 1, 2, 4, or None (no
     # cluster interface)
     entries = {}
-    for name, (lib, clustered) in libs.items():
-        if not clustered:
-            entries[(name, None)] = (lib, None)
+    for name, (fn, query) in libs.items():
+        if query is None:
+            entries[(name, None)] = (fn, None)
             continue
-        own = lib_slots(lib, k0)
-        entries[(name, "auto")] = (lib, own)
-        for c in fm.CLUSTER_SIZES:
-            entries[(name, c)] = (lib, c)
+        own = lib_slots(query, k0)
+        for c in ("auto",) + fm.CLUSTER_SIZES:
+            entries[(name, c)] = (fn, own)
 
     def launcher(key, x, out):
-        (lib, arg), n = entries[key], x.shape[0]
+        (fn, own), n = entries[key], x.shape[0]
         if key[1] is None:
             extra = []
         elif key[1] == "auto":
-            extra = [fm.cluster_size(n, arg)]
+            extra = [fm.cluster_size(n, own, wave_ms)]
         else:
-            extra = [arg]
+            extra = [key[1]]
 
         def call():
-            err = lib.fused_sdf_raw_f32(x.data_ptr(), n, D_IN, k0, *extra, *pointers,
-                                        out.data_ptr(), stream)
+            err = fn(x.data_ptr(), n, D_IN, k0, *extra, *pointers, out.data_ptr(), stream)
             if err:
                 raise RuntimeError(f"{key}: launch failed: CUDA error {err}")
         return call, (extra[0] if extra else 1)
@@ -248,13 +306,18 @@ def main() -> int:
         end.synchronize()
         return start.elapsed_time(end) / args.iters
 
-    others = [k for k in entries if k[0] != "current"]
-    mine = [k for k in entries if k[0] == "current"]
-    for n in args.n:
+    def embedded(n):
         pts = (torch.rand(n, 3, generator=gen, device=dev) * 2 - 1) * 0.6
         with torch.no_grad():
-            x = net._embed(pts).contiguous()
+            return net._embed(pts).contiguous()
+
+    others = [k for k in entries if k[0] != "current"]
+    mine = [k for k in entries if k[0] == "current"]
+    for n in args.n or spec["sizes"]:
+        x = embedded(n)
+        with torch.no_grad():
             want = fm.fused_sdf_raw_plain(x, packed)
+        big = want.abs() > 5e-2
         outs = {key: torch.full((n,), float("nan"), device=dev) for key in entries}
         calls = {key: launcher(key, x, outs[key]) for key in entries}
         for key, (call, _) in calls.items():
@@ -269,17 +332,32 @@ def main() -> int:
             with torch.no_grad():
                 lib_ms.append(time_ms(lambda: library_chain(x, packed)))
                 plain_ms.append(time_ms(lambda: fm.fused_sdf_raw_plain(x, packed)))
-        flops, nbytes = sdf_mlp_cost(n, D_IN, net.dims[1], 4)
-        bound_ms = max(3 * flops / H100_PEAK_FLOPS["tf32"], nbytes / H100_PEAK_BYTES_PER_S) * 1e3
+        flops, nbytes = sdf_mlp_cost(n, D_IN, net.dims[1], packed["w_in"].element_size())
+        bound_ms = max(spec["products"] * flops / H100_PEAK_FLOPS[spec["peak"]],
+                       nbytes / H100_PEAK_BYTES_PER_S) * 1e3
         for key in entries:
             err = float((outs[key] - want).abs().max())
+            signs = bool((torch.sign(outs[key][big]) == torch.sign(want[big])).all())
             rec = {"version": key[0], "cluster": key[1], "n": n, "launched_cluster": calls[key][1],
-                   "keeps_math": key[0] not in VARIANTS or key[0] in KEEPS_MATH,
+                   "keeps_math": key[0] not in variants or key[0] in KEEPS_MATH,
                    "ms": ms[key], "library_ms": lib_ms, "plain_ms": plain_ms,
                    "bound_ms": bound_ms, "max_abs_err": err,
-                   "within_tol": bool(err <= TOL) and not math.isnan(err),
+                   "within_tol": bool(err <= spec["tol"]) and not math.isnan(err) and signs,
                    "bit_equal_to_current_c1": bool(torch.equal(outs[key].view(torch.int32), ref))}
             print(json.dumps(rec))
+
+    # wave_ms: one full wave of clusters of C, and four waves over four
+    for name, (fn, own) in {k[0]: v for k, v in entries.items() if k[1] == 1}.items():
+        rec = {"version": name, "slots": own, "wave_ms": {}, "four_waves_ms_per_wave": {}}
+        for c in fm.CLUSTER_SIZES:
+            if own[c] < c:
+                continue
+            for waves, field in ((1, "wave_ms"), (4, "four_waves_ms_per_wave")):
+                n = waves * own[c] // c * fm.TILE
+                x, out = embedded(n), torch.empty(n, device=dev)
+                call, _ = launcher((name, c), x, out)
+                rec[field][c] = [time_ms(call) / waves for _ in range(2)]
+        print(json.dumps(rec))
     return 0
 
 

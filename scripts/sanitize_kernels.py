@@ -4,9 +4,9 @@ the checks that need no sanitizer.
 
 Each variant (f32, bf16) is launched at every compiled first-layer depth
 K0 (64, 128, 256, 512; d_in 59, 102, 198 and 510, the depths the encoders
-and NerfPos give, as ``chip_smoke.py`` holds them), the f32 kernel at every
-cluster size C (1, 2, 4: the CTAs that share a tile through distributed
-shared memory), and at N = 1, 63, 64, 65 and 4113 (the 64-point tile's
+and NerfPos give, as ``chip_smoke.py`` holds them), at every cluster size
+C (1, 2, 4: the CTAs that share a tile through distributed shared memory),
+and at N = 1, 63, 64, 65 and 4113 (the 64-point tile's
 edges and a ragged last tile), from seeded points and an ``IDRNetwork``
 whose first-layer and skip weights are spread as
 ``chip_smoke.spread_input_weights`` spreads them, so that every input
@@ -20,7 +20,7 @@ catch where it changes the output:
     each side: the guards must come back untouched, every output must be
     written (``out`` starts as NaN) and within the variant's tolerance of
     its plain twin;
-  - just before the launch the f32 kernel runs over NaN points and NaN
+  - just before the launch the same variant runs over NaN points and NaN
     weights on every SM, at the launch's cluster size, which leaves shared
     memory full of NaN: the output must equal, bit for bit, the one from an
     unpoisoned launch (a read of shared memory the kernel did not write
@@ -62,12 +62,11 @@ TOOLS = ("memcheck", "racecheck", "initcheck", "synccheck")
 VARIANTS = (("fused_sdf_raw_f32", torch.float32, 1e-5), ("fused_sdf_raw_bf16", torch.bfloat16, 3e-2))
 GUARD = 64
 REPEATS = 10
-TOOL_TIMEOUT = 300  # seconds a sanitizer tool may take over the 80 launches
+TOOL_TIMEOUT = 300  # seconds a sanitizer tool may take over the 120 launches
 
 
 def cases(dev):
-    """(variant, K0, C, N, x, packed, tol) for every launch, from seeds; C is
-    None for the bf16 kernel."""
+    """(variant, K0, C, N, x, packed, tol) for every launch, from seeds."""
     from hashmodnffbanks_idr_tpu_torch.models.renderer import IDRNetwork
     from hashmodnffbanks_idr_tpu_torch.ops import fused_mlp as fm
     from hashmodnffbanks_idr_tpu_torch.testing import flagship_conf
@@ -86,47 +85,41 @@ def cases(dev):
         assert fm.kernel_depth(d_in) == k0, (embed, d_in, k0)
         for name, dtype, tol in VARIANTS:
             packed = fm.pack_params(net.lin, d_in, net.dims[1], dtype=dtype)
-            clusters = fm.CLUSTER_SIZES if dtype == torch.float32 else (None,)
             for n in NS:
                 pts = (torch.rand(n, 3, generator=gen, device=dev) * 2 - 1) * 0.6
                 with torch.no_grad():
                     x = net._embed(pts).contiguous()
-                for c in clusters:
+                for c in fm.CLUSTER_SIZES:
                     yield name, k0, c, n, x, packed, tol
 
 
-def launch(fm, x, packed, out, cluster=None):
-    """One launch of the variant that ``packed`` selects, writing ``out``;
-    the f32 kernel at cluster size ``cluster``."""
+def launch(fm, x, packed, out, cluster):
+    """One launch of the variant that ``packed`` selects at cluster size
+    ``cluster``, writing ``out``."""
     lib = fm.load_library()
     n, d_in = x.shape
     pointers = [packed[k].data_ptr() for k in ("w_in", "b_in", "w_mid", "b_mid", "w_out",
                                                "b_out")]
     stream = torch.cuda.current_stream().cuda_stream
-    if packed["w_in"].dtype == torch.float32:
-        name = "fused_sdf_raw_f32"
-        err = lib.fused_sdf_raw_f32(x.data_ptr(), n, d_in, fm.kernel_depth(d_in), cluster,
-                                    *pointers, out.data_ptr(), stream)
-    else:
-        name = "fused_sdf_raw_bf16"
-        err = lib.fused_sdf_raw_bf16(x.data_ptr(), n, d_in, fm.kernel_depth(d_in), *pointers,
-                                     out.data_ptr(), stream)
+    name = "fused_sdf_raw_f32" if packed["w_in"].dtype == torch.float32 else "fused_sdf_raw_bf16"
+    err = getattr(lib, name)(x.data_ptr(), n, d_in, fm.kernel_depth(d_in), cluster, *pointers,
+                             out.data_ptr(), stream)
     if err:
         raise RuntimeError(f"{name} launch failed: CUDA error {err}")
 
 
-def make_poison(fm, dev):
-    """Inputs of the f32 kernel that poison shared memory: NaN points and
-    NaN weights, two tiles an SM, whose tile and ring fill every SM's
-    shared memory with NaN at any cluster size."""
+def make_poison(fm, dev, dtype):
+    """Inputs of the variant of weight type ``dtype`` that poison shared
+    memory: NaN points and NaN weights, two tiles an SM, whose tile and ring
+    fill every SM's shared memory with NaN at any cluster size."""
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     d_in, hidden = 59, fm.KERNEL_HIDDEN
     nan = float("nan")
-    packed = {"w_in": torch.full((d_in, hidden), nan, device=dev),
+    packed = {"w_in": torch.full((d_in, hidden), nan, device=dev, dtype=dtype),
               "b_in": torch.full((hidden,), nan, device=dev),
-              "w_mid": torch.full((fm.N_MID, hidden, hidden), nan, device=dev),
+              "w_mid": torch.full((fm.N_MID, hidden, hidden), nan, device=dev, dtype=dtype),
               "b_mid": torch.full((fm.N_MID, hidden), nan, device=dev),
-              "w_out": torch.full((hidden,), nan, device=dev),
+              "w_out": torch.full((hidden,), nan, device=dev, dtype=dtype),
               "b_out": torch.full((1,), nan, device=dev)}
     n = 2 * sms * 64
     return torch.full((n, d_in), nan, device=dev), packed, torch.empty(n, device=dev)
@@ -135,13 +128,13 @@ def make_poison(fm, dev):
 def checks(dev) -> dict:
     from hashmodnffbanks_idr_tpu_torch.ops import fused_mlp as fm
 
-    poison = make_poison(fm, dev)
+    poison = {name: make_poison(fm, dev, dtype) for name, dtype, _ in VARIANTS}
     nan_bits = torch.tensor(float("nan"), device=dev).view(torch.int32)
     worst = {name: 0.0 for name, *_ in VARIANTS}
     n_cases = 0
-    c1 = {}  # (K0, N) -> the f32 kernel's C = 1 output bits
+    c1 = {}  # (variant, K0, N) -> the C = 1 output bits
     for name, k0, c, n, x, packed, tol in cases(dev):
-        where = f"{name} K0={k0}" + (f" C={c}" if c else "") + f" N={n}"
+        where = f"{name} K0={k0} C={c} N={n}"
         xbuf = torch.full((n + 2 * GUARD, x.shape[1]), float("nan"), device=dev)
         xbuf[GUARD:GUARD + n] = x
         obuf = torch.full((n + 2 * GUARD,), float("nan"), device=dev)
@@ -153,26 +146,29 @@ def checks(dev) -> dict:
             raise AssertionError(f"{where}: a write outside out")
         if not bool(torch.isfinite(og).all()):
             raise AssertionError(f"{where}: an output left unwritten or not finite")
-        err = float((og - fm.fused_sdf_raw_plain(x, packed)).abs().max())
+        want = fm.fused_sdf_raw_plain(x, packed)
+        err = float((og - want).abs().max())
         if not err <= tol:
             raise AssertionError(f"{where}: max abs err {err} against the plain twin > {tol}")
+        big = want.abs() > 5e-2
+        if not bool((torch.sign(og[big]) == torch.sign(want[big])).all()):
+            raise AssertionError(f"{where}: sign disagreement with the plain twin where "
+                                 "|sdf| > 5e-2")
         worst[name] = max(worst[name], err)
         first = og.clone()
         for _ in range(REPEATS):
-            launch(fm, *poison, c or 1)
+            launch(fm, *poison[name], c)
             again = torch.full((n,), float("nan"), device=dev)
             launch(fm, xg, packed, again, c)
             if not torch.equal(again.view(torch.int32), first.view(torch.int32)):
                 raise AssertionError(f"{where}: a launch after poisoned shared memory, or a "
                                      "repeat, changed the output")
-        if c is not None:
-            bits = first.view(torch.int32)
-            if not torch.equal(c1.setdefault((k0, n), bits), bits):
-                raise AssertionError(f"{where}: differs from C=1 on the same input")
+        bits = first.view(torch.int32)
+        if not torch.equal(c1.setdefault((name, k0, n), bits), bits):
+            raise AssertionError(f"{where}: differs from C=1 on the same input")
         n_cases += 1
         print(f"[check] {where}: guards intact, all written, max abs err {err:.3e}, "
-              f"{REPEATS} launches over poisoned shared memory bit-identical"
-              + (", equal to C=1" if c else ""))
+              f"{REPEATS} launches over poisoned shared memory bit-identical, equal to C=1")
     return {"cases": n_cases, "max_abs_err": worst, "repeats": REPEATS,
             "clusters": list(fm.CLUSTER_SIZES)}
 

@@ -69,7 +69,7 @@ def test_rank0_builds_first(tmp_path):
     """Rank 0's stub build sleeps a second before writing the library; the
     other ranks' builds begin only after it is there."""
     out = multihost.spawn(workers.stub_build_order, 3, args=(str(tmp_path), 1.0),
-                          timeout=120)
+                          device="cpu", timeout=120)
     (r0, seen0, t0), *others = out
     assert r0 == 0 and not seen0
     for rank, seen, t in others:

@@ -27,8 +27,9 @@ NET_KW = dict(feature_vector_size=256, d_in=3, d_out=1, dims=[512] * 8,
 TOL = {"f32": 1e-5, "bf16": 3e-2}
 DTYPE = {"f32": torch.float32, "bf16": torch.bfloat16}
 # each variant: the edges of its 64-point tile (csrc/fused_mlp.cu, f32::TM
-# and bf16k::TM) and the tracer's batch sizes up to its largest call (the
-# f32 kernel's rule runs 2048 on clusters of 4, 4096 on 2, 49152 on 1)
+# and bf16k::TM) and the tracer's batch sizes up to its largest call (on
+# the H100 the rule runs 2048 and 4096 on clusters of 2, 49152 and 69632 on
+# one CTA a tile)
 F32_TILE = 64
 BF16_TILE = 64
 CHECK_N = {"f32": (1, F32_TILE - 1, F32_TILE, F32_TILE + 1, 513, 2048, 4096, 49152),
@@ -86,10 +87,9 @@ def test_cuda_wrapper_refuses_what_the_kernel_does_not_take(net):
         fm.fused_sdf_raw(x.t().contiguous().t(), packed)        # layout
     with pytest.raises(ValueError):
         fm.fused_sdf_raw(x, dict(packed, b_in=packed["b_in"].cpu()))  # device
-    with pytest.raises(ValueError):
-        fm._launch(x, packed, cluster=3)                        # cluster size
-    with pytest.raises(ValueError):
-        fm._launch(x, fm.pack_params(net.lin, 59, 512, dtype=torch.bfloat16), cluster=2)
+    for dtype in DTYPE.values():                                # cluster size
+        with pytest.raises(ValueError):
+            fm._launch(x, fm.pack_params(net.lin, 59, 512, dtype=dtype), cluster=3)
 
 
 @pytest.mark.parametrize("cluster", [1, 2, 4])
@@ -113,17 +113,50 @@ def test_cuda_f32_cluster_matches_c1_bit_for_bit(net, cluster):
         assert torch.equal(got.view(torch.int32), ref.view(torch.int32)), n
 
 
-def test_cuda_f32_wrapper_takes_the_rules_cluster_size(net):
-    """The card seats a cluster of each size (the occupancy query), and the
-    wrapper launches the size that ``cluster_size`` gives for N."""
-    packed = fm.pack_params(net.lin, 59, 512, dtype=torch.float32)
-    slots = fm.cluster_slots(fm.kernel_depth(59), net.lin[0].b.device)
+@pytest.mark.parametrize("cluster", [1, 2, 4])
+def test_cuda_bf16_cluster_matches_c1_bit_for_bit(net, cluster):
+    """The bf16 kernel at each cluster size: within the bf16 tolerance of
+    the plain twin with the signs agreeing, and equal to the C = 1 launch
+    bit for bit (every column keeps its k order and its m16n8k16 grouping);
+    at the tile's edges and the variant's batch sizes."""
+    packed = fm.pack_params(net.lin, 59, 512, dtype=torch.bfloat16)
+    for n in CHECK_N["bf16"]:
+        x = _points(net, n, seed=n)
+        fm.reset_launch_counts()
+        got = fm._launch(x, packed, cluster=cluster)
+        ref = fm._launch(x, packed, cluster=1)
+        want = fm.fused_sdf_raw_plain(x, packed)
+        torch.cuda.synchronize()
+        counts = fm.launch_counts["fused_sdf_raw_bf16"]
+        assert counts[f"cluster_{cluster}"] == (2 if cluster == 1 else 1)
+        assert float((got - want).abs().max()) <= TOL["bf16"], n
+        big = want.abs() > 5e-2
+        assert bool((torch.sign(got[big]) == torch.sign(want[big])).all()), n
+        assert torch.equal(got.view(torch.int32), ref.view(torch.int32)), n
+
+
+def _takes_the_rules_cluster_size(net, precision, sizes):
+    packed = fm.pack_params(net.lin, 59, 512, dtype=DTYPE[precision])
+    name = f"fused_sdf_raw_{precision}"
+    slots = fm.cluster_slots(name, fm.kernel_depth(59), net.lin[0].b.device)
     assert all(slots[c] >= c for c in fm.CLUSTER_SIZES), slots
-    for n in (256, 2048, 4096, 49152):
+    for n in sizes:
         fm.reset_launch_counts()
         fm.fused_sdf_raw(_points(net, n, seed=n), packed)
         torch.cuda.synchronize()
-        assert fm.launch_counts["fused_sdf_raw_f32"][f"cluster_{fm.cluster_size(n, slots)}"] == 1
+        want = fm.cluster_size(n, slots, fm.WAVE_MS[name])
+        assert fm.launch_counts[name][f"cluster_{want}"] == 1, (n, want)
+
+
+def test_cuda_f32_wrapper_takes_the_rules_cluster_size(net):
+    """The card seats a cluster of each size (the occupancy query), and the
+    wrapper launches the size that ``cluster_size`` gives for N."""
+    _takes_the_rules_cluster_size(net, "f32", (256, 2048, 4096, 49152, 69632))
+
+
+def test_cuda_bf16_wrapper_takes_the_rules_cluster_size(net):
+    """The same for the bf16 kernel, at its calls on the main path."""
+    _takes_the_rules_cluster_size(net, "bf16", (256, 2048, 4096, 69632))
 
 
 # every encoder's first-layer depth (chip_smoke.py CHECK_D_IN): the kernel
@@ -141,7 +174,8 @@ DEPTH_KW = {9: dict(embed_type="FourierFeatures"), 15: dict(embed_type="HashGrid
 def test_cuda_kernel_matches_plain_at_every_depth(cuda_device, precision, d_in):
     """With the geometric init, whose first-layer and skip weights past the
     3 coordinates are zero, and again with those weights spread, so that
-    every input column counts."""
+    every input column counts; at N=4096 at every cluster size, each equal
+    to C = 1 bit for bit (bf16: the signs agreeing)."""
     assert fm.kernel_depth(d_in) == max(64, 1 << (d_in - 1).bit_length())
     torch.manual_seed(d_in)
     net = ImplicitNetwork(**{**NET_KW, **DEPTH_KW[d_in]})
@@ -160,6 +194,14 @@ def test_cuda_kernel_matches_plain_at_every_depth(cuda_device, precision, d_in):
             want = fm.fused_sdf_raw_plain(x, packed)
             torch.cuda.synchronize()
             assert float((got - want).abs().max()) <= TOL[precision], (spread, n)
+        big = want.abs() > 5e-2
+        ref = fm._launch(x, packed, cluster=1)
+        for c in fm.CLUSTER_SIZES:
+            got = fm._launch(x, packed, cluster=c)
+            torch.cuda.synchronize()
+            assert float((got - want).abs().max()) <= TOL[precision], (spread, c)
+            assert bool((torch.sign(got[big]) == torch.sign(want[big])).all()), (spread, c)
+            assert torch.equal(got.view(torch.int32), ref.view(torch.int32)), (spread, c)
 
 
 def test_cuda_pose7_step_matches_cpu(cuda_device):

@@ -160,44 +160,72 @@ def test_wrapper_refuses_gradients(nets):
         fm.fused_sdf_raw(x, packed)
 
 
-# the f32 kernel's cluster size from N (ops/fused_mlp.py:cluster_size): an
-# H100's 132 SMs, one CTA an SM at every cluster size
+# the kernels' cluster size from N (ops/fused_mlp.py:cluster_size): the waves
+# of clusters of C times each C's measured wave time, per variant.  132 slots:
+# an H100's 132 SMs, one CTA an SM at every cluster size; the card's own
+# slots, by its occupancy query, are 132 / 132 / 120 (its GPCs seat 30
+# clusters of 4)
 SLOTS_132 = {1: 132, 2: 132, 4: 132}
+SLOTS_H100 = {1: 132, 2: 132, 4: 120}
+F32, BF16 = fm.WAVE_MS["fused_sdf_raw_f32"], fm.WAVE_MS["fused_sdf_raw_bf16"]
+# the bf16 kernel's C at the card's slots
+BF16_AT_H100 = [(256, 4), (2048, 2), (4096, 2), (69632, 1)]
 
 
-def _waves_per_share(n, slots, c):
+def _cost(n, slots, wave_ms, c):
+    """The modelled time of n points on clusters of c, in exact decimals."""
     tiles = -(-n // fm.TILE)
-    return Fraction(-(-tiles * c // slots[c]), c)
+    return -(-tiles * c // slots[c]) * Fraction(str(wave_ms[c]))
 
 
 @pytest.mark.parametrize("n, want", [(2048, 4), (4096, 2), (256, 4), (1, 4), (24576, 1),
-                                     (49152, 1)])
+                                     (49152, 1), (69632, 1)])
 def test_cluster_size_at_132_slots(n, want):
-    """The secant's calls (2048) on clusters of 4, the march's (4096) on
-    clusters of 2 (a tie with 4 goes to the smaller), the camera step's
-    (256) on 4, the exact sweep's probes (24576, 49152) one CTA a tile."""
-    assert fm.cluster_size(n, SLOTS_132) == want
+    """The f32 kernel: the secant's calls (2048) on clusters of 4, the
+    march's (4096) on clusters of 2 (two waves of 4 cost more than one of
+    2), the camera step's (256) on 4, the exact sweep's probes (24576,
+    49152) and the ngp cells' (69632) one CTA a tile."""
+    assert fm.cluster_size(n, SLOTS_132, F32) == want
 
 
-@pytest.mark.parametrize("slots", [SLOTS_132, {1: 132, 2: 132, 4: 120},
+@pytest.mark.parametrize("n, want", BF16_AT_H100)
+def test_bf16_cluster_size_at_the_h100s_slots(n, want):
+    """The bf16 kernel on the card's slots: the camera step's calls (256),
+    the guided secant's (2048), the mixed march's (4096) and the mixed
+    sweep's coarse probes (69632)."""
+    assert fm.cluster_size(n, SLOTS_H100, BF16) == want
+
+
+def test_f32_cluster_size_at_69632_weighs_the_wave_time():
+    """The ngp cells' largest f32 call: 17 waves of clusters of 2 are 8.5
+    a CTA share against 9 waves at C = 1, but a wave of clusters of 2 takes
+    0.322 ms, not half of 0.572: the rule takes C = 1."""
+    tiles = 69632 // fm.TILE
+    assert -(-tiles * 2 // 132) == 17 and -(-tiles // 132) == 9
+    assert fm.cluster_size(69632, SLOTS_H100, F32) == fm.cluster_size(69632, SLOTS_132, F32) == 1
+
+
+@pytest.mark.parametrize("variant", sorted(fm.WAVE_MS))
+@pytest.mark.parametrize("slots", [SLOTS_132, SLOTS_H100,
                                    {1: 132, 2: 130, 4: 128}, {1: 132, 2: 132, 4: 0},
                                    {1: 114, 2: 114, 4: 112}])
-def test_cluster_size_never_worse_than_one_cta_a_tile(slots):
-    """Over N up to 200,000 the rule takes the fewest waves per CTA share,
-    never more than C = 1's, the smaller C on a tie, and no C that the card
-    cannot seat."""
+def test_cluster_size_never_worse_than_one_cta_a_tile(slots, variant):
+    """Over N up to 200,000 the rule takes the least modelled time, never
+    more than C = 1's, the smaller C on a tie, and no C that the card cannot
+    seat."""
+    wave_ms = fm.WAVE_MS[variant]
     for n in range(1, 200_000, 89):
-        c = fm.cluster_size(n, slots)
+        c = fm.cluster_size(n, slots, wave_ms)
         assert slots[c] > 0
-        best = min(_waves_per_share(n, slots, d) for d in fm.CLUSTER_SIZES if slots[d] > 0)
-        assert _waves_per_share(n, slots, c) == best <= _waves_per_share(n, slots, 1)
-        assert all(_waves_per_share(n, slots, d) > best
-                   for d in fm.CLUSTER_SIZES if d < c and slots[d] > 0)
+        cost = {d: _cost(n, slots, wave_ms, d) for d in fm.CLUSTER_SIZES if slots[d] > 0}
+        best = min(cost.values())
+        assert cost[c] == best <= cost[1]
+        assert all(cost[d] > best for d in cost if d < c)
 
 
 def test_cluster_size_moves_to_two_with_fewer_slots_for_four():
     """Where the card seats fewer clusters of 4 than 132 / 4 (GPCs whose SM
-    count is not a multiple of 4), N=2048 needs two waves of clusters of 4,
-    a tie with one wave of clusters of 2, which the smaller C takes."""
-    assert fm.cluster_size(2048, {1: 132, 2: 132, 4: 120}) == 2
-    assert fm.cluster_size(4096, {1: 132, 2: 132, 4: 120}) == 2
+    count is not a multiple of 4), the f32 kernel's N=2048 needs two waves
+    of clusters of 4, which cost more than one wave of clusters of 2."""
+    assert fm.cluster_size(2048, SLOTS_H100, F32) == 2
+    assert fm.cluster_size(4096, SLOTS_H100, F32) == 2

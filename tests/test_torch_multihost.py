@@ -15,6 +15,11 @@ import os
 import subprocess
 import sys
 
+import pytest
+import torch
+
+import torch_dist_workers as workers
+from hashmodnffbanks_idr_tpu_torch.parallel import multihost
 from hashmodnffbanks_idr_tpu_torch.parallel.multihost import free_port
 
 from test_torch_runner import _write_setup
@@ -103,3 +108,14 @@ def test_cli_multihost_flags_join_two_processes(tmp_path):
     assert sorted(os.listdir(rundir / "checkpoints")) == ["0.pt", "latest.pt"]
     with open(rundir / "logs" / "scalars.jsonl") as f:
         assert [json.loads(line)["step"] for line in f] == [0]
+
+
+def test_spawn_defaults_to_the_card():
+    """``spawn`` with no device asks for the card, as every entry point
+    does: one rank on the card where there is one, else a raise before any
+    process starts."""
+    if torch.cuda.is_available():
+        assert multihost.spawn(workers.device_type, 1) == ["cuda"]
+    else:
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            multihost.spawn(workers.device_type, 1)

@@ -124,11 +124,13 @@ def run():
         single[name] = workers.run_step(m, scene, case)
     args = (conf.dump(), state, scene, [cases[c] for c in STEPS], N_MODEL, 8)
     try:
-        ranks = multihost.spawn(workers.sharded_steps, WORLD, args=args, timeout=240)
+        ranks = multihost.spawn(workers.sharded_steps, WORLD, args=args, device="cpu",
+                                timeout=240)
     except RuntimeError as e:  # a lost race for the port: once more on another
         if "address already in use" not in str(e).lower():
             raise
-        ranks = multihost.spawn(workers.sharded_steps, WORLD, args=args, timeout=240)
+        ranks = multihost.spawn(workers.sharded_steps, WORLD, args=args, device="cpu",
+                                timeout=240)
     sharded = {c: [r[i] for r in ranks] for i, c in enumerate(STEPS)}
     return types.SimpleNamespace(jmodel=jmodel, params=params, scene=scene, cases=cases,
                                  single=single, sharded=sharded, jrng=jrng, state=state)
@@ -309,7 +311,7 @@ def test_runner_under_a_mesh_matches_unsharded(tmp_path):
     kw = dict(conf=args[1], data_root=args[3], nepochs=0, batch_size=3, log_tensorboard=False)
     ranks = multihost.spawn(workers.sharded_runner, 2,
                             args=({**kw, "exps_folder_name": str(tmp_path / "sharded")}, 2),
-                            timeout=240)
+                            device="cpu", timeout=240)
     assert ranks[1]["rows"] == {"implicit_network.embedder.table": (84384, 168768)}
     single = IDRTrainRunner(**kw, exps_folder_name=str(tmp_path / "single"), device="cpu")
     single.run()

@@ -111,3 +111,8 @@ def sharded_runner(rank, world, device, runner_kwargs, n_model):
             "params": {n: p.detach().cpu().numpy().copy()
                        for n, p in runner.model.named_parameters()},
             "rows": {n: (s.start, s.stop) for n, s in runner._step_fn.tables.rows.items()}}
+
+
+def device_type(rank, world, dev):
+    """The type of the device ``spawn`` gave this rank."""
+    return dev.type
