@@ -21,7 +21,16 @@ requires the same bits every time (``deterministic`` in the kernels line),
 then drives
 the flagship StyleModNFFB training step
 (2048 rays, 1200x1600 synthetic two-view scene, random weights from a seed)
-in four tracer configurations and times it.  Then it runs the user's path:
+in four tracer configurations and times it.  Every train step on the card,
+there and in every phase after, is the step replayed from CUDA graphs
+(``build_train_step``'s default on the card; each runner's step must be
+one, captured once).  The ``[graph]`` phase holds it against the eager step
+(``graphed=False``) in five cells (the flagship's four and ngp log2=15
+mixed), in turns: step 1's loss terms and hit masks bit-identical, then with
+deterministic index ops 10 steps bit-identical (loss terms, masks,
+parameters) with the fused kernels' launches counted under replay as the
+eager step counts them, a NaN step skipped on the device; it prints each
+variant's ms/step and the capture's seconds.  Then it runs the user's path:
 the port's ``dummy_cli`` writes the dummy scene, ``exp_runner`` trains the
 repo's ``dummy_stylemodnffb.conf`` (with the ``mixed`` tracer) for 30 epochs
 and resumes it to epoch 32, and a DTU-size scan (49 distinct views) is
@@ -207,6 +216,17 @@ CAM_EPOCHS = 30
 PAR_LOSS_RTOL, PAR_PARAM_RTOL, PAR_PARAM_ATOL = 1e-6, 5e-4, 2e-6
 PAR_WARMUP, PAR_STEPS = 2, 10
 PAR_RUNNER_EPOCHS = 3
+# the [graph] phase: the step replayed from CUDA graphs against the eager
+# step in five cells (label, ngp preset or None for the flagship,
+# tracer_fast, tracer_exact_fused, the kernel it must launch); GRAPH_TIMED
+# steps of each as they run by default, GRAPH_HELD with deterministic index
+# ops, held bit for bit
+GRAPH_CELLS = (("exact+fused", None, "exact", True, "fused_sdf_raw_f32"),
+               ("mixed", None, "mixed", False, "fused_sdf_raw_bf16"),
+               ("fast", None, "fast", False, "fused_sdf_raw_bf16"),
+               ("exact (unfused)", None, "exact", False, None),
+               ("ngp log2=15 mixed", "ngp_log2_15", "mixed", False, "fused_sdf_raw_bf16"))
+GRAPH_TIMED, GRAPH_HELD = 11, 10
 
 
 def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
@@ -447,7 +467,8 @@ def phase_step(dev, fm, scene, label, mode, fused, warmup, steps, expect=None, c
     from hashmodnffbanks_idr_tpu_torch.models.loss import IDRLossConfig
     from hashmodnffbanks_idr_tpu_torch.models.renderer import IDRNetwork
     from hashmodnffbanks_idr_tpu_torch.testing import flagship_conf
-    from hashmodnffbanks_idr_tpu_torch.train.trainer import build_train_step, make_optimizer
+    from hashmodnffbanks_idr_tpu_torch.train.trainer import (GraphedTrainStep, build_train_step,
+                                                             make_optimizer)
     from hashmodnffbanks_idr_tpu_torch.utils.sampling import sample_pixels
 
     conf = flagship_conf(num_pixels=N_RAYS) if conf is None else conf
@@ -455,6 +476,8 @@ def phase_step(dev, fm, scene, label, mode, fused, warmup, steps, expect=None, c
     conf.put("model.tracer_exact_fused", fused)
     model = IDRNetwork(conf.get_config("model"), device=dev, seed=0)
     step = build_train_step(model, IDRLossConfig(0.1, 200.0, ALPHA), make_optimizer(model))
+    if not isinstance(step, GraphedTrainStep):
+        raise AssertionError(f"{label}: the step on the card is not the graphed step")
     gen = torch.Generator(device=dev).manual_seed(1)
     img_idx = torch.tensor([0], device=dev)
     total = IMG_RES[0] * IMG_RES[1]
@@ -483,8 +506,11 @@ def phase_step(dev, fm, scene, label, mode, fused, warmup, steps, expect=None, c
         raise AssertionError(f"{label}: no parameter changed")
     if expect is not None and not all(s[expect] > 0 for s in per_step):
         raise AssertionError(f"{label}: {expect} was not launched in every step: {per_step}")
+    if step.captures != 1 or step.skipped:
+        raise AssertionError(f"{label}: {step.captures} captures, {step.skipped} skipped steps")
     ms = statistics.median(times)
-    rec = {"label": label, "steps": steps, "ms_per_step_median": ms,
+    rec = {"label": label, "graphed": True, "capture_s": step.capture_s,
+           "graphs": step.program.graphs(), "steps": steps, "ms_per_step_median": ms,
            "ms_per_step_min": min(times), "ms_per_step_max": max(times),
            "rays_per_s": N_RAYS / (ms * 1e-3), "tracer_ms_median": tracer_ms, "loss": loss,
            "launches_per_step": {k: v["launches"] / steps for k, v in counts.items()},
@@ -497,6 +523,156 @@ def phase_step(dev, fm, scene, label, mode, fused, warmup, steps, expect=None, c
     print(f"[{tag}] {json.dumps(rec)}")
     fm.reset_launch_counts()
     return counts
+
+
+def graph_pair_run(dev, fm, scene, conf, steps: int) -> dict:
+    """The step graphed and eager from the same weights (seed 0) and
+    generators (seed 1), ``steps`` steps each, in turns (graphed first on
+    odd steps): per step and variant the loss terms, hit masks, wall ms and
+    the fused kernels' launches; then each variant's parameters and the
+    graphed step's captures."""
+    from hashmodnffbanks_idr_tpu_torch.models.loss import IDRLossConfig
+    from hashmodnffbanks_idr_tpu_torch.models.renderer import IDRNetwork
+    from hashmodnffbanks_idr_tpu_torch.train.trainer import build_train_step, make_optimizer
+    from hashmodnffbanks_idr_tpu_torch.utils.sampling import sample_pixels
+
+    runs = {}
+    for graphed in (True, False):
+        model = IDRNetwork(conf.get_config("model"), device=dev, seed=0)
+        captured = {}
+        model.register_forward_hook(lambda m, a, o, c=captured: c.update(o))
+        runs[graphed] = {"model": model, "captured": captured, "steps": [],
+                         "gen": torch.Generator(device=dev).manual_seed(1),
+                         "step": build_train_step(model, IDRLossConfig(0.1, 200.0, ALPHA),
+                                                  make_optimizer(model), graphed=graphed)}
+    total = IMG_RES[0] * IMG_RES[1]
+    for i in range(steps):
+        for graphed in ((True, False) if i % 2 == 0 else (False, True)):
+            r = runs[graphed]
+            seen = fm.snapshot_launch_counts()
+            pix = sample_pixels(r["gen"], total, N_RAYS)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            losses = r["step"](scene, torch.tensor([i % 2], device=dev), pix, r["gen"], ALPHA)
+            torch.cuda.synchronize()
+            r["steps"].append({"ms": (time.perf_counter() - t0) * 1e3,
+                               "losses": {k: v.clone() for k, v in losses.items()},
+                               "mask": r["captured"]["network_object_mask"].clone(),
+                               "launches": fm.launch_counts_since(seen)})
+    for r in runs.values():
+        r["params"] = [p.detach().clone() for p in r["model"].parameters()]
+        del r["model"], r["captured"]
+    return runs
+
+
+def phase_graph(dev, fm, scene, smi: str) -> dict:
+    """The step replayed from CUDA graphs against the eager step, in the
+    five cells of ``GRAPH_CELLS``, in turns (``graph_pair_run``):
+
+    * as the step runs by default, GRAPH_TIMED steps of each: step 1's loss
+      terms and hit masks bit-identical; the ms of steps 2 on (median, min,
+      max) and the capture's seconds;
+    * with deterministic algorithms (``utils.debug.deterministic``: the
+      only difference between two eager runs is the hash grid's backward
+      atomics), GRAPH_HELD steps of each: every step's loss terms and hit
+      masks and the parameters after them bit-identical (so within the
+      sharded step's bounds, loss 1e-6, parameters 5e-4 / 2e-6, and more),
+      and every step's fused-kernel launches (by variant, points and
+      cluster size) counted under replay as the eager step counts them,
+      the cell's kernel launched in every step;
+    * one step whose alpha is NaN (a static input of the graphs): the
+      update skipped on the device (``skipped``), the parameters unchanged.
+
+    Counts reset just before each cell's runs and read just after."""
+    from hashmodnffbanks_idr_tpu_torch.models.loss import IDRLossConfig
+    from hashmodnffbanks_idr_tpu_torch.models.renderer import IDRNetwork
+    from hashmodnffbanks_idr_tpu_torch.testing import flagship_conf, ngp_conf
+    from hashmodnffbanks_idr_tpu_torch.train.trainer import build_train_step, make_optimizer
+    from hashmodnffbanks_idr_tpu_torch.utils.debug import deterministic
+    from hashmodnffbanks_idr_tpu_torch.utils.sampling import sample_pixels
+
+    records = {}
+    for label, preset, mode, fused, kernel in GRAPH_CELLS:
+        conf = flagship_conf(num_pixels=N_RAYS) if preset is None else ngp_conf(preset, N_RAYS)
+        conf.put("model.tracer_fast", mode)
+        conf.put("model.tracer_exact_fused", fused)
+        fm.reset_launch_counts()
+        timed = graph_pair_run(dev, fm, scene, conf, GRAPH_TIMED)
+        g0, e0 = timed[True]["steps"][0], timed[False]["steps"][0]
+        for k in e0["losses"]:
+            if not torch.equal(g0["losses"][k], e0["losses"][k]):
+                raise AssertionError(f"[graph] {label}: step 1's {k} graphed "
+                                     f"{float(g0['losses'][k])} eager {float(e0['losses'][k])}")
+        if not torch.equal(g0["mask"], e0["mask"]):
+            raise AssertionError(f"[graph] {label}: step 1's hit masks differ")
+        with deterministic():
+            held = graph_pair_run(dev, fm, scene, conf, GRAPH_HELD)
+        for i, (g, e) in enumerate(zip(held[True]["steps"], held[False]["steps"])):
+            for k in e["losses"]:
+                if not torch.equal(g["losses"][k], e["losses"][k]):
+                    raise AssertionError(f"[graph] {label} (deterministic): step {i + 1}'s {k}")
+            if not torch.equal(g["mask"], e["mask"]):
+                raise AssertionError(f"[graph] {label} (deterministic): step {i + 1}'s masks")
+            if i > 0 and g["launches"] != e["launches"]:
+                raise AssertionError(f"[graph] {label}: step {i + 1} counted {g['launches']} "
+                                     f"graphed, {e['launches']} eager")
+            if kernel is not None and not g["launches"][kernel]["launches"]:
+                raise AssertionError(f"[graph] {label}: step {i + 1} launched no {kernel}")
+        param_max = max(float((a - b).abs().max())
+                        for a, b in zip(held[True]["params"], held[False]["params"]))
+        if param_max != 0.0:
+            raise AssertionError(f"[graph] {label} (deterministic): parameters {param_max} apart")
+
+        # a non-finite step, skipped on the device
+        model = IDRNetwork(conf.get_config("model"), device=dev, seed=0)
+        opt = make_optimizer(model)
+        step = build_train_step(model, IDRLossConfig(0.1, 200.0, ALPHA), opt)
+        gen = torch.Generator(device=dev).manual_seed(1)
+        img = torch.tensor([0], device=dev)
+        step(scene, img, sample_pixels(gen, IMG_RES[0] * IMG_RES[1], N_RAYS), gen, ALPHA)
+        before = [p.detach().clone() for p in model.parameters()]
+        bad = step(scene, img, sample_pixels(gen, IMG_RES[0] * IMG_RES[1], N_RAYS), gen,
+                   float("nan"))
+        unchanged = all(torch.equal(a, p.detach()) for a, p in zip(before, model.parameters()))
+        if step.skipped != 1 or not unchanged or step.captures != 1:
+            raise AssertionError(f"[graph] {label}: a NaN step: skipped {step.skipped}, "
+                                 f"parameters unchanged {unchanged}, {step.captures} captures")
+        del model, opt, step
+
+        counts = {k: dict(v) for k, v in fm.launch_counts.items()}
+        ms = {v: [s["ms"] for s in timed[v]["steps"][1:]] for v in (True, False)}
+        rec = {"label": label, "card": smi, "steps_timed": GRAPH_TIMED - 1,
+               "steps_held": GRAPH_HELD,
+               "graphed_ms_median": statistics.median(ms[True]),
+               "graphed_ms_min": min(ms[True]), "graphed_ms_max": max(ms[True]),
+               "eager_ms_median": statistics.median(ms[False]),
+               "eager_ms_min": min(ms[False]), "eager_ms_max": max(ms[False]),
+               "capture_s": timed[True]["step"].capture_s,
+               "graphs": timed[True]["step"].program.graphs(),
+               "first_call_ms": {"graphed": timed[True]["steps"][0]["ms"],
+                                 "eager": timed[False]["steps"][0]["ms"]},
+               "step1_bit_identical": True, "held_bit_identical_steps": GRAPH_HELD,
+               "nan_step_skipped": True, "nan_step_loss": float(bad["loss"]),
+               "kernel_launches_per_step": {
+                   k: [s["launches"][k]["launches"] for s in held[True]["steps"]]
+                   for k in counts}}
+        print(f"[graph] {json.dumps(rec)}")
+        records[label] = counts
+        del timed, held
+    fm.reset_launch_counts()
+    return records
+
+
+def require_graphed(*runners) -> None:
+    """Each runner trained through the step replayed from CUDA graphs,
+    captured once."""
+    from hashmodnffbanks_idr_tpu_torch.train.trainer import GraphedTrainStep
+
+    for r in runners:
+        step = r.train_step
+        if not isinstance(step, GraphedTrainStep) or step.captures != 1:
+            raise AssertionError(f"{r.expname}: the runner's step is {type(step).__name__} "
+                                 f"({getattr(step, 'captures', 0)} captures), not graphed once")
 
 
 def read_scalars(rundir: str) -> list:
@@ -534,6 +710,7 @@ def phase_runner(fm, smi: str, workdir: str) -> dict:
     t_first = time.perf_counter() - t0
     second = exp_runner.main(common + ["--nepoch", str(RUNNER_EPOCHS + 2), "--is_continue"])
     counts = {k: dict(v) for k, v in fm.launch_counts.items()}
+    require_graphed(first, second)
 
     missing = [f"{n}.pt" for n in (0, 25, RUNNER_EPOCHS, "latest")
                if not os.path.exists(os.path.join(first.checkpoints_path, f"{n}.pt"))]
@@ -712,6 +889,7 @@ def phase_eval(fm, smi: str, workdir: str):
                                "--data_root", data_root, "--exps_folder_name", exps,
                                "--no_tensorboard"])
     train_s = time.perf_counter() - t0
+    require_graphed(runner)
     plots = sorted(os.listdir(runner.plots_dir))
     want = [f"{k}_{e}.{x}" for e in range(EVAL_PLOT_FREQ, EVAL_EPOCHS + 1, EVAL_PLOT_FREQ)
             for k, x in (("rendering", "png"), ("depth", "png"), ("surface", "ply"),
@@ -964,6 +1142,7 @@ def phase_cameras(dev, fm, smi: str, workdir: str, data_root: str) -> dict:
 
     # the first run takes epochs 0..CAM_EPOCHS and saves its end as epoch
     # CAM_EPOCHS, which the resumed run takes again (then two more)
+    require_graphed(first, second)
     steps = (CAM_EPOCHS + 1) * first.steps_per_epoch
     resumed = kept[0]
     if not (resumed["start_epoch"] == CAM_EPOCHS and resumed["step_count"] == steps
@@ -1390,6 +1569,7 @@ def phase_ngp_runner(fm, smi: str, workdir: str, data_root: str) -> dict:
                                   "--exps_folder_name", os.path.join(workdir, "exps_ngp")])
         train_s = time.perf_counter() - t0
         counts[conf_name] = {k: dict(v) for k, v in fm.launch_counts.items()}
+        require_graphed(runner)
         rows = read_scalars(runner.rundir)
         bf16 = [r["fused_sdf_raw_bf16_launches"] for r in rows]
         losses = [r["loss"] for r in rows]
@@ -1563,6 +1743,7 @@ def main() -> int:
                            expect="fused_sdf_raw_bf16"),
         "exact (unfused)": phase_step(dev, fm, scene, "exact (unfused)", "exact", False, 1, 3),
     }
+    phases.update({f"graph {k}": v for k, v in phase_graph(dev, fm, scene, smi).items()})
     ngp_counts, ngp_largest = phase_ngp_steps(dev, fm, scene)
     phases.update(ngp_counts)
     del scene

@@ -90,8 +90,10 @@ def pose7_to_matrix(pose7: torch.Tensor) -> torch.Tensor:
     B = pose7.shape[0]
     R = quat_to_rot(pose7[:, :4])
     top = torch.cat([R, pose7[:, 4:, None]], dim=-1)  # (B,3,4)
-    bottom = torch.tensor([0.0, 0.0, 0.0, 1.0], dtype=pose7.dtype,
-                          device=pose7.device).expand(B, 1, 4)
+    # built on the device: a host tensor copied in would be a host read (and
+    # a copy a captured CUDA graph cannot replay)
+    bottom = pose7.new_zeros((B, 1, 4))
+    bottom[..., 3] = 1.0
     return torch.cat([top, bottom], dim=1)
 
 

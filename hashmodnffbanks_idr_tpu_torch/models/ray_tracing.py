@@ -4,8 +4,12 @@ Counterpart of ``hashmodnffbanks_idr_tpu/models/ray_tracing.py``.  Every ray
 keeps a static lane and carries live/converged masks; updates are
 ``torch.where``-masked exactly as in the JAX package (no boolean
 compaction), so a decision that compares against ``sdf_threshold`` is taken
-on the same lanes by both.  The JAX ``lax.while_loop``s become Python loops
-whose predicate (``mask.any()``) is read on the host every iteration.
+on the same lanes by both.  The JAX ``lax.while_loop``s of the march and its
+line search become the port's ``utils.graphs.while_loop``: the loop's state
+is a fixed set of tensors (``MARCH_STATE``) that a body updates in place,
+and its predicate (``mask.any()``) is computed on the device and read on
+the host once an iteration, eagerly or between the replays of the graphed
+train step's captured bodies.
 
 The caller runs the tracer under ``torch.no_grad()``.  ``draws`` injects the
 sweep's uniform draws (``sweep_draws``) so tests can feed both
@@ -25,6 +29,7 @@ from typing import Callable, Dict, NamedTuple, Optional
 import torch
 
 from ..geometry.cameras import get_sphere_intersection
+from ..utils.graphs import while_loop
 
 
 class RayTracerConfig(NamedTuple):
@@ -203,66 +208,84 @@ def _sphere_tracing(cfg, sdf, cam, dirs, mask_intersect, near, far, sdf_march=No
                   iters=cfg.sphere_tracing_iters, threshold=cfg.sdf_threshold)
 
 
+# the march's loop-carried state, updated in place by its bodies
+MARCH_STATE = ("acc_s", "acc_e", "unfin_s", "unfin_e", "curr_s", "curr_e", "next_s", "next_e",
+               "not_ps", "not_pe", "curr_pts")
+
+
 def _march(cfg, sdf, cam, dirs, mask_intersect, near, far, *, iters, threshold,
            resume=None):
-    """JAX :236-335, one host-checked Python loop per ``lax.while_loop``."""
+    """JAX :236-335: an init, then the march (``iters`` at most) and, inside
+    each march step, the line search (``cfg.line_step_iters`` at most), each
+    a ``while_loop`` over ``MARCH_STATE`` with its predicate computed on the
+    device."""
     min_dis = torch.where(mask_intersect, near, 0.0)
     max_dis = torch.where(mask_intersect, far, 0.0)
-    if resume is None:
-        unfin_s = unfin_e = mask_intersect
-        acc_s, acc_e = min_dis, max_dis
-    else:
-        acc_s, acc_e = resume
-        unfin_s = unfin_e = mask_intersect & (acc_s < acc_e)
 
-    pts_s0 = cam + acc_s[:, None] * dirs
-    curr_pts = torch.where(unfin_s[:, None], pts_s0, 0.0)
-
-    def sdf2(pa, pb):
+    def sdf2(acc_s, acc_e):
         """One batched SDF call for the start+end ray families."""
-        v = sdf(torch.cat([pa, pb], dim=0))
-        return v[: pa.shape[0]], v[pa.shape[0]:]
+        v = sdf(torch.cat([cam + acc_s[:, None] * dirs, cam + acc_e[:, None] * dirs], dim=0))
+        return v[: acc_s.shape[0]], v[acc_s.shape[0]:]
 
     def clamp(v):
         return torch.where(v <= threshold, 0.0, v)
 
-    s0, e0 = sdf2(pts_s0, cam + acc_e[:, None] * dirs)
+    # init (JAX :236-262); the state's tensors are its own, written in place
+    if resume is None:
+        unfin_s = unfin_e = mask_intersect
+        acc_s, acc_e = min_dis.clone(), max_dis.clone()
+    else:
+        acc_s, acc_e = (t.clone() for t in resume)
+        unfin_s = unfin_e = mask_intersect & (acc_s < acc_e)
+    curr_pts = torch.where(unfin_s[:, None], cam + acc_s[:, None] * dirs, 0.0)
+    s0, e0 = sdf2(acc_s, acc_e)
     curr_s = clamp(torch.where(unfin_s, s0, 0.0))
     curr_e = clamp(torch.where(unfin_e, e0, 0.0))
-    unfin_s = unfin_s & (curr_s > threshold)
-    unfin_e = unfin_e & (curr_e > threshold)
+    st = dict(zip(MARCH_STATE, (
+        acc_s, acc_e, unfin_s & (curr_s > threshold), unfin_e & (curr_e > threshold),
+        curr_s, curr_e, torch.zeros_like(curr_s), torch.zeros_like(curr_e),
+        torch.zeros_like(unfin_s), torch.zeros_like(unfin_e), curr_pts)))
 
-    it = 0
-    while it < iters and bool((unfin_s | unfin_e).any()):
-        acc_s = acc_s + curr_s
-        acc_e = acc_e - curr_e
-        sv, ev = sdf2(cam + acc_s[:, None] * dirs, cam + acc_e[:, None] * dirs)
-        next_s = torch.where(unfin_s, sv, 0.0)
-        next_e = torch.where(unfin_e, ev, 0.0)
+    def march_cond(st):
+        return (st["unfin_s"] | st["unfin_e"]).any()
 
-        # line-search backstep for overshoot (ray_tracing.py:164-183)
-        k = 0
-        not_ps, not_pe = next_s < 0, next_e < 0
-        while k < cfg.line_step_iters and bool((not_ps | not_pe).any()):
-            step = (1.0 - cfg.line_search_step) / (2.0**k)
-            acc_s = torch.where(not_ps, acc_s - step * curr_s, acc_s)
-            acc_e = torch.where(not_pe, acc_e + step * curr_e, acc_e)
-            sv, ev = sdf2(cam + acc_s[:, None] * dirs, cam + acc_e[:, None] * dirs)
-            next_s = torch.where(not_ps, sv, next_s)
-            next_e = torch.where(not_pe, ev, next_e)
-            not_ps, not_pe = next_s < 0, next_e < 0
-            k += 1
+    def line_cond(st):
+        return (st["not_ps"] | st["not_pe"]).any()
 
-        unfin_s = unfin_s & (acc_s < acc_e)
-        unfin_e = unfin_e & (acc_s < acc_e)
-        curr_s = clamp(torch.where(unfin_s, next_s, 0.0))
-        curr_e = clamp(torch.where(unfin_e, next_e, 0.0))
-        unfin_s = unfin_s & (curr_s > threshold)
-        unfin_e = unfin_e & (curr_e > threshold)
-        curr_pts = cam + acc_s[:, None] * dirs
-        it += 1
+    def line_body(st, k):
+        """A backstep of (1 - line_search_step) / 2**k for overshoot
+        (ray_tracing.py:164-183); one body per k."""
+        step = (1.0 - cfg.line_search_step) / (2.0**k)
+        not_ps, not_pe = st["not_ps"], st["not_pe"]
+        st["acc_s"].copy_(torch.where(not_ps, st["acc_s"] - step * st["curr_s"], st["acc_s"]))
+        st["acc_e"].copy_(torch.where(not_pe, st["acc_e"] + step * st["curr_e"], st["acc_e"]))
+        sv, ev = sdf2(st["acc_s"], st["acc_e"])
+        st["next_s"].copy_(torch.where(not_ps, sv, st["next_s"]))
+        st["next_e"].copy_(torch.where(not_pe, ev, st["next_e"]))
+        not_ps.copy_(st["next_s"] < 0)
+        not_pe.copy_(st["next_e"] < 0)
 
-    return curr_pts, unfin_s, acc_s, acc_e, min_dis, max_dis
+    def march_body(st, _):
+        st["acc_s"].add_(st["curr_s"])
+        st["acc_e"].sub_(st["curr_e"])
+        sv, ev = sdf2(st["acc_s"], st["acc_e"])
+        st["next_s"].copy_(torch.where(st["unfin_s"], sv, 0.0))
+        st["next_e"].copy_(torch.where(st["unfin_e"], ev, 0.0))
+        st["not_ps"].copy_(st["next_s"] < 0)
+        st["not_pe"].copy_(st["next_e"] < 0)
+        while_loop(line_cond, line_body, st, cfg.line_step_iters, per_iter=True)
+
+        alive = st["acc_s"] < st["acc_e"]
+        st["unfin_s"].logical_and_(alive)
+        st["unfin_e"].logical_and_(alive)
+        st["curr_s"].copy_(clamp(torch.where(st["unfin_s"], st["next_s"], 0.0)))
+        st["curr_e"].copy_(clamp(torch.where(st["unfin_e"], st["next_e"], 0.0)))
+        st["unfin_s"].logical_and_(st["curr_s"] > threshold)
+        st["unfin_e"].logical_and_(st["curr_e"] > threshold)
+        st["curr_pts"].copy_(cam + st["acc_s"][:, None] * dirs)
+
+    while_loop(march_cond, march_body, st, iters)
+    return st["curr_pts"], st["unfin_s"], st["acc_s"], st["acc_e"], min_dis, max_dis
 
 
 # ---------------------------------------------------------------------------

@@ -105,25 +105,31 @@ class IDRNetwork(nn.Module):
             return fast(), build_guidance()
         return net.sdf, build_guidance(make_base=fast)
 
+    def has_coarse_guide(self) -> bool:
+        """Whether ``_tracer_sdfs``'s guidance has a ``'coarse'`` SDF (which
+        sets the sweep's stride), from the conf alone: the mixed tracer's
+        bf16 base guide, or a level-pruned coarse guide."""
+        rt = self.ray_tracer
+        prune = ((rt.prune_levels_march > 0 or rt.prune_levels_coarse > 0)
+                 and self.implicit_network.supports_level_pruning())
+        return self.tracer_mode == "mixed" or (prune and rt.prune_levels_coarse > 0)
+
     def draw_uniforms(self, generator: Optional[torch.Generator], n_rays: int,
                       device) -> Dict[str, torch.Tensor]:
         """The uniform draws a training forward over ``n_rays`` rays on
         ``device`` takes from ``generator`` (``_draws``): the tracer's sweep
         and the eikonal samples ``'eik'``.  A sharded step draws the global
-        ones on every rank and hands each rank its rows of ``'eik'``."""
-        with torch.no_grad():
-            _, guidance = self._tracer_sdfs()
+        ones on every rank and hands each rank its rows of ``'eik'``; the
+        graphed step draws them before its replays."""
         like = torch.empty((), dtype=torch.float32, device=device)
-        return self._draws(generator, n_rays, guidance, like, training=True)
+        return self._draws(generator, n_rays, self.has_coarse_guide(), like, training=True)
 
-    def _draws(self, generator, n_rays, guidance, like, training):
+    def _draws(self, generator, n_rays, coarse_guide, like, training):
         """What the forward draws when none are injected, in the order it
         takes them: the sweep's (``ray_tracing.sweep_draws``, whose stride
-        follows the coarse guide of ``guidance``), then in training the
-        eikonal samples, (n_rays // 2, 3) in [-r, r]
-        (impl..._renderer.py:276-284)."""
-        draws = sweep_draws(self.ray_tracer, bool(guidance and "coarse" in guidance),
-                            generator, like)
+        follows ``coarse_guide``), then in training the eikonal samples,
+        (n_rays // 2, 3) in [-r, r] (impl..._renderer.py:276-284)."""
+        draws = sweep_draws(self.ray_tracer, coarse_guide, generator, like)
         if training:
             bb = self.object_bounding_sphere
             u = torch.rand((n_rays // 2, 3), generator=generator, dtype=like.dtype,
@@ -137,18 +143,24 @@ class IDRNetwork(nn.Module):
         """``draws`` may inject every uniform draw of the forward (see
         ``_draws``); without it they come from ``generator``."""
         object_mask = inputs["object_mask"].reshape(-1).to(torch.bool)
-        ray_dirs, cam_loc = get_camera_params(inputs["uv"], inputs["pose"],
-                                              inputs["intrinsics"])
-        B, P, _ = ray_dirs.shape
-        R = B * P
+        pose = inputs["pose"]
 
         with torch.no_grad():
+            ray_dirs, cam_loc = get_camera_params(inputs["uv"], pose, inputs["intrinsics"])
+            B, P, _ = ray_dirs.shape
+            R = B * P
             sdf, guidance = self._tracer_sdfs()
             if draws is None:
-                draws = self._draws(generator, R, guidance, cam_loc, training)
+                draws = self._draws(generator, R, bool(guidance and "coarse" in guidance),
+                                    cam_loc, training)
             trace = ray_trace(self.ray_tracer, sdf, cam_loc, object_mask, ray_dirs,
                               generator=generator, training=training,
                               sdf_guidance=guidance, draws=draws)
+        if pose.requires_grad:
+            # trainable cameras: the differentiable rays (the same values) are
+            # built after the tracer, so that the graphed step's autograd graph
+            # starts past the tracer's loops
+            ray_dirs, cam_loc = get_camera_params(inputs["uv"], pose, inputs["intrinsics"])
         network_object_mask = trace.network_object_mask
         dists = trace.dists
 

@@ -68,7 +68,8 @@ _CSRC = Path(__file__).resolve().parent / "csrc" / "fused_mlp.cu"
 # Kernel launches and points, per variant, counted by the wrapper only where
 # it launches the CUDA kernel (chip_smoke.py reads them to show that the
 # main path went through the kernel); the launches also by cluster size
-# (``cluster_<C>``).
+# (``cluster_<C>``).  A launch recorded into a CUDA graph counts on each
+# replay of the graph instead (``add_launch_counts``).
 launch_counts: Dict[str, Dict[str, int]] = {
     name: {"launches": 0, "points": 0, **{f"cluster_{c}": 0 for c in CLUSTER_SIZES}}
     for name in WAVE_MS
@@ -79,6 +80,25 @@ def reset_launch_counts() -> None:
     for c in launch_counts.values():
         for k in c:
             c[k] = 0
+
+
+def snapshot_launch_counts() -> Dict[str, Dict[str, int]]:
+    return {name: dict(c) for name, c in launch_counts.items()}
+
+
+def launch_counts_since(before: Dict[str, Dict[str, int]]) -> Dict[str, Dict[str, int]]:
+    """What was counted since ``snapshot_launch_counts`` gave ``before``."""
+    return {name: {k: v - before[name][k] for k, v in c.items()}
+            for name, c in launch_counts.items()}
+
+
+def add_launch_counts(delta: Dict[str, Dict[str, int]], sign: int = 1) -> None:
+    """Add ``delta`` (``launch_counts_since``'s) to the counts: a replayed
+    CUDA graph counts the launches its capture recorded
+    (``utils/graphs.py``)."""
+    for name, c in delta.items():
+        for k, v in c.items():
+            launch_counts[name][k] += sign * v
 
 
 def supports_fusion(dims: List[int], skip_in: Tuple[int, ...]) -> bool:

@@ -286,7 +286,15 @@ def _interp_weights(spec: HashGridSpec, consts: GridConstants,
     bits = consts.corners.bool()
     f = frac * frac * (3.0 - 2.0 * frac) if spec.interpolation == "smoothstep" else frac
     w = torch.where(bits[None, None], f[:, :, None, :], 1.0 - f[:, :, None, :])
-    return w.prod(dim=-1)
+    if w.device.type == "cpu":
+        return w.prod(dim=-1)
+    # on the card the factors one at a time: the backward of ``prod`` looks
+    # for zero factors on the host (``nonzero``), which a CUDA graph of the
+    # train step cannot hold
+    out = w[..., 0]
+    for d in range(1, w.shape[-1]):
+        out = out * w[..., d]
+    return out
 
 
 def _bf16(t: torch.Tensor) -> torch.Tensor:

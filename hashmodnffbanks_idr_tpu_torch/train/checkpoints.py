@@ -64,10 +64,33 @@ def load_checkpoint(ckpt_dir: str, name: str, model: nn.Module,
                          weights_only=True)
     model.load_state_dict(payload["model"])
     if optimizer is not None:
-        optimizer.load_state_dict(payload["optimizer"])
+        load_optimizer_state(optimizer, payload["optimizer"])
     if cameras is not None and "pose_vecs" in payload:
         _copy_cameras(cameras, payload["pose_vecs"], payload["cam_opt"])
     return _loaded(payload["epoch"], payload["step"], payload.get("pose_vecs"))
+
+
+def load_optimizer_state(optimizer: torch.optim.Optimizer, state: Dict) -> None:
+    """``optimizer.load_state_dict(state)`` that keeps the optimizer's own
+    kind of learning rate and step count: a capturable Adam (the card's,
+    ``trainer.make_optimizer``) keeps its ``capturable`` flag and its
+    learning-rate tensor, which takes the saved value, and gets its step
+    counts on the parameters' devices; a CPU one keeps a float rate.  So a
+    checkpoint of either resumes on the other."""
+    own = [{k: g[k] for k in ("lr", "capturable") if k in g} for g in optimizer.param_groups]
+    optimizer.load_state_dict(state)
+    for group, kept in zip(optimizer.param_groups, own):
+        saved_lr = float(group["lr"])
+        group.update(kept)
+        if torch.is_tensor(kept["lr"]):
+            kept["lr"].fill_(saved_lr)
+        else:
+            group["lr"] = saved_lr
+        for p in group["params"]:
+            st = optimizer.state.get(p)
+            if st and torch.is_tensor(st.get("step")):
+                dev = p.device if kept.get("capturable") else torch.device("cpu")
+                st["step"] = st["step"].to(device=dev, dtype=torch.float32)
 
 
 def _loaded(epoch, step, pose_vecs) -> Dict:

@@ -5,10 +5,17 @@ pixel gather -> render -> IDR loss -> clipped Adam: the network's gradient
 is clipped to a global norm of 1.0 exactly as ``optax.clip_by_global_norm``
 does (idr_train.py:306), then a ``torch.optim.Adam`` step is taken (its
 update is algebraically optax's); a step whose gradient is not finite
-takes no update (``update_is_finite``).  With trainable cameras the step's poses
+takes no update.  With trainable cameras the step's poses
 are rows of a (V, 7) quaternion+translation table; its gradient is not
 clipped (JAX's optax chain holds the network alone) and goes to a SparseAdam
 kept on the device (idr_train.py:134-139).
+
+On the card the one-device step runs as one device program a step, as JAX's
+jitted step does (JAX :152): ``GraphedTrainStep`` captures it once as CUDA
+graphs cut at the tracer's loop predicates (``utils/graphs.py``) and
+replays them; the finite-update guard is a mask on the device.  The eager
+step (``build_train_step(graphed=False)``) stays for comparisons; the CPU
+runs it by default.
 
 ``IDRTrainRunner`` keeps the JAX runner's semantics (JAX :159-419): run
 directories, one pixel subset per epoch, checkpoints every 25 epochs and at
@@ -27,7 +34,7 @@ import os
 import time
 import traceback
 from datetime import datetime
-from typing import Callable, Dict, Optional
+from typing import Callable, Dict, List, Optional, Union
 
 import torch
 import torch.distributed as dist
@@ -38,6 +45,7 @@ from ..data.scene_dataset import SceneDataset, rgb_to_pm1
 from ..models.loss import IDRLossConfig, idr_loss
 from ..models.renderer import IDRNetwork
 from ..ops import fused_mlp as fm
+from ..utils import graphs
 from ..utils.compile_cache import build_once, enable_compile_cache
 from ..utils.logging import ScalarLogger
 from ..utils.sampling import sample_pixels
@@ -49,8 +57,25 @@ CHECKPOINT_EVERY = 25  # epochs (JAX :311)
 
 
 def make_optimizer(model: IDRNetwork, lr: float = 1e-4) -> torch.optim.Adam:
-    """Adam with optax's defaults (b1 0.9, b2 0.999, eps 1e-8)."""
-    return torch.optim.Adam(model.parameters(), lr=lr, betas=(0.9, 0.999), eps=1e-8)
+    """Adam with optax's defaults (b1 0.9, b2 0.999, eps 1e-8).  On the card
+    it is ``capturable`` with its learning rate a device tensor, so that a
+    CUDA graph can replay its step; ``set_lr`` changes the rate in place."""
+    params = list(model.parameters())
+    dev = params[0].device
+    if dev.type == "cuda":
+        return torch.optim.Adam(params, lr=torch.tensor(lr, dtype=torch.float32, device=dev),
+                                betas=(0.9, 0.999), eps=1e-8, capturable=True)
+    return torch.optim.Adam(params, lr=lr, betas=(0.9, 0.999), eps=1e-8)
+
+
+def set_lr(optimizer: torch.optim.Optimizer, lr: float) -> None:
+    """Set every group's learning rate: a tensor rate in place (its address
+    is in the graphed step's graphs), a float rate by assignment."""
+    for group in optimizer.param_groups:
+        if torch.is_tensor(group["lr"]):
+            group["lr"].fill_(lr)
+        else:
+            group["lr"] = lr
 
 
 @torch.no_grad()
@@ -124,7 +149,7 @@ def sparse_adam_update(pose_vecs: torch.Tensor, grads: torch.Tensor,
 
 def loss_fn(model: IDRNetwork, loss_cfg: IDRLossConfig, scene: Dict[str, torch.Tensor],
             img_idx: torch.Tensor, pixel_idx: torch.Tensor,
-            generator: Optional[torch.Generator], alpha: float,
+            generator: Optional[torch.Generator], alpha: Union[float, torch.Tensor],
             draws: Optional[Dict[str, torch.Tensor]] = None,
             pose_vecs: Optional[torch.Tensor] = None,
             n_rays: Optional[int] = None) -> Dict[str, torch.Tensor]:
@@ -167,23 +192,36 @@ def build_train_step(model: IDRNetwork, loss_cfg: IDRLossConfig,
                      pose_vecs: Optional[torch.Tensor] = None,
                      cam_opt: Optional[Dict[str, torch.Tensor]] = None,
                      lr_cam: float = 1e-4, mesh=None,
-                     min_table_rows: int = 1024) -> Callable:
+                     min_table_rows: int = 1024, graphed: Optional[bool] = None) -> Callable:
     """One train step over ``model``'s parameters, updated in place:
     ``step(scene, img_idx, pixel_idx, generator, alpha, draws=None)`` returns
-    the detached loss terms; its one host read is ``update_is_finite``'s
-    check, and a step whose gradient is not finite takes no update (counted
-    in ``step.skipped``).  With ``pose_vecs``
+    the detached loss terms; a step whose gradient is not finite takes no
+    update (counted in ``step.skipped``).  With ``pose_vecs``
     (a (V, 7) leaf that requires grad) and its ``cam_opt``
     (``sparse_adam_init``) the cameras train too: their unclipped gradient
     takes a SparseAdam step at ``lr_cam`` over the rows ``img_idx``.
 
+    ``graphed`` (default: whether the parameters are on the card) gives a
+    ``GraphedTrainStep``, replayed from CUDA graphs on the card; on the CPU
+    it runs the same program eagerly.  ``graphed=False`` gives the eager
+    step, whose one host read outside the tracer is ``update_is_finite``'s
+    check.
+
     With ``mesh`` (``parallel.sharding.make_mesh``) the step is sharded
-    (``_sharded_step``); ``optimizer`` is then re-pointed at each
+    (``_sharded_step``, eager); ``optimizer`` is then re-pointed at each
     row-sharded table's rows on this rank."""
     if mesh is not None:
+        if graphed:
+            raise ValueError("the sharded step is not graphed: its flag exchange reads the host")
         return _sharded_step(model, loss_cfg, optimizer, pose_vecs, cam_opt, lr_cam,
                              mesh, min_table_rows)
     params = [p for group in optimizer.param_groups for p in group["params"]]
+    on_cuda = params[0].device.type == "cuda"
+    if graphed is None:
+        graphed = on_cuda
+    if graphed:
+        return GraphedTrainStep(model, loss_cfg, optimizer, pose_vecs, cam_opt, lr_cam,
+                                capture=on_cuda)
 
     def step(scene, img_idx, pixel_idx, generator, alpha, draws=None):
         optimizer.zero_grad(set_to_none=True)
@@ -201,6 +239,209 @@ def build_train_step(model: IDRNetwork, loss_cfg: IDRLossConfig,
 
     step.skipped = 0
     return step
+
+
+def init_adam_state(optimizer: torch.optim.Adam, p: torch.Tensor) -> None:
+    """``optimizer.state[p]`` as ``torch.optim.Adam`` makes it before its
+    first step of ``p``: zero moments and a zero step count, on ``p``'s
+    device when the optimizer is capturable.  The graphed step makes it
+    before its capture, so that no graph allocates or resets it."""
+    group = next(g for g in optimizer.param_groups if any(q is p for q in g["params"]))
+    on_device = group.get("capturable") or group.get("fused")
+    state = optimizer.state[p]
+    state["step"] = (torch.zeros((), dtype=torch.float32, device=p.device) if on_device
+                     else torch.tensor(0.0, dtype=torch.float32))
+    state["exp_avg"] = torch.zeros_like(p, memory_format=torch.preserve_format)
+    state["exp_avg_sq"] = torch.zeros_like(p, memory_format=torch.preserve_format)
+    if group.get("amsgrad"):
+        state["max_exp_avg_sq"] = torch.zeros_like(p, memory_format=torch.preserve_format)
+
+
+class GraphedTrainStep:
+    """The one-device step as one device program, as JAX's jitted step
+    (JAX :82-152), called as the eager step is; ``capture=True`` (the card)
+    replays it from CUDA graphs, ``capture=False`` runs the same program
+    eagerly (the CPU tests).  The program reads nothing on the host but the
+    tracer loops' predicates, as many as the eager step reads:
+
+    * the step's inputs live in static buffers, copied in every call:
+      ``img_idx``, ``pixel_idx``, ``alpha`` (a 0-d tensor) and the uniform
+      draws, taken from ``generator`` before the replays by
+      ``IDRNetwork.draw_uniforms`` (the numbers the eager forward takes), or
+      ``draws`` when given; the learning rate is the optimizer's tensor
+      (``set_lr``);
+    * the update is masked on the device: the parameters, the Adam state
+      and, with cameras, the pose table and its SparseAdam state are saved
+      before the update and restored where the gradient's global norm (or
+      the camera gradient) is not finite, as ``optax.apply_if_finite``
+      leaves them.  Such a step adds one to a device counter, which
+      ``skipped`` reads (one host read), and keeps its loss terms
+      (``last_skipped_terms``);
+    * the first call warms up on a side stream (a forward and a backward:
+      the CUDA kernel's build and occupancy queries, cuBLAS, the Adam state)
+      and captures the program (``utils/graphs.py:capture_program``) into one
+      memory pool; a call whose shapes, scene, parameters or optimizer state
+      (a checkpoint loaded into the optimizer) moved captures again.  A
+      capture that fails raises: there is no eager fallback.
+
+    ``captures`` counts the captures and ``capture_s`` holds the last one's
+    host seconds (warm-up included)."""
+
+    def __init__(self, model: IDRNetwork, loss_cfg: IDRLossConfig,
+                 optimizer: torch.optim.Optimizer, pose_vecs: Optional[torch.Tensor],
+                 cam_opt: Optional[Dict[str, torch.Tensor]], lr_cam: float, capture: bool):
+        if not isinstance(optimizer, torch.optim.Adam):
+            raise TypeError(f"the graphed step takes torch.optim.Adam, not {type(optimizer)}")
+        self.model, self.loss_cfg, self.optimizer = model, loss_cfg, optimizer
+        self.pose_vecs, self.cam_opt, self.lr_cam = pose_vecs, cam_opt, lr_cam
+        self.capture = capture
+        self.params = [p for group in optimizer.param_groups for p in group["params"]]
+        self.device = self.params[0].device
+        if capture and (self.device.type != "cuda" or not all(
+                g["capturable"] and torch.is_tensor(g["lr"]) for g in optimizer.param_groups)):
+            raise ValueError("capturing needs the parameters on a CUDA device and a capturable "
+                             "Adam whose learning rate is a tensor (make_optimizer)")
+        self._skipped = torch.zeros((), dtype=torch.int64, device=self.device)
+        self._skip_terms: Optional[torch.Tensor] = None
+        self._key = None
+        self._inputs: Dict = {}
+        self._losses: Dict[str, torch.Tensor] = {}
+        self.program: Optional[graphs.Program] = None
+        self.captures, self.capture_s = 0, 0.0
+
+    @property
+    def skipped(self) -> int:
+        """Steps whose update was skipped (a host read of the device count)."""
+        return int(self._skipped)
+
+    def last_skipped_terms(self) -> Dict[str, float]:
+        """The loss terms of the last skipped step (NaN before any)."""
+        if self._skip_terms is None:
+            return {}
+        return dict(zip(self._losses, self._skip_terms.tolist()))
+
+    def __call__(self, scene, img_idx, pixel_idx, generator, alpha, draws=None):
+        if draws is None:
+            draws = self.model.draw_uniforms(generator, img_idx.shape[0] * pixel_idx.shape[0],
+                                             self.device)
+        if self._signature(scene, img_idx, pixel_idx, draws) != self._key:
+            self._setup(scene, img_idx, pixel_idx, draws)
+        self._fill(img_idx, pixel_idx, alpha, draws)
+        if self.capture:
+            if self.program is None:
+                self._capture()
+            self.program.replay()
+        else:
+            self._run()
+        self._key = self._signature(scene, img_idx, pixel_idx, draws)
+        return {k: v.clone() for k, v in self._losses.items()}
+
+    def _signature(self, scene, img_idx, pixel_idx, draws):
+        """What the captured graphs hold by address or shape."""
+        opt = self.optimizer
+        tensors = list(self.params) + list(scene.values())
+        tensors += [g["lr"] for g in opt.param_groups if torch.is_tensor(g["lr"])]
+        tensors += [t for st in opt.state.values() for t in st.values() if torch.is_tensor(t)]
+        if self.pose_vecs is not None:
+            tensors += [self.pose_vecs] + list(self.cam_opt.values())
+        return (tuple((t.data_ptr(), tuple(t.shape)) for t in tensors),
+                tuple(img_idx.shape), tuple(pixel_idx.shape),
+                tuple((k, tuple(v.shape)) for k, v in sorted(draws.items())))
+
+    def _setup(self, scene, img_idx, pixel_idx, draws) -> None:
+        """Static input buffers; the old program, if any, is dropped."""
+        self.program = None
+        self.scene = scene
+        dev = self.device
+        self._inputs = {
+            "img_idx": torch.empty(img_idx.shape, dtype=torch.int64, device=dev),
+            "pixel_idx": torch.empty(pixel_idx.shape, dtype=torch.int64, device=dev),
+            "alpha": torch.empty((), dtype=torch.float32, device=dev),
+            "draws": {k: torch.empty(tuple(v.shape), dtype=torch.float32, device=dev)
+                      for k, v in draws.items()}}
+
+    def _fill(self, img_idx, pixel_idx, alpha, draws) -> None:
+        inp = self._inputs
+        inp["img_idx"].copy_(img_idx)
+        inp["pixel_idx"].copy_(pixel_idx)
+        if torch.is_tensor(alpha):
+            inp["alpha"].copy_(alpha)
+        else:
+            inp["alpha"].fill_(alpha)
+        for k, v in draws.items():
+            inp["draws"][k].copy_(torch.as_tensor(v))
+
+    def _zero_grads(self) -> None:
+        self.optimizer.zero_grad(set_to_none=True)
+        if self.pose_vecs is not None:
+            self.pose_vecs.grad = None
+
+    def _forward_backward(self) -> Dict[str, torch.Tensor]:
+        self._zero_grads()
+        inp = self._inputs
+        losses = loss_fn(self.model, self.loss_cfg, self.scene, inp["img_idx"],
+                         inp["pixel_idx"], None, inp["alpha"], draws=inp["draws"],
+                         pose_vecs=self.pose_vecs)
+        losses["loss"].backward()
+        return losses
+
+    def _update_tensors(self) -> List[torch.Tensor]:
+        """Every tensor the update writes."""
+        out = []
+        for p in self.params:
+            if p.grad is not None:
+                if not self.optimizer.state[p]:
+                    init_adam_state(self.optimizer, p)
+                out += [p] + [t for t in self.optimizer.state[p].values() if torch.is_tensor(t)]
+        if self.pose_vecs is not None:
+            out += [self.pose_vecs] + list(self.cam_opt.values())
+        return out
+
+    def _run(self) -> None:
+        """The step's program: forward, backward, clip, the masked update."""
+        losses = self._forward_backward()
+        with torch.no_grad():
+            g_norm = clip_by_global_norm(self.params, MAX_GRAD_NORM)
+            ok = torch.isfinite(g_norm)
+            if self.pose_vecs is not None and self.pose_vecs.grad is not None:
+                ok = ok & torch.isfinite(self.pose_vecs.grad).all()
+            written = self._update_tensors()
+            saved = [t.clone() for t in written]
+            self.optimizer.step()
+            if self.pose_vecs is not None:
+                sparse_adam_update(self.pose_vecs, self.pose_vecs.grad, self.cam_opt,
+                                   self._inputs["img_idx"], self.lr_cam)
+            for t, old in zip(written, saved):
+                t.copy_(torch.where(ok, t, old))
+            self._skipped.add_(~ok)
+            terms = torch.stack([v.detach() for v in losses.values()])
+            if self._skip_terms is None:
+                self._skip_terms = torch.full_like(terms, float("nan"))
+            self._skip_terms.copy_(torch.where(ok, self._skip_terms, terms))
+        self._losses = {k: v.detach() for k, v in losses.items()}
+
+    def _capture(self) -> None:
+        t0 = time.perf_counter()
+        stream = graphs.side_stream(self.device)
+        stream.wait_stream(torch.cuda.current_stream(self.device))
+        with torch.cuda.stream(stream):
+            # the warm-up: nothing of it is kept but what it builds
+            losses = self._forward_backward()
+            self._update_tensors()
+            if self._skip_terms is None or self._skip_terms.numel() != len(losses):
+                self._skip_terms = torch.full((len(losses),), float("nan"), device=self.device)
+            del losses
+            self._zero_grads()
+        torch.cuda.current_stream(self.device).wait_stream(stream)
+        try:
+            with graphs.capture_program(stream=stream) as program:
+                self._run()
+        except Exception as e:
+            raise RuntimeError(f"capturing the train step failed: {e}") from e
+        self.program = program
+        torch.cuda.synchronize(self.device)
+        self.captures += 1
+        self.capture_s = time.perf_counter() - t0
 
 
 def _sharded_step(model, loss_cfg, optimizer, pose_vecs, cam_opt, lr_cam, mesh,
@@ -464,12 +705,14 @@ class IDRTrainRunner:
         self.logger = (ScalarLogger(os.path.join(self.rundir, "logs"),
                                     use_tensorboard=log_tensorboard)
                        if self.is_writer else None)
-        # the built step, whose count of skipped updates each epoch logs;
-        # run() calls _step_fn, which a caller may wrap
+        # the built step (graphed on the card), whose count of skipped
+        # updates each epoch logs; run() calls _step_fn, which a caller may
+        # wrap
         self.train_step = build_train_step(self.model, self.loss_cfg, self.optimizer,
                                            pose_vecs=self.pose_vecs, cam_opt=self.cam_opt,
                                            lr_cam=self.lr_cam, mesh=mesh)
         self._step_fn = self.train_step
+        self._skipped_seen = 0
 
     def _cameras(self) -> Optional[Dict]:
         """The trainable cameras' checkpoint entries, or None."""
@@ -515,26 +758,30 @@ class IDRTrainRunner:
             pixel_idx = sample_pixels(self.generator, self.total_pixels, self.num_pixels)
             order = torch.randperm(self.n_images, generator=self.order_generator).to(self.device)
             launched = {k: c["launches"] for k, c in fm.launch_counts.items()}
-            skipped = self.train_step.skipped
 
             t0 = time.perf_counter()
             for i in range(self.steps_per_epoch):
-                for group in self.optimizer.param_groups:
-                    group["lr"] = self.lr_at(self.step_count)
+                set_lr(self.optimizer, self.lr_at(self.step_count))
                 losses = self._step_fn(self.scene, order[i * B:(i + 1) * B], pixel_idx,
                                        self.generator, alpha)
                 self.step_count += 1
-            # one device->host read of the losses an epoch (the step's own
-            # read is its finiteness check)
+            # one device->host read of the losses and of the skip count an
+            # epoch (the eager step also reads its finiteness check a step)
             host_losses = dict(zip(losses, torch.stack(list(losses.values())).tolist()))
+            skipped = self.train_step.skipped
             dt = time.perf_counter() - t0
+            skipped_steps, self._skipped_seen = skipped - self._skipped_seen, skipped
+            if skipped_steps and isinstance(self.train_step, GraphedTrainStep):
+                print(f"[train step] non-finite gradient: {skipped_steps} update(s) skipped in "
+                      f"epoch {epoch} ({skipped} so far); the last one's loss terms "
+                      f"{self.train_step.last_skipped_terms()}")
             rays_per_s = self.steps_per_epoch * self.num_pixels / dt
             kernel_launches = {f"{k}_launches": c["launches"] - launched[k]
                                for k, c in fm.launch_counts.items()}
             if not self.is_writer:
                 continue
             self.logger.log(epoch, rays_per_s=rays_per_s, alpha=alpha, **host_losses,
-                            skipped_steps=self.train_step.skipped - skipped, **kernel_launches)
+                            skipped_steps=skipped_steps, **kernel_launches)
             if epoch % 10 == 0:
                 print(f"[{epoch}] loss={host_losses['loss']:.5f} "
                       f"rgb={host_losses['rgb_loss']:.5f} "

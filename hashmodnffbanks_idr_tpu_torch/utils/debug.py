@@ -11,11 +11,16 @@ reads a flag back from the device:
     failure;
   * :func:`assert_finite` checks one tensor in place in model code;
   * :func:`enable_debug_nans` turns anomaly detection on process-wide.
+
+:func:`deterministic` runs a block with PyTorch's deterministic algorithms,
+so that two runs of a step on the card give the same bits.
 """
 
 from __future__ import annotations
 
+import contextlib
 import os
+import warnings
 from functools import wraps
 from typing import Iterator, Tuple
 
@@ -28,6 +33,21 @@ def debug_enabled() -> bool:
 
 def enable_debug_nans(on: bool = True) -> None:
     torch.autograd.set_detect_anomaly(on)
+
+
+@contextlib.contextmanager
+def deterministic():
+    """``torch.use_deterministic_algorithms`` for a block.  On the card the
+    hash grid's ``index_select`` backward then sums without atomics, which
+    otherwise part two runs of a step after a few steps; cuBLAS's warning
+    about its workspace is silenced (one stream keeps it deterministic)."""
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        try:
+            yield
+        finally:
+            torch.use_deterministic_algorithms(False)
 
 
 def _check(x: torch.Tensor, name: str) -> None:

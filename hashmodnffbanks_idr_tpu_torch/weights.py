@@ -70,10 +70,13 @@ def load_jax_adam_state(mu: dict, nu: dict, count: int, model: nn.Module,
     ``v`` are transposed and page-image tables become rows) and every
     parameter's ``step`` from ``count``."""
     exp_avg, exp_avg_sq = from_jax_params(mu, model), from_jax_params(nu, model)
+    capturable = any(g.get("capturable") for g in optimizer.param_groups)
     for name, p in model.named_parameters():
         optimizer.state[p] = {
-            # torch keeps a non-capturable Adam's step as a CPU float32 scalar
-            "step": torch.tensor(float(count), dtype=torch.float32),
+            # torch keeps a non-capturable Adam's step as a CPU float32
+            # scalar, a capturable one's on the parameter's device
+            "step": torch.tensor(float(count), dtype=torch.float32,
+                                 device=p.device if capturable else "cpu"),
             "exp_avg": exp_avg[name].to(p.device),
             "exp_avg_sq": exp_avg_sq[name].to(p.device),
         }

@@ -5,7 +5,8 @@ JAX, so they also run on a machine without it:
 
     python -m pytest tests/test_torch_cuda.py -m cuda --noconftest -q
 
-(``--noconftest`` skips ``tests/conftest.py``, which sets JAX up.)
+(``--noconftest`` skips ``tests/conftest.py``, which sets JAX up.)  The last
+tests hold the train step replayed from CUDA graphs against the eager step.
 """
 
 import numpy as np
@@ -14,6 +15,7 @@ import torch
 
 from hashmodnffbanks_idr_tpu_torch.models.networks import ImplicitNetwork
 from hashmodnffbanks_idr_tpu_torch.ops import fused_mlp as fm
+from hashmodnffbanks_idr_tpu_torch.utils.debug import deterministic
 
 pytestmark = pytest.mark.cuda
 
@@ -263,3 +265,161 @@ def test_cuda_pose7_step_matches_cpu(cuda_device):
     assert clear.any()
     assert float((p_gpu - p_cpu)[clear].abs().max()) <= 1e-6
     assert torch.equal(p_gpu[[0, 2]], torch.from_numpy(pose0)[[0, 2]])
+
+
+# ---------------------------------------------------------------------------
+# the graphed train step against the eager one
+# ---------------------------------------------------------------------------
+
+GRAPH_RAYS = 512
+# (tracer_fast, tracer_exact_fused, the kernel its tracer launches)
+GRAPH_MODES = {"exact+fused": ("exact", True, "fused_sdf_raw_f32"),
+               "mixed": ("mixed", False, "fused_sdf_raw_bf16")}
+
+
+def _flagship_step(device, mode, graphed, seed=0):
+    from hashmodnffbanks_idr_tpu_torch.models.loss import IDRLossConfig
+    from hashmodnffbanks_idr_tpu_torch.models.renderer import IDRNetwork
+    from hashmodnffbanks_idr_tpu_torch.testing import flagship_conf
+    from hashmodnffbanks_idr_tpu_torch.train.trainer import build_train_step, make_optimizer
+
+    tracer, fused, _ = GRAPH_MODES[mode]
+    conf = flagship_conf(num_pixels=GRAPH_RAYS)
+    conf.put("model.tracer_fast", tracer)
+    conf.put("model.tracer_exact_fused", fused)
+    model = IDRNetwork(conf.get_config("model"), device=device, seed=seed)
+    opt = make_optimizer(model)
+    step = build_train_step(model, IDRLossConfig(0.1, 200.0, 50.0), opt, graphed=graphed)
+    captured = {}
+    model.register_forward_hook(lambda m, a, o: captured.update(o))
+    return model, opt, step, captured
+
+
+def _graph_scene(device):
+    from hashmodnffbanks_idr_tpu_torch.testing import scene_to_device, synthetic_scene
+
+    return scene_to_device(synthetic_scene(n_views=2, img_res=(240, 320), seed=0), device)
+
+
+def _run_steps(device, mode, graphed, n_steps):
+    """``n_steps`` flagship steps from seed-0 weights and a generator seeded
+    1: per step the loss terms, the hit masks, the fused kernels' launches
+    (by variant and cluster size); then the model, optimizer, step and
+    scene."""
+    from hashmodnffbanks_idr_tpu_torch.utils.sampling import sample_pixels
+
+    scene = _graph_scene(device)
+    model, opt, step, captured = _flagship_step(device, mode, graphed)
+    gen = torch.Generator(device=device).manual_seed(1)
+    out = []
+    for i in range(n_steps):
+        seen = fm.snapshot_launch_counts()
+        losses = step(scene, torch.tensor([i % 2], device=device),
+                      sample_pixels(gen, 240 * 320, GRAPH_RAYS), gen, 50.0)
+        torch.cuda.synchronize()
+        out.append({"losses": {k: v.clone() for k, v in losses.items()},
+                    "mask": captured["network_object_mask"].clone(),
+                    "launches": fm.launch_counts_since(seen)})
+    return out, model, opt, step, scene
+
+
+@pytest.mark.parametrize("mode", sorted(GRAPH_MODES))
+def test_cuda_graphed_step_matches_the_eager_step(cuda_device, mode):
+    """The flagship (512 rays) graphed and eager from the same weights and
+    generator.  As the step runs by default: step 1's loss terms and hit
+    masks bit-identical (the same kernels in the same order).  Two eager
+    runs part after a few steps (the hash grid's backward sums with atomics,
+    and the mixed tracer's bf16 choices turn 1e-7 into 1e-3 of loss), so the
+    next 10 steps run with deterministic index ops, where two eager runs
+    agree bit for bit: every step's loss terms and hit masks and the
+    parameters after the 10 steps bit-identical (so within 1e-6 and 5e-4 /
+    2e-6); one capture."""
+    eager, *_ = _run_steps(cuda_device, mode, False, 1)
+    graphed, *_ = _run_steps(cuda_device, mode, True, 1)
+    for k in eager[0]["losses"]:
+        assert torch.equal(graphed[0]["losses"][k], eager[0]["losses"][k]), k
+    assert torch.equal(graphed[0]["mask"], eager[0]["mask"])
+    with deterministic():
+        eager, m_e, *_ = _run_steps(cuda_device, mode, False, 10)
+        graphed, m_g, _, step, _ = _run_steps(cuda_device, mode, True, 10)
+    for i, (g, e) in enumerate(zip(graphed, eager)):
+        for k in e["losses"]:
+            assert torch.equal(g["losses"][k], e["losses"][k]), (i, k)
+        assert torch.equal(g["mask"], e["mask"]), i
+    for (name, p), q in zip(m_e.named_parameters(), m_g.parameters()):
+        assert torch.equal(q.detach(), p.detach()), name
+    assert step.captures == 1 and step.skipped == 0
+
+
+@pytest.mark.parametrize("mode", sorted(GRAPH_MODES))
+def test_cuda_graphed_step_counts_its_kernel_launches(cuda_device, mode):
+    """The fused kernel's launches, points and cluster sizes counted under
+    replay, step by step, as the eager step counts them on the same inputs
+    (with deterministic index ops, so that the march makes the same
+    iterations on both sides), and its kernel launched in every step."""
+    kernel = GRAPH_MODES[mode][2]
+    with deterministic():
+        eager, *_ = _run_steps(cuda_device, mode, False, 3)
+        graphed, *_ = _run_steps(cuda_device, mode, True, 3)
+    for i in range(1, 3):   # step 1 of the graphed step also ran its warm-up
+        assert graphed[i]["launches"] == eager[i]["launches"], i
+        assert graphed[i]["launches"][kernel]["launches"] > 0
+
+
+def test_cuda_graphed_step_skips_a_nonfinite_step_on_the_device(cuda_device):
+    """A step whose loss is NaN (alpha NaN, a static input of the graphs):
+    the parameters and the Adam state bit-unchanged, the device counter one
+    more, as the eager step skips it; the next step updates again."""
+    from hashmodnffbanks_idr_tpu_torch.utils.sampling import sample_pixels
+
+    _, model, opt, step, scene = _run_steps(cuda_device, "exact+fused", True, 2)
+    before = ([p.detach().clone() for p in model.parameters()],
+              [t.clone() for st in opt.state.values() for t in st.values()])
+    gen = torch.Generator(device=cuda_device).manual_seed(2)
+    losses = step(scene, torch.tensor([0], device=cuda_device),
+                  sample_pixels(gen, 240 * 320, GRAPH_RAYS), gen, float("nan"))
+    assert not torch.isfinite(losses["loss"]) and step.skipped == 1
+    for a, b in zip(before[0], model.parameters()):
+        assert torch.equal(a, b.detach())
+    for a, b in zip(before[1], [t for st in opt.state.values() for t in st.values()]):
+        assert torch.equal(a, b)
+    step(scene, torch.tensor([1], device=cuda_device),
+         sample_pixels(gen, 240 * 320, GRAPH_RAYS), gen, 50.0)
+    assert step.skipped == 1 and step.captures == 1
+    assert not all(torch.equal(a, b.detach()) for a, b in zip(before[0], model.parameters()))
+
+
+def test_cuda_graphed_step_captures_again_after_a_resume(cuda_device, tmp_path):
+    """Two graphed steps, a checkpoint, and the checkpoint loaded back (the
+    optimizer's state tensors are new): the next call captures again, and
+    with deterministic index ops its loss terms, hit masks and parameters
+    equal bit for bit those of an eager step resumed from the same
+    checkpoint."""
+    from hashmodnffbanks_idr_tpu_torch.train import checkpoints as ckpt
+    from hashmodnffbanks_idr_tpu_torch.utils.sampling import sample_pixels
+
+    _, model, opt, step, scene = _run_steps(cuda_device, "exact+fused", True, 2)
+    ckpt.save_checkpoint(str(tmp_path), 2, model, opt, 2)
+    after = {}
+    with deterministic():
+        for graphed in (True, False):
+            if not graphed:
+                model, opt, step, captured = _flagship_step(cuda_device, "exact+fused", False,
+                                                            seed=5)
+            else:
+                captured = {}
+                model.register_forward_hook(lambda m, a, o: captured.update(o))
+            ckpt.load_checkpoint(str(tmp_path), "latest", model, opt)
+            gen = torch.Generator(device=cuda_device).manual_seed(3)
+            losses = step(scene, torch.tensor([1], device=cuda_device),
+                          sample_pixels(gen, 240 * 320, GRAPH_RAYS), gen, 50.0)
+            torch.cuda.synchronize()
+            after[graphed] = (losses, captured["network_object_mask"].clone(),
+                              [p.detach().clone() for p in model.parameters()], step)
+    (l_g, m_g, p_g, s_g), (l_e, m_e, p_e, _) = after[True], after[False]
+    assert s_g.captures == 2
+    for k in l_e:
+        assert torch.equal(l_g[k], l_e[k]), k
+    assert torch.equal(m_g, m_e)
+    for a, b in zip(p_g, p_e):
+        assert torch.equal(a, b)
