@@ -5,8 +5,10 @@ Run from the repository root on a machine with one NVIDIA H100:
 
     python3 chip_smoke.py
 
-It builds the CUDA kernel from ``hashmodnffbanks_idr_tpu_torch/ops/csrc``
-into ``build/``, holds each kernel variant against its plain PyTorch twin at
+It prints the versions of the CUDA toolkit and the CUDA driver, builds the CUDA
+sources of ``hashmodnffbanks_idr_tpu_torch/ops/csrc`` (``fused_mlp.cu`` and
+``graph_loops.cu``, one ``nvcc`` each, started together) into ``build/``,
+holds each kernel variant against its plain PyTorch twin at
 the flagship widths, and at every cluster size (C = 1, 2, 4 CTAs sharing a
 64-point tile) against the twin and bit for bit against C = 1 (N = 1, 63,
 64, 65, 2048, 2049, 4096, 4113), times each C at each timed call and
@@ -18,19 +20,24 @@ preset unfused and in ``mixed``, through the bf16 kernel: loss within 1%,
 hit masks on 98% of the rays), launches each variant 100 times at each
 compiled first-layer depth and each C on one input of 4113 points and
 requires the same bits every time (``deterministic`` in the kernels line),
-then drives
+holds ``set_while`` (a CUDA graph's while-node condition set on the device)
+against the loop that reads its predicate on the host and times an
+iteration of each (``[set_while]``), then drives
 the flagship StyleModNFFB training step
 (2048 rays, 1200x1600 synthetic two-view scene, random weights from a seed)
 in four tracer configurations and times it.  Every train step on the card,
-there and in every phase after, is the step replayed from CUDA graphs
-(``build_train_step``'s default on the card; each runner's step must be
-one, captured once).  The ``[graph]`` phase holds it against the eager step
-(``graphed=False``) in five cells (the flagship's four and ngp log2=15
-mixed), in turns: step 1's loss terms and hit masks bit-identical, then with
-deterministic index ops 10 steps bit-identical (loss terms, masks,
-parameters) with the fused kernels' launches counted under replay as the
-eager step counts them, a NaN step skipped on the device; it prints each
-variant's ms/step and the capture's seconds.  Then it runs the user's path:
+there and in every phase after, is the step launched as one CUDA graph a
+step, its tracer loops conditional while-nodes (``build_train_step``'s
+default on the card; each runner's step must be one, captured once).  The
+``[graph]`` phase holds it against the eager step (``graphed=False``) in
+five cells (the flagship's four and ngp log2=15 mixed), in turns: step 1's
+loss terms and hit masks bit-identical, then with deterministic index ops
+10 steps bit-identical (loss terms, masks, parameters) with the fused
+kernels' launches and each loop's iterations (the device totals) counted
+as the eager step counts them, one graph launch a step and no host
+synchronisation inside it (sync-debug mode "error"), a NaN step skipped on
+the device; it prints each variant's ms/step, the capture's seconds, the
+loop totals and the eager step's host syncs a step.  Then it runs the user's path:
 the port's ``dummy_cli`` writes the dummy scene, ``exp_runner`` trains the
 repo's ``dummy_stylemodnffb.conf`` (with the ``mixed`` tracer) for 30 epochs
 and resumes it to epoch 32, and a DTU-size scan (49 distinct views) is
@@ -76,7 +83,8 @@ step and runner records give the launches a step by cluster size.  Every
 runner record reports the steps whose update the train step skipped
 (``skipped_steps``).  Any failed check
 raises and the script exits non-zero.  The second-to-last line is the kernels' JSON
-record, the last line ``{"ok": true, "device": {...}}``.
+record (the two fused variants and ``set_while``), the last line
+``{"ok": true, "device": {...}}``.
 
 It imports nothing of JAX and nothing of the JAX package, and exits non-zero
 without a result when CUDA is unavailable.
@@ -96,6 +104,7 @@ import subprocess
 import sys
 import tempfile
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import numpy as np
@@ -103,8 +112,12 @@ import torch
 
 # H100 SXM peaks (NVIDIA data sheet; dense, at the 700 W limit): f32 on the
 # CUDA cores, tf32 and bf16 on the tensor cores
+from hashmodnffbanks_idr_tpu_torch.ops import graph_loops as gl
+from hashmodnffbanks_idr_tpu_torch.utils import graphs
+from hashmodnffbanks_idr_tpu_torch.utils.compile_cache import nvcc
 from hashmodnffbanks_idr_tpu_torch.utils.profiling import H100_PEAK_BYTES_PER_S as PEAK_BYTES_PER_S
 from hashmodnffbanks_idr_tpu_torch.utils.profiling import H100_PEAK_FLOPS as PEAK_FLOPS
+from hashmodnffbanks_idr_tpu_torch.utils.profiling import host_syncs
 
 TOL_F32 = 1e-5     # GPU expf/log1pf and the summation order differ from the CPU
 TOL_BF16 = 3e-2    # bf16 operands (tests/test_fused_mlp.py:36-40)
@@ -227,6 +240,17 @@ GRAPH_CELLS = (("exact+fused", None, "exact", True, "fused_sdf_raw_f32"),
                ("exact (unfused)", None, "exact", False, None),
                ("ngp log2=15 mixed", "ngp_log2_15", "mixed", False, "fused_sdf_raw_bf16"))
 GRAPH_TIMED, GRAPH_HELD = 11, 10
+
+
+# the set_while kernel (ops/csrc/graph_loops.cu) in a while-node against its
+# plain twin, the loop that reads its predicate on the host: (limit,
+# max_iters) of a counting loop that ends on its predicate, is cut by its
+# cap, runs no body, has cap 0; then SET_WHILE_TIMED iterations timed
+SET_WHILE_CASES = ((5, 10), (5, 3), (0, 10), (5, 0))
+SET_WHILE_TIMED = 10000
+# bytes one set_while moves: the predicate and the counter read, the total
+# read and written
+SET_WHILE_BYTES = 1 + 8 + 8 + 8
 
 
 def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
@@ -382,6 +406,74 @@ def phase_kernels(dev, fm, model):
     return records
 
 
+def counting_loop(dev, limit: int, max_iters: int):
+    """A loop state and a function that runs ``x = 0; while x < limit (at
+    most max_iters times): x += 1`` on ``while_loop``."""
+    st = {"x": torch.zeros((), dtype=torch.int64, device=dev),
+          "limit": torch.tensor(limit, device=dev)}
+
+    def body(s, _):
+        s["x"].add_(1)
+
+    def run():
+        st["x"].zero_()
+        graphs.while_loop(lambda s: s["x"] < s["limit"], body, st, max_iters)
+
+    return st, run
+
+
+def captured(dev, run) -> "graphs.Program":
+    """``run`` captured and assembled into one executable graph."""
+    with graphs.capture_program(stream=graphs.side_stream(dev)) as program:
+        run()
+    program.instantiate()
+    return program
+
+
+@torch.no_grad()
+def phase_set_while(dev) -> dict:
+    """``set_while`` (a while-node's condition set on the device) against
+    its plain twin (``while_loop`` eagerly, the predicate read on the host)
+    on the same loops, ``SET_WHILE_CASES``: x and the iterations (the
+    device total folded in) equal.  Then the time of one iteration of
+    a loop of SET_WHILE_TIMED, launched as one graph and run eagerly: x +=
+    1, the counter's add and the predicate, and in the graph the
+    predicate's copy, set_while and the node's re-evaluation; in the eager
+    loop a host read an iteration."""
+    max_err = 0
+    for limit, max_iters in SET_WHILE_CASES:
+        out = {}
+        for graphed in (False, True):
+            st, run = counting_loop(dev, limit, max_iters)
+            graphs.loop_iterations.clear()
+            if graphed:
+                program = captured(dev, run)
+                program.replay()
+                graphs.fold_device_counts()
+            else:
+                run()
+            out[graphed] = (int(st["x"]), graphs.loop_iterations.get("body", 0))
+        err = max(abs(a - b) for a, b in zip(out[True], out[False]))
+        print(f"[set_while] limit={limit} max_iters={max_iters}: x and iterations graphed "
+              f"{out[True]} eager {out[False]}")
+        if err or out[False][1] != min(limit, max_iters):
+            raise AssertionError(f"set_while: limit {limit} max_iters {max_iters}: graphed "
+                                 f"{out[True]}, eager {out[False]}")
+        max_err = max(max_err, err)
+    n = SET_WHILE_TIMED
+    st, run = counting_loop(dev, n, n)
+    program = captured(dev, run)
+    ms = cuda_ms(program.replay, iters=5, warmup=1) / n
+    plain_ms = cuda_ms(run, iters=2, warmup=1) / n
+    if int(st["x"]) != n:
+        raise AssertionError(f"set_while: the timed loop counted to {int(st['x'])}, not {n}")
+    rec = {"ms": ms, "plain_ms": plain_ms, "iterations_timed": n, "max_abs_err": max_err,
+           "bound_ms": SET_WHILE_BYTES / PEAK_BYTES_PER_S * 1e3, "bound_by": "bytes",
+           "library_ms": None, "cases": [list(c) for c in SET_WHILE_CASES]}
+    print(f"[set_while] {json.dumps(rec)}")
+    return rec
+
+
 def phase_reference(dev, fm, conf=None, label="exact+fused", expect="fused_sdf_raw_f32"):
     """One small step on the card against the same step on the CPU (plain
     twin), same weights and draws: loss within 1% and hit masks on 98% of
@@ -423,7 +515,7 @@ def phase_reference(dev, fm, conf=None, label="exact+fused", expect="fused_sdf_r
                              captured["network_object_mask"].cpu())
     (l_gpu, m_gpu), (l_cpu, m_cpu) = outs["cuda"], outs["cpu"]
     agree = float((m_gpu == m_cpu).float().mean())
-    launches = {k: c["launches"] for k, c in fm.launch_counts.items()}
+    launches = {k: c["launches"] for k, c in fm.snapshot_launch_counts().items()}
     rec = {"label": label, "rays": n_rays, "loss_cuda": l_gpu, "loss_cpu": l_cpu,
            "loss_rel_diff": abs(l_gpu - l_cpu) / abs(l_cpu), "hits_cuda": int(m_gpu.sum()),
            "hits_cpu": int(m_cpu.sum()), "mask_agreement": agree, "launches": launches}
@@ -488,15 +580,21 @@ def phase_step(dev, fm, scene, label, mode, fused, warmup, steps, expect=None, c
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     fm.reset_launch_counts()
+    gl.launch_counts["set_while"] = 0
+    graphs.loop_iterations.clear()
+    launched = step.program.launches
     times, per_step, losses = [], [], None
     for _ in range(steps):
-        seen = {k: v["launches"] for k, v in fm.launch_counts.items()}
+        seen = fm.snapshot_launch_counts()
         t0 = time.perf_counter()
         losses = step(scene, img_idx, sample_pixels(gen, total, N_RAYS), gen, ALPHA)
         torch.cuda.synchronize()
         times.append((time.perf_counter() - t0) * 1e3)
-        per_step.append({k: fm.launch_counts[k]["launches"] - seen[k] for k in seen})
-    counts = {k: dict(v) for k, v in fm.launch_counts.items()}
+        per_step.append({k: c["launches"] for k, c in fm.launch_counts_since(seen).items()})
+    counts = fm.snapshot_launch_counts()
+    set_while = gl.launch_counts["set_while"]
+    iterations = dict(graphs.loop_iterations)
+    graph_launches = step.program.launches - launched
     tracer_ms = time_tracer(model, scene, img_idx, sample_pixels(gen, total, N_RAYS), gen)
 
     loss = float(losses["loss"])
@@ -508,6 +606,9 @@ def phase_step(dev, fm, scene, label, mode, fused, warmup, steps, expect=None, c
         raise AssertionError(f"{label}: {expect} was not launched in every step: {per_step}")
     if step.captures != 1 or step.skipped:
         raise AssertionError(f"{label}: {step.captures} captures, {step.skipped} skipped steps")
+    if graph_launches != steps or not set_while:
+        raise AssertionError(f"{label}: {graph_launches} graph launches in {steps} steps, "
+                             f"set_while ran {set_while} times")
     ms = statistics.median(times)
     rec = {"label": label, "graphed": True, "capture_s": step.capture_s,
            "graphs": step.program.graphs(), "steps": steps, "ms_per_step_median": ms,
@@ -519,18 +620,27 @@ def phase_step(dev, fm, scene, label, mode, fused, warmup, steps, expect=None, c
                c: counts["fused_sdf_raw_f32"][f"cluster_{c}"] / steps for c in fm.CLUSTER_SIZES},
            "bf16_launches_per_step_by_cluster": {
                c: counts["fused_sdf_raw_bf16"][f"cluster_{c}"] / steps for c in fm.CLUSTER_SIZES},
-           "max_memory_allocated_mib": torch.cuda.max_memory_allocated() / 2**20}
+           "max_memory_allocated_mib": torch.cuda.max_memory_allocated() / 2**20,
+           "graph_launches_per_step": graph_launches / steps,
+           "loop_iterations_per_step": {k: v / steps for k, v in iterations.items()},
+           "set_while_per_step": set_while / steps}
     print(f"[{tag}] {json.dumps(rec)}")
     fm.reset_launch_counts()
+    counts["set_while"] = {"launches": set_while}
     return counts
 
 
-def graph_pair_run(dev, fm, scene, conf, steps: int) -> dict:
+def graph_pair_run(dev, fm, scene, conf, steps: int, count_syncs: bool = False) -> dict:
     """The step graphed and eager from the same weights (seed 0) and
     generators (seed 1), ``steps`` steps each, in turns (graphed first on
-    odd steps): per step and variant the loss terms, hit masks, wall ms and
-    the fused kernels' launches; then each variant's parameters and the
-    graphed step's captures."""
+    odd steps): per step and variant the loss terms, hit masks, wall ms,
+    the fused kernels' launches, each loop's iterations (``graphs.
+    loop_iterations``: the eager loop's host count, the graph's device
+    totals) and the graph's launches; then each variant's parameters and
+    the graphed step's captures.  With ``count_syncs`` every step after the
+    first counts the host's synchronisations: the eager step under the
+    sync-debug mode "warn", the graphed step under "error" (a launch that
+    synchronises raises)."""
     from hashmodnffbanks_idr_tpu_torch.models.loss import IDRLossConfig
     from hashmodnffbanks_idr_tpu_torch.models.renderer import IDRNetwork
     from hashmodnffbanks_idr_tpu_torch.train.trainer import build_train_step, make_optimizer
@@ -550,15 +660,30 @@ def graph_pair_run(dev, fm, scene, conf, steps: int) -> dict:
         for graphed in ((True, False) if i % 2 == 0 else (False, True)):
             r = runs[graphed]
             seen = fm.snapshot_launch_counts()
+            iters_seen = dict(graphs.loop_iterations)
+            program = getattr(r["step"], "program", None)
+            launched = program.launches if program is not None else 0
             pix = sample_pixels(r["gen"], total, N_RAYS)
+            img = torch.tensor([i % 2], device=dev)
+            mode = "error" if graphed else "warn"
             torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            losses = r["step"](scene, torch.tensor([i % 2], device=dev), pix, r["gen"], ALPHA)
+            with (host_syncs(mode) if count_syncs and i > 0 else contextlib.nullcontext([None])
+                  ) as syncs:
+                t0 = time.perf_counter()
+                losses = r["step"](scene, img, pix, r["gen"], ALPHA)
             torch.cuda.synchronize()
-            r["steps"].append({"ms": (time.perf_counter() - t0) * 1e3,
+            ms = (time.perf_counter() - t0) * 1e3
+            program = getattr(r["step"], "program", None)
+            r["steps"].append({"ms": ms,
                                "losses": {k: v.clone() for k, v in losses.items()},
                                "mask": r["captured"]["network_object_mask"].clone(),
-                               "launches": fm.launch_counts_since(seen)})
+                               "launches": fm.launch_counts_since(seen),
+                               "iterations": {k: v - iters_seen.get(k, 0)
+                                              for k, v in graphs.loop_iterations.items()
+                                              if v != iters_seen.get(k, 0)},
+                               "graph_launches": (program.launches - launched
+                                                  if program is not None else 0),
+                               "host_syncs": syncs[0]})
     for r in runs.values():
         r["params"] = [p.detach().clone() for p in r["model"].parameters()]
         del r["model"], r["captured"]
@@ -566,7 +691,7 @@ def graph_pair_run(dev, fm, scene, conf, steps: int) -> dict:
 
 
 def phase_graph(dev, fm, scene, smi: str) -> dict:
-    """The step replayed from CUDA graphs against the eager step, in the
+    """The step launched as one CUDA graph against the eager step, in the
     five cells of ``GRAPH_CELLS``, in turns (``graph_pair_run``):
 
     * as the step runs by default, GRAPH_TIMED steps of each: step 1's loss
@@ -579,7 +704,11 @@ def phase_graph(dev, fm, scene, smi: str) -> dict:
       sharded step's bounds, loss 1e-6, parameters 5e-4 / 2e-6, and more),
       and every step's fused-kernel launches (by variant, points and
       cluster size) counted under replay as the eager step counts them,
-      the cell's kernel launched in every step;
+      the cell's kernel launched in every step, each loop's iterations
+      (the device totals) equal to the eager loop's, one graph launch a
+      step, and no host synchronisation inside the graphed step's calls
+      after the first (sync-debug mode "error"; the eager step's are
+      counted under "warn");
     * one step whose alpha is NaN (a static input of the graphs): the
       update skipped on the device (``skipped``), the parameters unchanged.
 
@@ -606,7 +735,7 @@ def phase_graph(dev, fm, scene, smi: str) -> dict:
         if not torch.equal(g0["mask"], e0["mask"]):
             raise AssertionError(f"[graph] {label}: step 1's hit masks differ")
         with deterministic():
-            held = graph_pair_run(dev, fm, scene, conf, GRAPH_HELD)
+            held = graph_pair_run(dev, fm, scene, conf, GRAPH_HELD, count_syncs=True)
         for i, (g, e) in enumerate(zip(held[True]["steps"], held[False]["steps"])):
             for k in e["losses"]:
                 if not torch.equal(g["losses"][k], e["losses"][k]):
@@ -618,6 +747,13 @@ def phase_graph(dev, fm, scene, smi: str) -> dict:
                                      f"graphed, {e['launches']} eager")
             if kernel is not None and not g["launches"][kernel]["launches"]:
                 raise AssertionError(f"[graph] {label}: step {i + 1} launched no {kernel}")
+            if i > 0 and (g["iterations"] != e["iterations"]
+                          or not g["iterations"].get("march_body")):
+                raise AssertionError(f"[graph] {label}: step {i + 1}'s loops ran "
+                                     f"{g['iterations']} graphed, {e['iterations']} eager")
+            if g["graph_launches"] != 1 or (i > 0 and g["host_syncs"] != 0):
+                raise AssertionError(f"[graph] {label}: step {i + 1}: {g['graph_launches']} "
+                                     f"graph launches, {g['host_syncs']} host syncs")
         param_max = max(float((a - b).abs().max())
                         for a, b in zip(held[True]["params"], held[False]["params"]))
         if param_max != 0.0:
@@ -639,7 +775,7 @@ def phase_graph(dev, fm, scene, smi: str) -> dict:
                                  f"parameters unchanged {unchanged}, {step.captures} captures")
         del model, opt, step
 
-        counts = {k: dict(v) for k, v in fm.launch_counts.items()}
+        counts = fm.snapshot_launch_counts()
         ms = {v: [s["ms"] for s in timed[v]["steps"][1:]] for v in (True, False)}
         rec = {"label": label, "card": smi, "steps_timed": GRAPH_TIMED - 1,
                "steps_held": GRAPH_HELD,
@@ -655,7 +791,12 @@ def phase_graph(dev, fm, scene, smi: str) -> dict:
                "nan_step_skipped": True, "nan_step_loss": float(bad["loss"]),
                "kernel_launches_per_step": {
                    k: [s["launches"][k]["launches"] for s in held[True]["steps"]]
-                   for k in counts}}
+                   for k in counts},
+               "graph_launches_per_step": [s["graph_launches"] for s in held[True]["steps"]],
+               "loop_iterations_per_step": [s["iterations"] for s in held[True]["steps"]],
+               "host_syncs_per_step": {
+                   "graphed": [s["host_syncs"] for s in held[True]["steps"][1:]],
+                   "eager": [s["host_syncs"] for s in held[False]["steps"][1:]]}}
         print(f"[graph] {json.dumps(rec)}")
         records[label] = counts
         del timed, held
@@ -709,7 +850,7 @@ def phase_runner(fm, smi: str, workdir: str) -> dict:
     first = exp_runner.main(common + ["--nepoch", str(RUNNER_EPOCHS)])
     t_first = time.perf_counter() - t0
     second = exp_runner.main(common + ["--nepoch", str(RUNNER_EPOCHS + 2), "--is_continue"])
-    counts = {k: dict(v) for k, v in fm.launch_counts.items()}
+    counts = fm.snapshot_launch_counts()
     require_graphed(first, second)
 
     missing = [f"{n}.pt" for n in (0, 25, RUNNER_EPOCHS, "latest")
@@ -930,7 +1071,7 @@ def phase_eval(fm, smi: str, workdir: str):
         model = IDRNetwork(vconf.get_config("model"))
         ckpt.load_checkpoint(runner.checkpoints_path, "latest", model)
         ev = Evaluator(vconf, model, dataset=runner.train_dataset)
-        seen = {k: dict(v) for k, v in fm.launch_counts.items()}
+        seen = fm.snapshot_launch_counts()
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         with keep_largest_call(fm, kept):
@@ -943,11 +1084,11 @@ def phase_eval(fm, smi: str, workdir: str):
             "peak_mib": torch.cuda.max_memory_allocated() / 2**20,
             "psnr": masked_psnr((view["rgb"] + 1) / 2 * m3, (view["gt_rgb"] + 1) / 2 * m3,
                                 view["gt_mask"], data_range=1.0),
-            "launches": {k: fm.launch_counts[k]["launches"] - seen[k]["launches"] for k in seen},
-            "points": {k: fm.launch_counts[k]["points"] - seen[k]["points"] for k in seen}}
+            "launches": {k: c["launches"] for k, c in fm.launch_counts_since(seen).items()},
+            "points": {k: c["points"] for k, c in fm.launch_counts_since(seen).items()}}
         if kernel is not None and renders[label]["launches"][kernel] <= 0:
             raise AssertionError(f"eval render {label}: {kernel} was not launched")
-    counts = {k: dict(v) for k, v in fm.launch_counts.items()}
+    counts = fm.snapshot_launch_counts()
     # each kernel on the largest input the render gave it (launches made
     # here are comparisons and are not counted)
     largest = {name: {"n": x.shape[0], "max_abs_err": hold_against_plain(
@@ -1012,7 +1153,7 @@ def camera_step(device, fm, conf, scene, pose0, img_idx, pixel_idx, draws):
                   draws={k: v.to(device) for k, v in draws.items()})
     if device.type == "cuda":
         torch.cuda.synchronize()
-    launches = {k: dict(c) for k, c in fm.launch_counts.items()}
+    launches = fm.snapshot_launch_counts()
     return {"losses": {k: float(v) for k, v in losses.items()},
             "mask": captured["network_object_mask"].cpu(), "grad": pose_vecs.grad.cpu(),
             "pose": pose_vecs.detach().cpu(), "cam_opt": {k: v.cpu() for k, v in cam_opt.items()},
@@ -1135,7 +1276,7 @@ def phase_cameras(dev, fm, smi: str, workdir: str, data_root: str) -> dict:
     kept = []
     with runner_start_state(kept):
         second = exp_runner.main(common + ["--nepoch", str(CAM_EPOCHS + 2), "--is_continue"])
-    counts = {k: dict(v) for k, v in fm.launch_counts.items()}
+    counts = fm.snapshot_launch_counts()
     for name, c in step_launches.items():
         for k in ("launches", "points"):
             counts[name][k] += c[k]
@@ -1276,7 +1417,7 @@ def parallel_rank(rank: int, world: int, dev, workdir: str) -> dict:
     with keep_largest_call(fm, kept):
         sharded = steps["sharded"](scene, img_idx, pixel_idx, None, ALPHA, draws=draws)
         torch.cuda.synchronize()
-    counts = {k: dict(v) for k, v in fm.launch_counts.items()}
+    counts = fm.snapshot_launch_counts()
     if counts["fused_sdf_raw_f32"]["launches"] == 0:
         raise AssertionError(f"parallel: rank {rank}: the sharded step launched no f32 kernel")
     unsharded = steps["unsharded"](scene, img_idx, pixel_idx, None, ALPHA, draws=draws)
@@ -1333,7 +1474,7 @@ def parallel_rank(rank: int, world: int, dev, workdir: str) -> dict:
                             log_tensorboard=False, device=dev, mesh=mesh)
     runner.run()
     runner_s = time.perf_counter() - t0
-    runner_counts = {k: dict(v) for k, v in fm.launch_counts.items()}
+    runner_counts = fm.snapshot_launch_counts()
     if runner_counts["fused_sdf_raw_bf16"]["launches"] == 0:
         raise AssertionError(f"parallel: rank {rank}: the runner launched no bf16 kernel")
     rec = {"rank": rank, "world": world, "mesh": list(mesh.shape), "losses": losses,
@@ -1568,7 +1709,7 @@ def phase_ngp_runner(fm, smi: str, workdir: str, data_root: str) -> dict:
                                   "--data_root", data_root, "--no_tensorboard",
                                   "--exps_folder_name", os.path.join(workdir, "exps_ngp")])
         train_s = time.perf_counter() - t0
-        counts[conf_name] = {k: dict(v) for k, v in fm.launch_counts.items()}
+        counts[conf_name] = fm.snapshot_launch_counts()
         require_graphed(runner)
         rows = read_scalars(runner.rundir)
         bf16 = [r["fused_sdf_raw_bf16_launches"] for r in rows]
@@ -1712,9 +1853,21 @@ def main() -> int:
     print(f"[bound] peaks {PEAK_FLOPS} FLOP/s, {PEAK_BYTES_PER_S} B/s are the H100 SXM's: "
           f"{'this card' if sxm else 'NOT this card; bound_ms is only indicative'}")
 
+    release = subprocess.run([nvcc(), "--version"], capture_output=True, text=True,
+                             check=True).stdout.strip().splitlines()[-2]
+    cuda_driver = subprocess.run(["nvidia-smi", "--query-gpu=driver_version",
+                             "--format=csv,noheader"], capture_output=True, text=True,
+                            check=True).stdout.strip()
+    print(f"[versions] nvcc: {release}; CUDA driver {cuda_driver}; torch {torch.__version__} "
+          f"built with CUDA {torch.version.cuda}")
+
+    # one nvcc for each source, both started together
     t0 = time.perf_counter()
-    fm.load_library()
-    print(f"[build] fused_mlp.cu built and loaded in {time.perf_counter() - t0:.1f} s")
+    with ThreadPoolExecutor(2) as pool:
+        for build in [pool.submit(fm.load_library), pool.submit(gl.load_library)]:
+            build.result()
+    print(f"[build] fused_mlp.cu and graph_loops.cu built and loaded in "
+          f"{time.perf_counter() - t0:.1f} s")
     report = fm.ptxas_report().read_text()
     print(report.strip())
     regs = check_spills(report, fm.KERNEL_DEPTHS)
@@ -1732,6 +1885,7 @@ def main() -> int:
     phase_reference(dev, fm, conf=ngp_mixed, label="ngp log2=15 mixed",
                     expect="fused_sdf_raw_bf16")
     deterministic = phase_determinism(dev, fm)
+    set_while = phase_set_while(dev)
 
     scene = scene_to_device(synthetic_scene(n_views=2, img_res=IMG_RES, seed=0), dev)
     phases = {
@@ -1803,6 +1957,17 @@ def main() -> int:
             raise AssertionError(f"{cell}: {name} never ran on clusters of {march_c}, the "
                                  f"rule's size at N=4096: {rec['launches_by_cluster']}")
         out.append(rec)
+    # set_while: its runs in the exact+fused cell (before each while-node
+    # and after each body), its check and times per iteration
+    out.append({"name": "set_while", "route": "cuda",
+                "source": "hashmodnffbanks_idr_tpu_torch/ops/csrc/graph_loops.cu",
+                "replaces": "hashmodnffbanks_idr_tpu/models/ray_tracing.py:316",
+                "replaces_note": "jax.lax.while_loop (XLA's on-device while, :316 and :333); "
+                                 "no Pallas kernel",
+                "launches": phases["exact+fused"]["set_while"]["launches"],
+                "launches_by_phase": {p: c["set_while"]["launches"]
+                                      for p, c in phases.items() if "set_while" in c},
+                **set_while})
     print(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": out}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

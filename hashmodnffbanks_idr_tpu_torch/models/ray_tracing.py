@@ -7,9 +7,11 @@ compaction), so a decision that compares against ``sdf_threshold`` is taken
 on the same lanes by both.  The JAX ``lax.while_loop``s of the march and its
 line search become the port's ``utils.graphs.while_loop``: the loop's state
 is a fixed set of tensors (``MARCH_STATE``) that a body updates in place,
-and its predicate (``mask.any()``) is computed on the device and read on
-the host once an iteration, eagerly or between the replays of the graphed
-train step's captured bodies.
+with the iteration counter on the device (the line search's ``k`` indexes
+its backstep table, ``line_search_steps``), and its predicate
+(``mask.any()``) is computed on the device: read on the host once an
+iteration by the eager step, on the device by the graphed train step's
+while-nodes.
 
 The caller runs the tracer under ``torch.no_grad()``.  ``draws`` injects the
 sweep's uniform draws (``sweep_draws``) so tests can feed both
@@ -208,6 +210,17 @@ def _sphere_tracing(cfg, sdf, cam, dirs, mask_intersect, near, far, sdf_march=No
                   iters=cfg.sphere_tracing_iters, threshold=cfg.sdf_threshold)
 
 
+def line_search_steps(cfg: RayTracerConfig, device) -> torch.Tensor:
+    """The line search's backsteps ``(1 - line_search_step) / 2**k`` for
+    k < ``line_step_iters``, float32 on ``device``, built there (nothing
+    is copied from the host): each is the float32 that the Python step
+    rounds to, since halving is exact."""
+    n = cfg.line_step_iters
+    halves = torch.full((n,), 0.5, dtype=torch.float32, device=device).cumprod(0) * 2.0
+    return torch.full((n,), 1.0 - cfg.line_search_step, dtype=torch.float32,
+                      device=device) * halves
+
+
 # the march's loop-carried state, updated in place by its bodies
 MARCH_STATE = ("acc_s", "acc_e", "unfin_s", "unfin_e", "curr_s", "curr_e", "next_s", "next_e",
                "not_ps", "not_pe", "curr_pts")
@@ -218,7 +231,8 @@ def _march(cfg, sdf, cam, dirs, mask_intersect, near, far, *, iters, threshold,
     """JAX :236-335: an init, then the march (``iters`` at most) and, inside
     each march step, the line search (``cfg.line_step_iters`` at most), each
     a ``while_loop`` over ``MARCH_STATE`` with its predicate computed on the
-    device."""
+    device; the line search's counter ``k`` (``st["k"]``) picks its step
+    from ``line_search_steps`` on the device."""
     min_dis = torch.where(mask_intersect, near, 0.0)
     max_dis = torch.where(mask_intersect, far, 0.0)
 
@@ -245,6 +259,7 @@ def _march(cfg, sdf, cam, dirs, mask_intersect, near, far, *, iters, threshold,
         acc_s, acc_e, unfin_s & (curr_s > threshold), unfin_e & (curr_e > threshold),
         curr_s, curr_e, torch.zeros_like(curr_s), torch.zeros_like(curr_e),
         torch.zeros_like(unfin_s), torch.zeros_like(unfin_e), curr_pts)))
+    steps = line_search_steps(cfg, cam.device)
 
     def march_cond(st):
         return (st["unfin_s"] | st["unfin_e"]).any()
@@ -252,10 +267,10 @@ def _march(cfg, sdf, cam, dirs, mask_intersect, near, far, *, iters, threshold,
     def line_cond(st):
         return (st["not_ps"] | st["not_pe"]).any()
 
-    def line_body(st, k):
+    def line_body(st, _):
         """A backstep of (1 - line_search_step) / 2**k for overshoot
-        (ray_tracing.py:164-183); one body per k."""
-        step = (1.0 - cfg.line_search_step) / (2.0**k)
+        (ray_tracing.py:164-183), k the loop's counter on the device."""
+        step = steps.index_select(0, st["k"].reshape(1))
         not_ps, not_pe = st["not_ps"], st["not_pe"]
         st["acc_s"].copy_(torch.where(not_ps, st["acc_s"] - step * st["curr_s"], st["acc_s"]))
         st["acc_e"].copy_(torch.where(not_pe, st["acc_e"] + step * st["curr_e"], st["acc_e"]))
@@ -273,7 +288,7 @@ def _march(cfg, sdf, cam, dirs, mask_intersect, near, far, *, iters, threshold,
         st["next_e"].copy_(torch.where(st["unfin_e"], ev, 0.0))
         st["not_ps"].copy_(st["next_s"] < 0)
         st["not_pe"].copy_(st["next_e"] < 0)
-        while_loop(line_cond, line_body, st, cfg.line_step_iters, per_iter=True)
+        while_loop(line_cond, line_body, st, cfg.line_step_iters, "k")
 
         alive = st["acc_s"] < st["acc_e"]
         st["unfin_s"].logical_and_(alive)

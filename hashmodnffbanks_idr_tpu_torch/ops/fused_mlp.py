@@ -31,17 +31,13 @@ loaded with ctypes.
 from __future__ import annotations
 
 import ctypes
-import hashlib
 import math
-import os
-import shutil
-import subprocess
 from pathlib import Path
-from typing import Dict, List, Optional, Tuple
+from typing import Callable, Dict, List, Optional, Tuple
 
 import torch
 
-from ..utils.compile_cache import cache_dir
+from ..utils.compile_cache import build_library, library_path
 from .linear import Linear, softplus
 
 N_MID = 7              # l1..l7
@@ -68,37 +64,53 @@ _CSRC = Path(__file__).resolve().parent / "csrc" / "fused_mlp.cu"
 # Kernel launches and points, per variant, counted by the wrapper only where
 # it launches the CUDA kernel (chip_smoke.py reads them to show that the
 # main path went through the kernel); the launches also by cluster size
-# (``cluster_<C>``).  A launch recorded into a CUDA graph counts on each
-# replay of the graph instead (``add_launch_counts``).
+# (``cluster_<C>``).  A launch recorded into a CUDA graph counts when the
+# graph runs instead: ``utils/graphs.py`` adds a program's straight-line
+# launches at each launch of it, and its loops' launches from the iteration
+# totals the device keeps, folded in before every read here
+# (``fold_device_counts``).
 launch_counts: Dict[str, Dict[str, int]] = {
     name: {"launches": 0, "points": 0, **{f"cluster_{c}": 0 for c in CLUSTER_SIZES}}
     for name in WAVE_MS
 }
+# what adds in the launches only the device has counted (``utils/graphs.py``
+# registers its fold)
+device_folds: List[Callable[[], None]] = []
+
+
+def fold_device_counts() -> None:
+    """Add in the launches that only the device has counted, with one host
+    read (a synchronisation) where there are any.  The readers below call
+    it first."""
+    for fold in device_folds:
+        fold()
 
 
 def reset_launch_counts() -> None:
+    fold_device_counts()
     for c in launch_counts.values():
         for k in c:
             c[k] = 0
 
 
 def snapshot_launch_counts() -> Dict[str, Dict[str, int]]:
+    fold_device_counts()
     return {name: dict(c) for name, c in launch_counts.items()}
 
 
 def launch_counts_since(before: Dict[str, Dict[str, int]]) -> Dict[str, Dict[str, int]]:
     """What was counted since ``snapshot_launch_counts`` gave ``before``."""
+    fold_device_counts()
     return {name: {k: v - before[name][k] for k, v in c.items()}
             for name, c in launch_counts.items()}
 
 
-def add_launch_counts(delta: Dict[str, Dict[str, int]], sign: int = 1) -> None:
-    """Add ``delta`` (``launch_counts_since``'s) to the counts: a replayed
-    CUDA graph counts the launches its capture recorded
-    (``utils/graphs.py``)."""
+def add_launch_counts(delta: Dict[str, Dict[str, int]], times: int = 1) -> None:
+    """Add ``times`` x ``delta`` (``launch_counts_since``'s) to the counts:
+    what a CUDA graph recorded, each time it runs (``utils/graphs.py``)."""
     for name, c in delta.items():
         for k, v in c.items():
-            launch_counts[name][k] += sign * v
+            launch_counts[name][k] += times * v
 
 
 def supports_fusion(dims: List[int], skip_in: Tuple[int, ...]) -> bool:
@@ -187,17 +199,9 @@ def fused_sdf_raw(x_embedded: torch.Tensor, packed: Dict[str, torch.Tensor]) -> 
 _lib = None
 
 
-def _nvcc() -> str:
-    for cand in (shutil.which("nvcc"),
-                 os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "nvcc")):
-        if cand and os.path.exists(cand):
-            return cand
-    raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH")
-
-
 def _lib_path() -> Path:
     """The built library of the current source (one per source content)."""
-    return cache_dir() / f"libfused_mlp_{hashlib.sha256(_CSRC.read_bytes()).hexdigest()[:12]}.so"
+    return library_path(_CSRC, "fused_mlp")
 
 
 def ptxas_report() -> Path:
@@ -211,18 +215,7 @@ def load_library() -> ctypes.CDLL:
     global _lib
     if _lib is not None:
         return _lib
-    out = _lib_path()
-    if not out.exists():
-        out.parent.mkdir(parents=True, exist_ok=True)
-        tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-               "-o", str(tmp), str(_CSRC)]
-        res = subprocess.run(cmd, capture_output=True, text=True)
-        if res.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({res.returncode}):\n{res.stderr}")
-        ptxas_report().write_text(res.stderr)
-        os.replace(tmp, out)
+    out = build_library(_CSRC, "fused_mlp")
     lib = ctypes.CDLL(str(out))
     ptr, c_int = ctypes.c_void_p, ctypes.c_int
     for name in WAVE_MS:

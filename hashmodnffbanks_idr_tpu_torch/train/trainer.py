@@ -11,9 +11,10 @@ clipped (JAX's optax chain holds the network alone) and goes to a SparseAdam
 kept on the device (idr_train.py:134-139).
 
 On the card the one-device step runs as one device program a step, as JAX's
-jitted step does (JAX :152): ``GraphedTrainStep`` captures it once as CUDA
-graphs cut at the tracer's loop predicates (``utils/graphs.py``) and
-replays them; the finite-update guard is a mask on the device.  The eager
+jitted step does (JAX :152): ``GraphedTrainStep`` captures it once and
+launches it as one CUDA graph, the tracer's loops conditional while-nodes
+(``utils/graphs.py``), with no host read inside; the finite-update guard
+is a mask on the device.  The eager
 step (``build_train_step(graphed=False)``) stays for comparisons; the CPU
 runs it by default.
 
@@ -260,9 +261,10 @@ def init_adam_state(optimizer: torch.optim.Adam, p: torch.Tensor) -> None:
 class GraphedTrainStep:
     """The one-device step as one device program, as JAX's jitted step
     (JAX :82-152), called as the eager step is; ``capture=True`` (the card)
-    replays it from CUDA graphs, ``capture=False`` runs the same program
-    eagerly (the CPU tests).  The program reads nothing on the host but the
-    tracer loops' predicates, as many as the eager step reads:
+    launches it as one CUDA graph, ``capture=False`` runs the same program
+    eagerly (the CPU tests, where the tracer's loops read their predicates
+    on the host as the eager step does).  The launched graph reads nothing
+    on the host: the tracer's loops are while-nodes on the device:
 
     * the step's inputs live in static buffers, copied in every call:
       ``img_idx``, ``pixel_idx``, ``alpha`` (a 0-d tensor) and the uniform
@@ -278,14 +280,16 @@ class GraphedTrainStep:
       ``skipped`` reads (one host read), and keeps its loss terms
       (``last_skipped_terms``);
     * the first call warms up on a side stream (a forward and a backward:
-      the CUDA kernel's build and occupancy queries, cuBLAS, the Adam state)
-      and captures the program (``utils/graphs.py:capture_program``) into one
-      memory pool; a call whose shapes, scene, parameters or optimizer state
-      (a checkpoint loaded into the optimizer) moved captures again.  A
-      capture that fails raises: there is no eager fallback.
+      the CUDA kernel's build and occupancy queries, cuBLAS, the Adam
+      state), captures the program (``utils/graphs.py:capture_program``)
+      into one memory pool and assembles it into one executable graph
+      (``Program.instantiate``); a call whose shapes, scene, parameters or
+      optimizer state (a checkpoint loaded into the optimizer) moved
+      captures again.  A capture or an assembly that fails raises: there is
+      no eager fallback.
 
     ``captures`` counts the captures and ``capture_s`` holds the last one's
-    host seconds (warm-up included)."""
+    host seconds (warm-up, capture, assembly and instantiation)."""
 
     def __init__(self, model: IDRNetwork, loss_cfg: IDRLossConfig,
                  optimizer: torch.optim.Optimizer, pose_vecs: Optional[torch.Tensor],
@@ -349,7 +353,10 @@ class GraphedTrainStep:
                 tuple((k, tuple(v.shape)) for k, v in sorted(draws.items())))
 
     def _setup(self, scene, img_idx, pixel_idx, draws) -> None:
-        """Static input buffers; the old program, if any, is dropped."""
+        """Static input buffers; the old program, if any, is dropped (what
+        its loops ran folded into the launch counts first)."""
+        if self.program is not None:
+            graphs.fold_device_counts()
         self.program = None
         self.scene = scene
         dev = self.device
@@ -436,6 +443,7 @@ class GraphedTrainStep:
         try:
             with graphs.capture_program(stream=stream) as program:
                 self._run()
+            program.instantiate()
         except Exception as e:
             raise RuntimeError(f"capturing the train step failed: {e}") from e
         self.program = program
@@ -757,7 +765,7 @@ class IDRTrainRunner:
             # one pixel subset per epoch, shared by its steps (idr_train.py:278)
             pixel_idx = sample_pixels(self.generator, self.total_pixels, self.num_pixels)
             order = torch.randperm(self.n_images, generator=self.order_generator).to(self.device)
-            launched = {k: c["launches"] for k, c in fm.launch_counts.items()}
+            launched = fm.snapshot_launch_counts()
 
             t0 = time.perf_counter()
             for i in range(self.steps_per_epoch):
@@ -776,8 +784,10 @@ class IDRTrainRunner:
                       f"epoch {epoch} ({skipped} so far); the last one's loss terms "
                       f"{self.train_step.last_skipped_terms()}")
             rays_per_s = self.steps_per_epoch * self.num_pixels / dt
-            kernel_launches = {f"{k}_launches": c["launches"] - launched[k]
-                               for k, c in fm.launch_counts.items()}
+            # the graphed step's loop launches are counted on the device:
+            # folded in here, one host read an epoch
+            kernel_launches = {f"{k}_launches": c["launches"]
+                               for k, c in fm.launch_counts_since(launched).items()}
             if not self.is_writer:
                 continue
             self.logger.log(epoch, rays_per_s=rays_per_s, alpha=alpha, **host_losses,

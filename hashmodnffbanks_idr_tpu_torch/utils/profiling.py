@@ -5,6 +5,8 @@ Counterpart of ``hashmodnffbanks_idr_tpu/utils/profiling.py``:
   * :func:`trace`: a ``torch.profiler`` window, optionally written as a
     Chrome trace (open it in chrome://tracing or Perfetto) with its
     ``key_averages`` (``scripts/profile_torch_step.py`` measures through it);
+  * :func:`host_syncs`: the host's synchronisations with the card inside a
+    block, counted or refused (``chip_smoke.py``, the profile script);
   * :func:`mlp_flops` / :func:`step_flops`: the analytic FLOP model of one
     IDR train step (copies);
   * :func:`roofline_report`: a measured step time -> TFLOP/s and its share
@@ -52,6 +54,25 @@ def trace(logdir: Optional[str] = None, device=None):
     sort = "cuda_time_total" if ProfilerActivity.CUDA in activities else "cpu_time_total"
     with open(os.path.join(logdir, "key_averages.txt"), "w") as f:
         f.write(prof.key_averages().table(sort_by=sort, row_limit=50))
+
+
+@contextlib.contextmanager
+def host_syncs(mode: str = "warn"):
+    """Count the host's synchronisations with the card inside the block
+    (``torch.cuda.set_sync_debug_mode``: "warn" counts them, "error" raises
+    at the first).  Yields a one-element list that holds the count once the
+    block has ended."""
+    import warnings
+
+    count = [0]
+    torch.cuda.set_sync_debug_mode(mode)
+    try:
+        with warnings.catch_warnings(record=True) as seen:
+            warnings.simplefilter("always")
+            yield count
+        count[0] = sum("synchronizing CUDA operation" in str(w.message) for w in seen)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
 
 
 def mlp_flops(dims, n_points: int) -> float:

@@ -54,6 +54,7 @@ from hashmodnffbanks_idr_tpu_torch import resolve_device  # noqa: E402
 from hashmodnffbanks_idr_tpu_torch.models.renderer import IDRNetwork  # noqa: E402
 from hashmodnffbanks_idr_tpu_torch.ops import fused_mlp as fm  # noqa: E402
 from hashmodnffbanks_idr_tpu_torch.testing import flagship_conf  # noqa: E402
+from hashmodnffbanks_idr_tpu_torch.utils.compile_cache import nvcc  # noqa: E402
 from hashmodnffbanks_idr_tpu_torch.utils.profiling import (  # noqa: E402
     H100_PEAK_BYTES_PER_S, H100_PEAK_FLOPS)
 
@@ -160,7 +161,7 @@ def build_all(sources, out_dir: Path):
     procs = {}
     for name, path in sources.items():
         lib = out_dir / f"lib{name}.so"
-        cmd = [fm._nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+        cmd = [nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
                "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-o", str(lib), str(path)]
         procs[name] = (lib, subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                              stderr=subprocess.STDOUT, text=True))

@@ -11,10 +11,12 @@ exact+fused and mixed; ``five`` is the flagship's four and ngp log2=15
 mixed) it runs each variant of the step (``build_train_step(graphed=...)``)
 in turns, "a" in the order given and "b" in the reverse order, each from
 the same weights and generator with only its own model alive: the first
-call (the graphed step's warm-up and capture), two more, then ``--steps``
-measured steps (see ``measure``), and in each cell's first run the tracer
-alone (eager) as many times.  One JSON line per cell and variant run.
-Needs one CUDA card; imports nothing of JAX.
+call (the graphed step's warm-up, capture and assembly), two more, then
+``--steps`` measured steps (see ``measure``), then as many steps counted
+(``count``: graph launches, each loop's iterations and the host's
+synchronisations per step), and in each cell's first run the tracer alone
+(eager) as many times.  One JSON line per cell and variant run.  Needs one
+CUDA card; imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -43,7 +45,8 @@ from hashmodnffbanks_idr_tpu_torch.testing import (flagship_conf, ngp_conf,  # n
                                                    scene_to_device, synthetic_scene)
 from hashmodnffbanks_idr_tpu_torch.train.trainer import (build_train_step,  # noqa: E402
                                                          make_optimizer)
-from hashmodnffbanks_idr_tpu_torch.utils.profiling import trace  # noqa: E402
+from hashmodnffbanks_idr_tpu_torch.utils import graphs  # noqa: E402
+from hashmodnffbanks_idr_tpu_torch.utils.profiling import host_syncs, trace  # noqa: E402
 from hashmodnffbanks_idr_tpu_torch.utils.sampling import sample_pixels  # noqa: E402
 
 N_RAYS, IMG_RES = 2048, (1200, 1600)
@@ -118,6 +121,43 @@ def measure(fn, reps: int) -> dict:
                                for e in top]}
 
 
+def count(fn, step, reps: int) -> dict:
+    """Per call of ``fn`` over ``reps`` calls: the graphed step's graph
+    launches, each loop's iterations (``graphs.loop_iterations``: the
+    device totals of a graph, folded in after the calls, or the eager
+    loop's host counts) and the host's synchronisations inside the calls;
+    for the graphed step also ``graph_span_ms``, the device time from the
+    start to the end of one launch of its graph alone (CUDA events around
+    ``reps`` launches back to back, on the inputs of the last call): wall
+    ms less it is the host's work around the launch, it less device-busy
+    ms the gaps between the graph's nodes."""
+    program = getattr(step, "program", None)
+    launched = program.launches if program is not None else 0
+    graphs.fold_device_counts()
+    before = dict(graphs.loop_iterations)
+    torch.cuda.synchronize()
+    with host_syncs() as syncs:
+        for _ in range(reps):
+            fn()
+    torch.cuda.synchronize()
+    graphs.fold_device_counts()
+    rec = {"graph_launches_per_step": ((program.launches - launched) / reps
+                                       if program is not None else 0),
+           "loop_iterations_per_step": {k: (v - before.get(k, 0)) / reps
+                                        for k, v in graphs.loop_iterations.items()
+                                        if v != before.get(k, 0)},
+           "host_syncs_per_step": syncs[0] / reps, "graph_span_ms": None}
+    if program is not None:
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(reps):
+            program.replay()
+        end.record()
+        end.synchronize()
+        rec["graph_span_ms"] = start.elapsed_time(end) / reps
+    return rec
+
+
 def run_variant(dev, scene, conf, graphed: bool, steps: int, with_tracer: bool) -> dict:
     model = IDRNetwork(conf.get_config("model"), device=dev, seed=0)
     step = build_train_step(model, IDRLossConfig(0.1, 200.0, 50.0), make_optimizer(model),
@@ -141,6 +181,7 @@ def run_variant(dev, scene, conf, graphed: bool, steps: int, with_tracer: bool) 
            "capture_s": getattr(step, "capture_s", None),
            "graphs": step.program.graphs() if graphed else None,
            "step": measure(train_step, steps),
+           "counted": count(train_step, step, steps),
            "peak_mib": torch.cuda.max_memory_allocated() / 2**20,
            "reserved_mib": torch.cuda.memory_reserved() / 2**20}
     if with_tracer:

@@ -247,10 +247,10 @@ def test_cuda_pose7_step_matches_cpu(cuda_device):
         losses = step(scene_to_device(scene_np, device), torch.tensor([1], device=device),
                       pix.to(device), None, 50.0,
                       draws={k: v.to(device) for k, v in draws.items()})
+        launches = fm.snapshot_launch_counts()["fused_sdf_raw_f32"]["launches"]
         out[device.type] = ({k: float(v) for k, v in losses.items()}, pose_vecs.grad.cpu(),
-                            pose_vecs.detach().cpu(), fm.launch_counts["fused_sdf_raw_f32"]
-                            ["launches"], int(cam_opt["step"]), cam_opt["m"].cpu(),
-                            captured["network_object_mask"].cpu())
+                            pose_vecs.detach().cpu(), launches, int(cam_opt["step"]),
+                            cam_opt["m"].cpu(), captured["network_object_mask"].cpu())
     (l_gpu, g_gpu, p_gpu, n_gpu, s_gpu, m_gpu, hit_gpu), \
         (l_cpu, g_cpu, p_cpu, n_cpu, s_cpu, m_cpu, hit_cpu) = out["cuda"], out["cpu"]
     assert n_gpu > 0 and n_cpu == 0 and s_gpu == s_cpu == 1
@@ -277,7 +277,7 @@ GRAPH_MODES = {"exact+fused": ("exact", True, "fused_sdf_raw_f32"),
                "mixed": ("mixed", False, "fused_sdf_raw_bf16")}
 
 
-def _flagship_step(device, mode, graphed, seed=0):
+def _flagship_step(device, mode, graphed, seed=0, ray_tracer=None):
     from hashmodnffbanks_idr_tpu_torch.models.loss import IDRLossConfig
     from hashmodnffbanks_idr_tpu_torch.models.renderer import IDRNetwork
     from hashmodnffbanks_idr_tpu_torch.testing import flagship_conf
@@ -287,6 +287,8 @@ def _flagship_step(device, mode, graphed, seed=0):
     conf = flagship_conf(num_pixels=GRAPH_RAYS)
     conf.put("model.tracer_fast", tracer)
     conf.put("model.tracer_exact_fused", fused)
+    for k, v in (ray_tracer or {}).items():
+        conf.put(f"model.ray_tracer.{k}", v)
     model = IDRNetwork(conf.get_config("model"), device=device, seed=seed)
     opt = make_optimizer(model)
     step = build_train_step(model, IDRLossConfig(0.1, 200.0, 50.0), opt, graphed=graphed)
@@ -301,25 +303,40 @@ def _graph_scene(device):
     return scene_to_device(synthetic_scene(n_views=2, img_res=(240, 320), seed=0), device)
 
 
-def _run_steps(device, mode, graphed, n_steps):
+def _run_steps(device, mode, graphed, n_steps, ray_tracer=None):
     """``n_steps`` flagship steps from seed-0 weights and a generator seeded
-    1: per step the loss terms, the hit masks, the fused kernels' launches
-    (by variant and cluster size); then the model, optimizer, step and
-    scene."""
+    1 (``ray_tracer`` overrides entries of the conf's ``ray_tracer``): per step
+    the loss terms, the hit masks, the fused kernels' launches (by variant
+    and cluster size), each loop's iterations and the graph's launches;
+    then the model, optimizer, step and scene.  Every graphed call after
+    the first (which warms up and captures) runs under the sync-debug mode
+    "error": a host synchronisation inside it raises."""
+    from hashmodnffbanks_idr_tpu_torch.utils import graphs
     from hashmodnffbanks_idr_tpu_torch.utils.sampling import sample_pixels
 
     scene = _graph_scene(device)
-    model, opt, step, captured = _flagship_step(device, mode, graphed)
+    model, opt, step, captured = _flagship_step(device, mode, graphed, ray_tracer=ray_tracer)
     gen = torch.Generator(device=device).manual_seed(1)
     out = []
     for i in range(n_steps):
         seen = fm.snapshot_launch_counts()
-        losses = step(scene, torch.tensor([i % 2], device=device),
-                      sample_pixels(gen, 240 * 320, GRAPH_RAYS), gen, 50.0)
+        iters_seen = dict(graphs.loop_iterations)
+        launched = step.program.launches if graphed and step.program is not None else 0
+        img, pix = (torch.tensor([i % 2], device=device),
+                    sample_pixels(gen, 240 * 320, GRAPH_RAYS))
+        torch.cuda.set_sync_debug_mode("error" if graphed and i > 0 else "default")
+        try:
+            losses = step(scene, img, pix, gen, 50.0)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
         torch.cuda.synchronize()
         out.append({"losses": {k: v.clone() for k, v in losses.items()},
                     "mask": captured["network_object_mask"].clone(),
-                    "launches": fm.launch_counts_since(seen)})
+                    "launches": fm.launch_counts_since(seen),
+                    "iterations": {k: v - iters_seen.get(k, 0)
+                                   for k, v in graphs.loop_iterations.items()
+                                   if v != iters_seen.get(k, 0)},
+                    "graph_launches": step.program.launches - launched if graphed else 0})
     return out, model, opt, step, scene
 
 
@@ -353,17 +370,44 @@ def test_cuda_graphed_step_matches_the_eager_step(cuda_device, mode):
 
 @pytest.mark.parametrize("mode", sorted(GRAPH_MODES))
 def test_cuda_graphed_step_counts_its_kernel_launches(cuda_device, mode):
-    """The fused kernel's launches, points and cluster sizes counted under
-    replay, step by step, as the eager step counts them on the same inputs
-    (with deterministic index ops, so that the march makes the same
-    iterations on both sides), and its kernel launched in every step."""
+    """The fused kernel's launches, points and cluster sizes folded in from
+    the loops' device totals, step by step, as the eager step counts them
+    on the same inputs (with deterministic index ops, so that the march
+    makes the same iterations on both sides), its kernel launched in every
+    step; each loop's iterations equal to the eager loop's; one graph launch
+    a step."""
     kernel = GRAPH_MODES[mode][2]
     with deterministic():
         eager, *_ = _run_steps(cuda_device, mode, False, 3)
         graphed, *_ = _run_steps(cuda_device, mode, True, 3)
+    assert [g["graph_launches"] for g in graphed] == [1, 1, 1]
     for i in range(1, 3):   # step 1 of the graphed step also ran its warm-up
         assert graphed[i]["launches"] == eager[i]["launches"], i
         assert graphed[i]["launches"][kernel]["launches"] > 0
+        assert graphed[i]["iterations"] == eager[i]["iterations"], i
+        assert graphed[i]["iterations"]["march_body"] > 0
+
+
+@pytest.mark.parametrize("case", ["cap", "none"])
+def test_cuda_graphed_step_loop_totals_equal_the_eager_loops(cuda_device, case):
+    """The loops' device totals against the eager loops' counts, in a conf
+    whose march cap binds (``sphere_tracing_iters`` 2: the march stops at
+    its cap with rays unfinished) and in one where every ray is finished at
+    the init (``sdf_threshold`` 1e3: no march iteration, no line search)."""
+    tracer = {"sphere_tracing_iters": 2} if case == "cap" else {"sdf_threshold": 1e3}
+    with deterministic():
+        eager, *_ = _run_steps(cuda_device, "exact+fused", False, 2, ray_tracer=tracer)
+        graphed, *_ = _run_steps(cuda_device, "exact+fused", True, 2, ray_tracer=tracer)
+    for i in range(2):
+        for k in eager[i]["losses"]:
+            assert torch.equal(graphed[i]["losses"][k], eager[i]["losses"][k]), (i, k)
+    # step 1 of the graphed step also ran its warm-up: step 2 alone
+    assert graphed[1]["iterations"] == eager[1]["iterations"]
+    if case == "cap":
+        assert eager[1]["iterations"]["march_body"] == 2
+    else:
+        assert "march_body" not in eager[1]["iterations"]
+        assert "line_body" not in eager[1]["iterations"]
 
 
 def test_cuda_graphed_step_skips_a_nonfinite_step_on_the_device(cuda_device):
