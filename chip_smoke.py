@@ -9,9 +9,10 @@ It prints the versions of the CUDA toolkit and the CUDA driver, builds the CUDA
 sources of ``hashmodnffbanks_idr_tpu_torch/ops/csrc`` (``fused_mlp.cu`` and
 ``graph_loops.cu``, one ``nvcc`` each, started together) into ``build/``,
 holds each kernel variant against its plain PyTorch twin at
-the flagship widths, and at every cluster size (C = 1, 2, 4 CTAs sharing a
-64-point tile) against the twin and bit for bit against C = 1 (N = 1, 63,
-64, 65, 2048, 2049, 4096, 4113), times each C at each timed call and
+the flagship widths, and at every cluster size it compiles (CTAs sharing a
+64-point tile: f32 2 and 4, bf16 1, 2 and 4) against the twin and bit for
+bit against its smallest C (N = 1, 63, 64, 65, 2048, 2049, 4096, 4113),
+times each C at each timed call and
 prints the C that ``fused_mlp.cluster_size`` takes there with the card's
 slots (it fails where that C is over 10% slower than the fastest forced
 one), checks small train steps on the card against the
@@ -20,6 +21,8 @@ preset unfused and in ``mixed``, through the bf16 kernel: loss within 1%,
 hit masks on 98% of the rays), launches each variant 100 times at each
 compiled first-layer depth and each C on one input of 4113 points and
 requires the same bits every time (``deterministic`` in the kernels line),
+holds the f32 kernel at each depth and C against its twin at N = 256,
+2048, 4096, 24576, 49152 and 69632,
 holds ``set_while`` (a CUDA graph's while-node condition set on the device)
 against the loop that reads its predicate on the host and times an
 iteration of each (``[set_while]``), then drives
@@ -143,15 +146,15 @@ TIME_SMALL_N = (256, 2048, 4096)
 # at every timed call the rule's cluster size may be at most this much
 # slower than the fastest forced one of the same run
 RULE_SLACK = 1.10
-# each variant at every cluster size (fm.CLUSTER_SIZES), forced, against
-# the plain twin and bit for bit against C = 1 on the same input: the tile's
-# edges, the secant's and the march's sizes and one past them, and the
-# determinism input
+# each variant at every cluster size it compiles (fm.cluster_sizes: f32 2
+# and 4, bf16 1, 2 and 4), forced, against the plain twin and bit for bit
+# against its smallest C on the same input: the tile's edges, the secant's
+# and the march's sizes and one past them, and the determinism input
 CLUSTER_CHECK_N = (1, TILE - 1, TILE, TILE + 1, 2048, 2049, 4096, 4113)
 # each variant's kernel in the ``-Xptxas -v`` report, by its namespace in the
 # mangled name (csrc/fused_mlp.cu: f32::, bf16k::), and the cluster sizes C,
 # the template argument after K0 of its instantiations
-PTXAS_ENTRY = {"fused_sdf_raw_f32": ("3f3216fused_sdf_kernel", (1, 2, 4)),
+PTXAS_ENTRY = {"fused_sdf_raw_f32": ("3f3216fused_sdf_kernel", (2, 4)),
                "fused_sdf_raw_bf16": ("5bf16k16fused_sdf_kernel", (1, 2, 4))}
 # the runner phase: the repo's dummy check (read in place, not imported)
 DUMMY_CONF = Path(__file__).resolve().parent / "hashmodnffbanks_idr_tpu/config/confs/dummy_stylemodnffb.conf"
@@ -169,6 +172,16 @@ EVAL_EPOCHS, EVAL_PLOT_FREQ = 20, 10
 EVAL_VARIANTS = (("exact+fused", "exact", True, "fused_sdf_raw_f32", 0.999, 1e-3),
                  ("mixed", "mixed", False, "fused_sdf_raw_bf16", 0.98, 1.5))
 KERNEL_TOL = {"fused_sdf_raw_f32": TOL_F32, "fused_sdf_raw_bf16": TOL_BF16}
+# each variant's design, as the kernels line names it (csrc/fused_mlp.cu)
+KERNEL_DESIGN = {
+    "fused_sdf_raw_f32": "split-TF32 wgmma.mma_async m64nNk8 (N = 512/C/2), A from registers "
+                         "split once a warpgroup, B as TF32 hi and lo split once a chunk by "
+                         "a producer warpgroup into a K-major shared layout, a fresh "
+                         "partial sum folded every 32 k; a 64-point tile on a cluster of 2 "
+                         "or 4 CTAs over DSMEM; cp.async weight ring",
+    "fused_sdf_raw_bf16": "bf16 mma.sync m16n8k16 on ldmatrix fragments, float accumulators; "
+                          "a 64-point tile on a cluster of 1, 2 or 4 CTAs over DSMEM; "
+                          "cp.async weight ring"}
 # the [ngp] phase.  Each encoder's first-layer depth, from the flagship conf
 # with that SDF encoder: FourierFeatures 9, HashGridTcnn 15, HashGrid 27,
 # StyleModNFFB 59, NerfPos at multires 16 (dtu_shaped_posenc.conf) 102.  No
@@ -183,6 +196,10 @@ DEPTH_N = 4096
 # of this many points (65 blocks, the last one ragged): bit-identical outputs
 DETERMINISM_LAUNCHES = 100
 DETERMINISM_N = 4113
+# the f32 kernel at each compiled depth and cluster size against its plain
+# twin at the main path's sizes: the camera step's 256 rays, the secant's
+# 2048, the march's 4096, the exact sweep's probes, the ngp cells' largest
+F32_HELD_N = (256, 2048, 4096, 24576, 49152, 69632)
 # the bench.py ngp presets (testing.NGP_PRESETS) at 2048 rays: (preset,
 # label, tracer_fast, tracer_exact_fused, the kernel the cell must launch)
 NGP_CELLS = (("ngp_log2_15", "exact+fused", "exact", True, "fused_sdf_raw_f32"),
@@ -317,37 +334,39 @@ def hold_against_plain(fm, name, x, packed, where="") -> float:
 
 @torch.no_grad()
 def hold_clusters(fm, name, x, packed, where="") -> dict:
-    """Kernel ``name`` at every cluster size, forced, on one input: each
-    within the variant's tolerance of the plain twin (bf16: with the signs
-    agreeing where |sdf| > 5e-2) and equal to the C = 1 launch bit for bit
-    (every C keeps each column's k order).  Returns the error by C."""
+    """Kernel ``name`` at every cluster size it compiles, forced, on one
+    input: each within the variant's tolerance of the plain twin (bf16:
+    with the signs agreeing where |sdf| > 5e-2) and equal to the launch at
+    its smallest C bit for bit (every C keeps each column's k order and
+    fold grouping).  Returns the error by C."""
     tol = KERNEL_TOL[name]
     want = fm.fused_sdf_raw_plain(x, packed)
     big = want.abs() > 5e-2
-    got = {c: fm._launch(x, packed, cluster=c) for c in fm.CLUSTER_SIZES}
+    sizes = fm.cluster_sizes(name)
+    got = {c: fm._launch(x, packed, cluster=c) for c in sizes}
     torch.cuda.synchronize()
     errs = {}
     for c, out in got.items():
         errs[c] = float((out - want).abs().max())
-        same = torch.equal(out.view(torch.int32), got[1].view(torch.int32))
+        same = torch.equal(out.view(torch.int32), got[sizes[0]].view(torch.int32))
         signs = bool((torch.sign(out[big]) == torch.sign(want[big])).all())
         where_c = f"{name} C={c} N={x.shape[0]}{where}"
         print(f"[cluster] {where_c}: max_abs_err={errs[c]:.3e} (tol {tol:g}), "
-              f"{'bit-identical to' if same else 'DIFFERS from'} C=1")
+              f"{'bit-identical to' if same else 'DIFFERS from'} C={sizes[0]}")
         if not errs[c] <= tol:
             raise AssertionError(f"{where_c}: max abs err {errs[c]}")
         if not signs:
             raise AssertionError(f"{where_c}: sign disagreement where |sdf|>5e-2")
         if not same:
-            raise AssertionError(f"{where_c}: differs from C=1")
+            raise AssertionError(f"{where_c}: differs from C={sizes[0]}")
     return errs
 
 
 @torch.no_grad()
 def phase_kernels(dev, fm, model):
     """Each variant against its plain twin at the tracer's batch sizes and
-    at every cluster size against the plain twin and C = 1
-    (``CLUSTER_CHECK_N``); each timed at its small calls and its largest,
+    at every cluster size it compiles against the plain twin and its
+    smallest C (``CLUSTER_CHECK_N``); each timed at its small calls and its largest,
     with the cluster size the rule chose, its slots, and each cluster size
     forced: the rule's C may be at most ``RULE_SLACK`` slower than the
     fastest forced C."""
@@ -363,7 +382,7 @@ def phase_kernels(dev, fm, model):
             pts = (torch.rand(n, 3, generator=gen, device=dev) * 2 - 1) * 0.6
             x = net._embed(pts).contiguous()
             max_err = max(max_err, hold_against_plain(fm, name, x, packed))
-        cluster_err = {c: 0.0 for c in fm.CLUSTER_SIZES}
+        cluster_err = {c: 0.0 for c in fm.cluster_sizes(name)}
         for n in CLUSTER_CHECK_N:
             pts = (torch.rand(n, 3, generator=gen, device=dev) * 2 - 1) * 0.6
             errs = hold_clusters(fm, name, net._embed(pts).contiguous(), packed)
@@ -389,7 +408,7 @@ def phase_kernels(dev, fm, model):
             rec["slots"] = slots
             rec["cluster"] = fm.cluster_size(n, slots, fm.WAVE_MS[name])
             rec["ms_by_cluster"] = {c: cuda_ms(lambda: fm._launch(x, packed, cluster=c))
-                                    for c in fm.CLUSTER_SIZES}
+                                    for c in fm.cluster_sizes(name)}
             fastest = min(rec["ms_by_cluster"].values())
             rec["rule_over_fastest"] = rec["ms_by_cluster"][rec["cluster"]] / fastest
             print(f"[kernel] {name} N={n}: " + json.dumps(rec))
@@ -401,7 +420,7 @@ def phase_kernels(dev, fm, model):
         records[name] = dict(timed[-1], max_abs_err=max_err, other_calls=timed[:-1])
         records[name]["cluster_check"] = {"n": list(CLUSTER_CHECK_N), "tol": KERNEL_TOL[name],
                                           "max_abs_err_by_cluster": cluster_err,
-                                          "bit_identical_to_c1": True}
+                                          "bit_identical_to_smallest_c": True}
     fm.reset_launch_counts()
     return records
 
@@ -617,9 +636,11 @@ def phase_step(dev, fm, scene, label, mode, fused, warmup, steps, expect=None, c
            "launches_per_step": {k: v["launches"] / steps for k, v in counts.items()},
            "points_per_step": {k: v["points"] / steps for k, v in counts.items()},
            "f32_launches_per_step_by_cluster": {
-               c: counts["fused_sdf_raw_f32"][f"cluster_{c}"] / steps for c in fm.CLUSTER_SIZES},
+               c: counts["fused_sdf_raw_f32"][f"cluster_{c}"] / steps
+               for c in fm.cluster_sizes("fused_sdf_raw_f32")},
            "bf16_launches_per_step_by_cluster": {
-               c: counts["fused_sdf_raw_bf16"][f"cluster_{c}"] / steps for c in fm.CLUSTER_SIZES},
+               c: counts["fused_sdf_raw_bf16"][f"cluster_{c}"] / steps
+               for c in fm.cluster_sizes("fused_sdf_raw_bf16")},
            "max_memory_allocated_mib": torch.cuda.max_memory_allocated() / 2**20,
            "graph_launches_per_step": graph_launches / steps,
            "loop_iterations_per_step": {k: v / steps for k, v in iterations.items()},
@@ -1618,19 +1639,23 @@ def phase_depths(dev, fm):
 @torch.no_grad()
 def phase_determinism(dev, fm):
     """Each variant at each compiled first-layer depth (d_in 59, 102, 198,
-    510 of ``CHECK_D_IN``, input weights spread) and each cluster size,
-    launched DETERMINISM_LAUNCHES times on one input of DETERMINISM_N
-    points, a ragged last tile: every output must equal the first launch's
-    bit for bit, and each cluster size's the C = 1 launch's.
-    The launches are a check, not the main path: the counts are reset
-    after."""
+    510 of ``CHECK_D_IN``, input weights spread) and each cluster size it
+    compiles, launched DETERMINISM_LAUNCHES times on one input of
+    DETERMINISM_N points, a ragged last tile: every output must equal the
+    first launch's bit for bit, and each cluster size's the launch at the
+    variant's smallest C.  The f32 kernel is also held there against its
+    plain twin at every K0 and C at the main path's sizes
+    (``F32_HELD_N``).  The launches are a check, not the main path: the
+    counts are reset after."""
     from hashmodnffbanks_idr_tpu_torch.models.renderer import IDRNetwork
     from hashmodnffbanks_idr_tpu_torch.testing import flagship_conf
 
     gen = torch.Generator(device=dev).manual_seed(4)
     records = {name: {"n": DETERMINISM_N, "launches": DETERMINISM_LAUNCHES, "k0": [],
-                      "clusters": list(fm.CLUSTER_SIZES), "bit_identical": True}
+                      "clusters": list(fm.cluster_sizes(name)), "bit_identical": True}
                for name, *_ in VARIANTS}
+    held = records["fused_sdf_raw_f32"]["held"] = {"n": list(F32_HELD_N), "tol": TOL_F32,
+                                                   "max_abs_err": {}}
     for d_in in (59, 102, 198, 510):
         embed_type, puts = CHECK_D_IN[d_in]
         conf = flagship_conf(num_pixels=N_RAYS, embed_type=embed_type)
@@ -1640,24 +1665,46 @@ def phase_determinism(dev, fm):
         spread_input_weights(net, gen)
         pts = (torch.rand(DETERMINISM_N, 3, generator=gen, device=dev) * 2 - 1) * 0.6
         x = net._embed(pts).contiguous()
+        k0 = fm.kernel_depth(d_in)
         for name, dtype, *_ in VARIANTS:
             packed = fm.pack_params(net.lin, d_in, net.dims[1], dtype=dtype)
-            records[name]["k0"].append(fm.kernel_depth(d_in))
-            # each cluster size, each also equal to C = 1
+            records[name]["k0"].append(k0)
+            # each cluster size, each also equal to the smallest
+            sizes = fm.cluster_sizes(name)
             outs = {}
-            for c in fm.CLUSTER_SIZES:
+            for c in sizes:
                 first = fm._launch(x, packed, cluster=c).view(torch.int32)
                 same = all(torch.equal(fm._launch(x, packed, cluster=c).view(torch.int32), first)
                            for _ in range(DETERMINISM_LAUNCHES - 1))
                 outs[c] = first
-                where = f"{name} K0={fm.kernel_depth(d_in)} C={c}"
+                where = f"{name} K0={k0} C={c}"
                 records[name]["bit_identical"] &= same
                 print(f"[determinism] {where} N={DETERMINISM_N}: "
                       f"{DETERMINISM_LAUNCHES} launches {'bit-identical' if same else 'DIFFER'}")
                 if not same:
                     raise AssertionError(f"{where}: repeated launches on one input differ")
-                if not torch.equal(first, outs[1]):
-                    raise AssertionError(f"{where}: differs from C=1 on the same input")
+                if not torch.equal(first, outs[sizes[0]]):
+                    raise AssertionError(f"{where}: differs from C={sizes[0]} on the same input")
+            if name != "fused_sdf_raw_f32":
+                continue
+            errs = {c: 0.0 for c in sizes}
+            for n in F32_HELD_N:
+                pts = (torch.rand(n, 3, generator=gen, device=dev) * 2 - 1) * 0.6
+                xn = net._embed(pts).contiguous()
+                want = fm.fused_sdf_raw_plain(xn, packed)
+                got = {c: fm._launch(xn, packed, cluster=c) for c in sizes}
+                for c, out in got.items():
+                    err = float((out - want).abs().max())
+                    errs[c] = max(errs[c], err)
+                    where = f"{name} K0={k0} C={c} N={n}"
+                    if not err <= TOL_F32:
+                        raise AssertionError(f"{where}: max abs err {err} > {TOL_F32}")
+                    if not torch.equal(out.view(torch.int32), got[sizes[0]].view(torch.int32)):
+                        raise AssertionError(f"{where}: differs from C={sizes[0]}")
+            held["max_abs_err"][k0] = errs
+            print(f"[determinism] {name} K0={k0}: against the plain twin at N={F32_HELD_N}, "
+                  f"each C bit-identical to C={sizes[0]}: max_abs_err by C {errs} "
+                  f"(tol {TOL_F32:g})")
     fm.reset_launch_counts()
     return records
 
@@ -1917,6 +1964,7 @@ def main() -> int:
         r = kernels[name]
         rec = {"name": name, "route": "cuda", "source": src,
                "replaces": "hashmodnffbanks_idr_tpu/ops/fused_mlp.py:104",
+               "design": KERNEL_DESIGN[name],
                "launches": phases[cell][name]["launches"], "points": phases[cell][name]["points"],
                "launches_by_phase": {p: c[name]["launches"] for p, c in phases.items()}}
         rec.update((k, r[k]) for k in ("ms", "plain_ms", "bound_ms",
@@ -1949,7 +1997,7 @@ def main() -> int:
         rec["ms_by_cluster"] = {c["n"]: c["ms_by_cluster"] for c in calls}
         rec["slots"] = r["slots"]
         rec["launches_by_cluster"] = {c: phases[cell][name][f"cluster_{c}"]
-                                      for c in fm.CLUSTER_SIZES}
+                                      for c in fm.cluster_sizes(name)}
         rec["cluster_check"] = r["cluster_check"]
         # the cell's march calls (2 x 2048 rays) run on the rule's clusters
         march_c = rec["cluster"][4096]

@@ -16,90 +16,116 @@
 // epilogues are the same at every depth.
 //
 // Two variants.  float weights (the 'exact' tracer) run on the tensor cores
-// in split-TF32; bf16 weights (guidance queries) on bf16 mma.sync with float
-// accumulation.  Each layer rounds its input to the weight type, as the
-// Pallas kernel does; biases, softplus and the skip scaling stay float.
+// in split-TF32 on wgmma; bf16 weights (guidance queries) on bf16 mma.sync
+// with float accumulation.  Each layer rounds its input to the weight type,
+// as the Pallas kernel does; biases, softplus and the skip scaling stay
+// float.
 //
 // float variant: bound.  Per point the chain is 2*(59*512 + 6*512^2 +
 // 512*453 + 512) ~ 3.67 MFLOP.  To keep float32 accuracy on the TF32 tensor
 // cores every product a*b becomes three TF32 products, a_lo*b_hi + a_hi*b_lo
-// + a_hi*b_hi (x = hi + lo, hi = tf32_rna(x), lo = tf32_rna(x - hi)), so the
-// bound is 3 x 3.67 MFLOP per point at the H100's 495 TFLOP/s dense TF32:
-// 1.094 ms at N=49152, 0.091 ms at N=4096 and 0.045 ms at N=2048.  (On the
-// CUDA cores' 67 TFLOP/s FP32 the same chain is bound at 2.693 ms at
-// N=49152.)
+// + a_hi*b_hi (x = hi + lo, hi = tf32_rna(x), lo = tf32_rna(x - hi), both
+// with their 13 low bits cleared, so that it does not matter whether the
+// tensor cores truncate or round an operand), so the bound is 3 x 3.67
+// MFLOP per point at the H100's 495 TFLOP/s dense TF32: 1.094 ms at
+// N=49152, 0.091 ms at N=4096 and 0.045 ms at N=2048.  (On the CUDA cores'
+// 67 TFLOP/s FP32 the same chain is bound at 2.693 ms at N=49152.)
 //
 // float variant: design.  The Pallas kernel keeps all 7.4 MB of weights
 // resident in VMEM; an SM has 227 KB.  So a tile of 64 points stays on chip
 // across all nine layers (a 64x512 float activation tile in shared memory,
-// 132,096 B, never in device memory) and the weights stream through a ring
-// of stages filled by 16-byte cp.async (commit/wait groups): while chunk k
-// is multiplied, the next one or two chunks are in flight, also across layer
-// boundaries, so the next layer's first weights arrive during the epilogue.  64 rows a tile halve the L2 weight traffic of a 32-row tile.
-// Per 8-deep k-step a warp reads its A and B fragments of mma.sync.m16n8k8
-// from shared memory with plain loads (row strides padded so that both are
-// free of bank conflicts), splits each value into hi and lo in registers
-// (the weights are stored once, as float) and runs three mma.sync.tf32 per
-// product tile, the two small products before hi*hi.  The tensor cores
-// truncate when they add into their accumulator, which over a layer would
-// miss float32 accuracy; so each k-step's three products go into a fresh
-// partial sum that a round-to-nearest add folds into the float accumulators.
+// 132,096 B, never in device memory) and the weights stream through it.  A
+// tile is a cluster of C = 2 or 4 CTAs: each holds the whole tile, the A
+// operand of every layer, and computes 512 / C output columns of each
+// layer, streaming only those columns' weights, so the cluster reads each
+// weight from L2 once a tile.  A CTA is three warpgroups.  Two consumers
+// each own half of the CTA's columns for all 64 rows and run their products
+// as wgmma.mma_async.m64nNk8.f32.tf32 (N = 128 at C = 2, 64 at C = 4): A
+// from registers, each consumer loading its 64x8 fragment of the float tile
+// a k-step and splitting it once a warpgroup (the mma.sync kernel split it
+// once a warp); B from shared memory through matrix descriptors.  The
+// third, the producer, feeds both: each thread copies one 4x4 block (4 k x
+// 4 columns) of each consumer's chunk of 16 (C = 2) or 32 (C = 4) weight
+// rows with 16-byte cp.async into a raw buffer two chunks ahead; when the
+// chunk lands and the consumer has freed the slot, it splits the block
+// once (hi, and lo into a second buffer) into the consumer's (hi, lo) slot
+// in the layout the descriptors read, transposed on the way, fences the
+// stores for the tensor cores (fence.proxy.async) and arrives at the slot's
+// `full` mbarrier.  That layout is wgmma's K-major canonical layout without
+// swizzle: core matrices of 8 columns x 4 k (128 contiguous bytes), one
+// after another along the columns (stride byte offset 128) in panels of 4 k,
+// the panels (leading byte offset) padded by 16 bytes so that the
+// producer's 16-byte stores fall on 8 bank quads.  (The descriptor fields as
+// CUTLASS's cute/arch/mma_sm90_desc.hpp lays them out: with the two offsets
+// exchanged the kernel faulted; a 64-byte swizzled layout read the same
+// bits and ran no faster.)  Weights are read from L2 once, as float; the
+// split lives in shared memory only.
 //
-// One tile is a cluster of C CTAs (C = 1, 2 or 4, a template parameter).
-// With one CTA a tile, a tile takes about 0.62 ms on one SM whatever else
-// runs (NVIDIA H100 80GB HBM3, 700 W: 0.61-0.69 ms at every N <= 4096 and
-// about 0.64 ms a wave of 132 tiles at N=49152), so the tracer's small calls
-// (32 tiles at N=2048, 64 at N=4096) left 68-100 of the 132 SMs idle for the
-// whole call.  A cluster spreads a tile over C SMs: each CTA holds the whole
-// tile, the A operand of every layer, and computes HIDDEN / C output columns
-// of each layer over the full depth, in the same k order at every C (so every
-// C gives the same bits), streaming through its ring only those columns'
-// weights: the cluster reads each weight from L2 once a tile, as one CTA did.
-// Its 8 warps split the CTA's block over rows as well as columns: 8 x (64 x
-// 64) at C = 1 (128 accumulators a thread), 2 x 4 warps of 32 x 64 at C = 2
-// and of 32 x 32 at C = 4, so that the hi/lo splits of A, which each warp
-// of a row half repeats, stay a small share beside the products.  Shared
-// memory: the tile plus a ring of STAGES x KC x (512/C + 8) floats, three
-// 16-row stages at C = 1 (231,936 B in all), two 32-row stages at C = 2
-// (199,680 B) and three at C = 4 (184,320 B): one CTA an SM.  At a
-// layer's end the epilogue runs on the accumulators in registers (bias,
-// branch-free softplus on the fast exp and log, after l3 x/sqrt(2), read
-// from device memory, in the tail columns), a cluster barrier waits until
-// every CTA is done reading its tile, each CTA writes its activated columns
-// into the tile of every CTA of the cluster (its own by a plain store, the
-// others' through distributed shared memory, mapa + st.shared::cluster), and
-// a second cluster barrier (release / acquire) makes them visible before
-// anyone reads the new tile; after the last layer's second barrier no CTA
-// touches another's shared memory, so each may exit.  The last layer is a
-// 512-long float dot per point with a warp reduction, the cluster's CTAs
-// taking 64 / C rows each.  x is read at its real width and only (N,) is
-// written.
+// The tensor cores truncate when they add into their accumulator, which
+// over a 512-deep layer misses float32 accuracy.  So each fold group of 4
+// k-steps (32 k) sums into a fresh partial accumulator (scale-d 0 on its
+// first product), which a round-to-nearest add then folds into the float
+// accumulators.  Max abs error against the plain twin (NVIDIA H100 80GB
+// HBM3, 700 W; scripts/bench_fused_mlp_f32.py --errors-d-in 59 102 198 510,
+// N = 4113 and 49152, K0 = 64 / 128 / 256 / 512; the depths other than 32
+// k read on earlier revisions of this kernel, which waited once a chunk
+// and so took any depth, with the script's FOLD variants), by depth: 8 k
+// 1.07-1.19e-6 / 1.43-1.67e-6 / 1.91e-6 / 0.95-1.19e-6; 16 k 1.55e-6 /
+// 1.91e-6 / 2.38e-6 / 1.31e-6; 32 k 2.50-2.74e-6 / 3.10-3.34e-6 / 3.81e-6 /
+// 2.03-2.15e-6; 64 k 4.77-5.25e-6 / 5.25e-6 / 7.15e-6 / 3.22-3.46e-6.  The
+// kernel folds every 32 k: within 1e-5 by 2.6x at its worst depth, and a
+// wave 6-10% faster than at 16 k.  A consumer issues a chunk's products as
+// soon as the chunk is split, behind the previous chunk's on the same
+// partial sum, frees the previous chunk's slot once those are done
+// (wgmma.wait_group 1), and waits for all (and folds) once a fold group.
+// Every C keeps each column's k order and fold grouping, so every C gives
+// the bits of C = 2.
+//
+// Budget.  Registers: a consumer thread holds N / 2 float accumulators and
+// as many partial sums (64 + 64 at C = 2) and the A fragments of a fold
+// group (32), under the 200 that setmaxnreg gives it (the producer drops to
+// 104: 128 x 104 + 256 x 200 = 384 x 168, the launch bounds' share); ptxas
+// reports 168 a thread at launch and no spill at any K0 and C.  One CTA a
+// tile would need 256 columns a warpgroup, 128 + 128 accumulators a
+// thread, over the 255 cap: the variant compiles C = 2 and 4 only.  Shared
+// memory: the tile, and per consumer two (hi, lo) slots and two raw
+// buffers of 4 (C = 2) or 8 (C = 4) padded panels (8,256 or 8,320 B each),
+// and 8 mbarriers: 231,232 B at C = 2 and 232,000 B at C = 4; one CTA an
+// SM.
+//
+// At a layer's end each consumer runs the epilogue on its accumulators in
+// registers (bias, branch-free softplus on the fast exp and log, after l3
+// x/sqrt(2), read from device memory, in the tail columns), a cluster
+// barrier (which the producer joins once it has split the next layer's
+// first chunk) waits until every CTA is done reading its tile, the
+// consumers write their activated columns into their own tile with 8-byte
+// stores and into the other CTAs' with 16-byte st.shared::cluster (lanes t
+// and t^1 trade halves of their n8 tile so that each holds four adjacent
+// columns of one row), and a second cluster barrier makes them visible.
+// The last layer is a 512-long float dot per point with a warp reduction,
+// the cluster's CTAs taking 64 / C rows each.  x is read at its real width
+// and only (N,) is written.
 //
 // C is chosen from N by the caller, for both variants by one rule
-// (ops/fused_mlp.py:cluster_size): of 1, 2 and 4 the one of least
-// ceil(tiles C / slots_C) x wave_ms_C, where slots_C is C x the clusters of C
-// that can run at once (cudaOccupancyMaxActiveClusters, fused_sdf_raw_*_slots)
-// and wave_ms_C the variant's measured time of one full wave of clusters of
-// C (fused_mlp.WAVE_MS); a tie goes to the smaller C.  A wave of clusters of
-// 2 does not take half the time of a wave of single CTAs, so the rule keeps
-// C = 1 where the card is full anyway: f32 at 132 / 132 / 120 slots takes
-// C = 4 at N=256, C = 2 at N=2048 and 4096, C = 1 at N=24576 and above.
+// (ops/fused_mlp.py:cluster_size): of the variant's sizes, the one of least
+// ceil(tiles C / slots_C) x wave_ms_C, where slots_C is C x the clusters of
+// C that can run at once (cudaOccupancyMaxActiveClusters,
+// fused_sdf_raw_*_slots) and wave_ms_C the variant's measured time of one
+// full wave of clusters of C (fused_mlp.WAVE_MS); a tie goes to the smaller
+// C.  The H100 seats 132 CTAs of this variant at C = 2 and 120 at C = 4, so
+// f32 takes C = 4 at N=256 and C = 2 from N=2048 up.
 //
-// What keeps the design from the bound, measured on an NVIDIA H100 80GB HBM3
-// at 700 W (scripts/bench_fused_mlp_f32.py and its variants): a tile-wave
-// takes 0.572 ms at C = 1, 0.322 at C = 2 and 0.207 at C = 4 (1.78x and
-// 2.76x for 2x and 4x the SMs), so N=2048 and N=4096 take 0.32-0.33 ms at
-// C = 2 against 0.60-0.62 with one CTA a tile (bound 0.045 and 0.091).  The
-// card seats 132 CTAs at C = 1 and 2 but 120 at C = 4, so N=2048's 32 tiles
-// would need two waves of clusters of 4 and the rule takes C = 2.  With
-// each mma.sync replaced by a float add, 58% (C = 1), 64% (C = 2) and 70%
-// (C = 4) of the time remains: the hi/lo splits, fragment loads,
-// partial-sum adds and barriers, with 8 warps an SM to hide their latency,
-// bound the kernel before the tensor cores do (and mma.sync does not reach
-// their full rate; only wgmma does).  The stores into the other CTAs'
-// tiles cost 6% at C = 2 and 16% at C = 4.  Registers: 255, 244 and 137 a
-// thread at C = 1, 2 and 4 under the 255 cap of one CTA an SM, no spill at
-// any K0.
+// What bounds it (NVIDIA H100 80GB HBM3, 700 W; scripts/
+// bench_fused_mlp_f32.py and its variants, N=49152 at C = 2 beside the
+// kernel as it is, 3.34-3.40 ms): the products alone (no copies, splits or
+// A loads: wgmma_only) take 1.90 ms, 57% of the TF32 peak's 1.09; without
+// the copies 2.64-2.80; without the producer's split 3.04.  So the weight
+// stream from L2 (every CTA of a wave reads the same 7.4 MB, 16 KB a chunk)
+// is the largest part after the products, then the split.  Two more chunks
+// in flight (one (hi, lo) slot and four raw buffers) ran slower, and so did
+// copies issued before the split; tiles reading their rows in a rotated
+// order moved nothing, though all threads copying the same 16 bytes made a
+// wave 12x slower (copy_same).
 //
 // bf16 variant: bound.  The same 3.67 MFLOP per point, one bf16 product per
 // product, at the H100's 989 TFLOP/s dense bf16: 0.258 ms at N=69632 and
@@ -111,7 +137,7 @@
 // 64-row bf16 stages: one uniform chunk stream over l0 (K0 rows, rows >=
 // d_in zero-filled) and l1..l7, the next chunk in flight while the current
 // one is multiplied, across layer boundaries too.  One tile is a cluster of
-// C CTAs (C = 1, 2 or 4) as in the float variant: each CTA holds the whole
+// C CTAs (C = 1, 2 or 4), as in the float variant: each CTA holds the whole
 // tile and computes 512 / C columns of each layer, streaming only their
 // weights (stages of 64 x (512/C + 8): 199,680 B in all at C = 1, 134,144 B
 // at 2, 101,376 B at 4; one CTA an SM).  Its eight warps each own 64 / C
@@ -196,7 +222,8 @@ __device__ __forceinline__ void cp_async16(void* dst, const void* src, bool vali
 
 // ---------------------------------------------------------------------------
 // thread-block clusters: both variants run a 64-point tile on a cluster of C
-// CTAs (C = 1, 2 or 4) that share it through distributed shared memory
+// CTAs (f32: 2 or 4; bf16: 1, 2 or 4) that share it through distributed
+// shared memory
 // ---------------------------------------------------------------------------
 
 // the CTA's rank in its cluster
@@ -324,8 +351,10 @@ int dispatch(int k0, int cluster, F&& f) {
 }
 
 // ---------------------------------------------------------------------------
-// float weights: split-TF32 mma.sync fed by a cp.async weight ring, one tile
-// of 64 points shared by a cluster of C CTAs
+// float weights: split-TF32 wgmma, A (the activations) from registers and B
+// (the weights, split into TF32 hi and lo once a chunk by a producer
+// warpgroup) from shared memory, fed by a cp.async ring; one tile of 64
+// points shared by a cluster of C CTAs
 // ---------------------------------------------------------------------------
 
 namespace f32 {
@@ -335,40 +364,54 @@ constexpr int TM = 64;                  // points per tile (per cluster)
 // mod 32 banks), free of bank conflicts
 constexpr int LDA = HIDDEN + 4;
 constexpr size_t TILE_BYTES = sizeof(float) * TM * LDA;
+// 8-deep k-steps whose products a partial accumulator sums before a
+// round-to-nearest add folds it into the float accumulators
+constexpr int FOLD = 4;
 
 // How a cluster of C CTAs splits one tile's work.  Every CTA holds the whole
 // 64 x 512 tile (the A operand of every layer) and computes HIDDEN / C output
-// columns of each layer, streaming only those columns' weights through its
-// ring.  Its 8 warps split the CTA's block over rows as well as columns
-// (WR x WC), so that each warp's hi/lo splits of A stay few beside its
-// products; at C = 1, 8 warps of 64 x 64.
+// columns of each layer.  Two consumer warpgroups each own WG_COLS = COLS /
+// 2 of them for all 64 rows (one m64nWG_COLSk8 wgmma a product), each with
+// buffers of its own; a third, the producer, copies and splits the weights
+// of both.  A chunk is KC weight rows of a consumer's columns; each
+// producer thread copies and splits one 4 x 4 block of each consumer's.
 template <int C>
 struct Split {
-  static_assert(C == 1 || C == 2 || C == 4, "cluster sizes 1, 2 and 4");
-  static constexpr int NT = 256;                  // 8 warps a CTA
-  static constexpr int WARPS = NT / 32;
+  static_assert(C == 2 || C == 4, "cluster sizes 2 and 4");
+  static constexpr int NT = 384;                  // two consumer warpgroups, a producer
+  static constexpr int CONSUMER_WARPS = 8;
+  // registers a thread after setmaxnreg: 128 x 104 + 256 x 200 = 384 x 168,
+  // what the launch bounds give each thread at the start
+  static constexpr int PRODUCER_REGS = 104, CONSUMER_REGS = 200;
   static constexpr int COLS = HIDDEN / C;         // a CTA's output columns
-  static constexpr int WR = C == 1 ? 1 : 2;       // warps over rows
-  static constexpr int WC = WARPS / WR;           // warps over columns
-  static constexpr int WARP_ROWS = TM / WR, WARP_COLS = COLS / WC;
-  static constexpr int MI = WARP_ROWS / 16, NI = WARP_COLS / 8;  // m16n8 tiles a warp
-  // 8-deep k-steps unrolled together: C = 1 holds 128 accumulators a thread
-  // and has no registers for a second step's fragments
-  static constexpr int K_UNROLL = C == 1 ? 1 : 2;
-  // weight rows per ring stage, and stages: 32-row stages halve the block
-  // barriers a layer at C = 2 and 4 (2-3% and 8-11% faster than three
-  // 16-row stages on the card); at C = 2 two of them fit beside the tile
-  static constexpr int KC = C == 1 ? 16 : 32;
-  static constexpr int STAGES = C == 2 ? 2 : 3;
-  // the stage's row stride: B fragments read rows t at column g (stride = 8
-  // mod 32 banks)
-  static constexpr int LDW = COLS + 8;
+  static constexpr int WG_COLS = COLS / 2;        // wgmma's N: 128 or 64
+  static constexpr int NI = WG_COLS / 8;          // n8 tiles of an accumulator
+  static constexpr int KC = C == 2 ? 16 : 32;     // weight rows a chunk
+  static constexpr int KS = KC / 8;               // 8-deep k-steps a chunk
+  static constexpr int KQ = KC / 4;               // 4-deep panels a chunk
+  static constexpr int CPF = FOLD / KS;           // chunks a fold group
+  // A panel holds 4 rows k of the chunk for the warpgroup's WG_COLS columns
+  // as WG_COLS / 8 core matrices of 8 columns x 4 k (128 B, k fastest: B
+  // K-major), one after another, and 16 bytes of padding, which shifts each
+  // panel by 4 banks; a buffer is KQ panels, hi or lo of one chunk
+  static constexpr int PANEL = WG_COLS / 8 * 128 + 16;
+  static constexpr int BUF = KQ * PANEL;
+  // Each consumer's HLS slots of (hi, lo), which its products read while
+  // the producer splits the next chunk into the other, and RAW buffers
+  // where the copies land, as each thread's blocks at the same offsets:
+  // chunk c + RAW is copied into the buffer the split of c has just read
+  static constexpr int HLS = 2, RAW = 2;
+  static constexpr int WG_BYTES = (2 * HLS + RAW) * BUF;  // a warpgroup's buffers
   static constexpr int CHUNKS_MID = HIDDEN / KC;  // each of l1..l7's chunks
-  static constexpr size_t SMEM = TILE_BYTES + sizeof(float) * STAGES * KC * LDW;
+  // the tile, both consumers' buffers, and the mbarriers: full and empty
+  // of each consumer's (hi, lo) slots
+  static constexpr int BARS = 2 * 2 * HLS;
+  static constexpr size_t SMEM = TILE_BYTES + 2 * (size_t)WG_BYTES + 8 * BARS;
   static_assert(SMEM <= MAX_SMEM, "f32 tile and weight ring exceed shared memory");
-  static_assert(KC % (8 * K_UNROLL) == 0 && HIDDEN % KC == 0, "chunking");
-  static_assert(TM % WR == 0 && WARP_ROWS % 16 == 0 && WARP_COLS % 8 == 0, "warp blocks");
-  static_assert(TM % (C * WARPS) == 0, "the last layer's rows: whole rows a warp");
+  static_assert(KQ * (WG_COLS / 4) == 128, "one 4 x 4 block of each chunk a thread");
+  static_assert(FOLD % KS == 0, "fold groups of whole chunks");
+  static_assert(HLS >= CPF, "a consumer holds a fold group's slots until its next chunk is split");
+  static_assert(TM % (C * CONSUMER_WARPS) == 0, "the last layer's rows: whole rows a warp");
 };
 
 // the chunk stream of first-layer depth K0: l0's chunks, then l1..l7's
@@ -376,113 +419,226 @@ template <int K0, int C>
 struct Stream {
   static constexpr int KC = Split<C>::KC;
   static_assert(K0 % KC == 0 && K0 <= HIDDEN, "l0 depth: whole chunks, inside the tile");
+  static_assert(K0 % (8 * FOLD) == 0, "l0 depth: whole fold groups");
   static constexpr int CHUNKS_IN = K0 / KC;
   static constexpr int CHUNKS = CHUNKS_IN + N_MID * Split<C>::CHUNKS_MID;
 };
 
-// x = hi + lo, both TF32 rounded to nearest, ties away from zero (x - hi is
-// exact in float).  The integer form gives the bits of cvt.rna.tf32.f32 and
-// runs faster: adding half an ulp of TF32 to the bit pattern and clearing
-// the 13 low bits rounds the magnitude; for lo the clearing is left to the
-// tensor cores, which ignore those bits.
-__device__ __forceinline__ void split(float x, uint32_t& hi, uint32_t& lo) {
-  hi = (__float_as_uint(x) + 0x1000u) & 0xFFFFE000u;
-  lo = __float_as_uint(x - __uint_as_float(hi)) + 0x1000u;
-}
-
-// c = a b (16x8x8, TF32 operands, float result)
-__device__ __forceinline__ void mma_set(float (&c)[4], const uint32_t (&a)[4],
-                                        const uint32_t (&b)[2]) {
-  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, "
-      "{%8,%9}, {%10,%10,%10,%10};"
-      : "=f"(c[0]), "=f"(c[1]), "=f"(c[2]), "=f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]), "f"(0.f));
-}
-
-// c += a b
-__device__ __forceinline__ void mma_add(float (&c)[4], const uint32_t (&a)[4],
-                                        const uint32_t (&b)[2]) {
-  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, "
-      "{%8,%9}, {%0,%1,%2,%3};"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-// The CTA's columns [col_base, col_base + COLS) of chunk c of the whole
-// weight stream (l0's K0 rows, then l1..l7's 512 rows each, KC rows a chunk)
-// into its ring stage, as one commit group; rows at or past d_in in l0 are
-// zero.  Past the end it commits an empty group, so that the group count
-// stays uniform for wait_group.
+// Chunk c of the stream: its layer (0 = l0), whether it is the layer's
+// last, and the first row k of the layer it covers
 template <int K0, int C>
-__device__ __forceinline__ void prefetch_chunk(float* ring, int c, int d_in, int col_base,
+__device__ __forceinline__ int chunk_k(int c, int& layer, bool& last) {
+  using S = Split<C>;
+  constexpr int CHUNKS_IN = Stream<K0, C>::CHUNKS_IN;
+  const bool first = c < CHUNKS_IN;
+  const int kc = first ? c : (c - CHUNKS_IN) % S::CHUNKS_MID;  // the chunk in the layer
+  layer = first ? 0 : 1 + (c - CHUNKS_IN) / S::CHUNKS_MID;
+  last = kc == (first ? CHUNKS_IN : S::CHUNKS_MID) - 1;
+  return kc * S::KC;
+}
+
+// x rounded to TF32 (10 mantissa bits) to nearest, ties away from zero, with
+// the 13 low bits cleared: the bits of cvt.rna.tf32.f32, so that the tensor
+// cores read the same value whether they truncate or round an operand
+__device__ __forceinline__ uint32_t tf32_rna(float x) {
+  return (__float_as_uint(x) + 0x1000u) & 0xFFFFE000u;
+}
+
+// x = hi + lo, both TF32 (x - hi is exact in float)
+__device__ __forceinline__ void split(float x, uint32_t& hi, uint32_t& lo) {
+  hi = tf32_rna(x);
+  lo = tf32_rna(x - __uint_as_float(hi));
+}
+
+// The matrix descriptor of a B operand at shared address `addr` (16-byte
+// aligned) in the layout of Split<C>: no swizzle, K-major core matrices; the
+// leading byte offset steps k by 4 (to the next panel), the stride byte
+// offset n by 8 (to the next core matrix of the panel)
+template <int C>
+__device__ __forceinline__ uint64_t b_desc(uint32_t addr) {
+  constexpr uint64_t LBO = Split<C>::PANEL >> 4, SBO = 128 >> 4;
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | (LBO << 16) | (SBO << 32);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
+}
+// returns once at most N of the warpgroup's committed groups are pending
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;" ::"n"(N) : "memory");
+}
+
+// registers that an asynchronous wgmma reads or writes: the compiler may
+// neither move their uses across this point nor give them away before it
+template <int R, int E>
+__device__ __forceinline__ void fence_regs(float (&v)[R][E]) {
+#pragma unroll
+  for (int i = 0; i < R; ++i)
+#pragma unroll
+    for (int e = 0; e < E; ++e) asm volatile("" : "+f"(v[i][e])::"memory");
+}
+template <int R, int E>
+__device__ __forceinline__ void fence_regs(uint32_t (&v)[R][E]) {
+#pragma unroll
+  for (int i = 0; i < R; ++i)
+#pragma unroll
+    for (int e = 0; e < E; ++e) asm volatile("" : "+r"(v[i][e])::"memory");
+}
+
+template <int N>
+struct Wgmma;
+
+template <>
+struct Wgmma<64> {
+  // d (+)= a b: d the m64n64 float accumulator, a the warpgroup's 64x8 TF32
+  // fragment, b the 64x8 TF32 stage through its descriptor; scale_d = 0 sets d
+  static __device__ __forceinline__ void mma(float (&d)[8][4], const uint32_t (&a)[4],
+                                             uint64_t b, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+        "{%32, %33, %34, %35}, %36, p, 1, 1;\n}\n"
+        : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
+          "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
+          "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
+          "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]),
+          "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]),
+          "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]),
+          "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]),
+          "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
+  }
+};
+
+template <>
+struct Wgmma<128> {
+  // the same at m64n128
+  static __device__ __forceinline__ void mma(float (&d)[16][4], const uint32_t (&a)[4],
+                                             uint64_t b, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+        "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+        "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+        "{%64, %65, %66, %67}, %68, p, 1, 1;\n}\n"
+        : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
+          "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
+          "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
+          "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]),
+          "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]),
+          "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]),
+          "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]),
+          "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3]),
+          "+f"(d[8][0]), "+f"(d[8][1]), "+f"(d[8][2]), "+f"(d[8][3]),
+          "+f"(d[9][0]), "+f"(d[9][1]), "+f"(d[9][2]), "+f"(d[9][3]),
+          "+f"(d[10][0]), "+f"(d[10][1]), "+f"(d[10][2]), "+f"(d[10][3]),
+          "+f"(d[11][0]), "+f"(d[11][1]), "+f"(d[11][2]), "+f"(d[11][3]),
+          "+f"(d[12][0]), "+f"(d[12][1]), "+f"(d[12][2]), "+f"(d[12][3]),
+          "+f"(d[13][0]), "+f"(d[13][1]), "+f"(d[13][2]), "+f"(d[13][3]),
+          "+f"(d[14][0]), "+f"(d[14][1]), "+f"(d[14][2]), "+f"(d[14][3]),
+          "+f"(d[15][0]), "+f"(d[15][1]), "+f"(d[15][2]), "+f"(d[15][3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
+  }
+};
+
+// Where the thread's 4 x 4 block of a chunk lies in its warpgroup's buffer
+// (bytes; tid: the thread in the warpgroup): panel kq (rows 4 kq.. of the
+// chunk), columns 4 nb.. of the warpgroup's, i.e. rows 4 (nb % 2).. of core
+// matrix nb / 2.  The 8 lanes of a quarter warp take 4 panels x 2 halves
+// (C = 2) or 8 panels (C = 4), so that their 16-byte accesses fall on 8
+// different bank quads.
+template <int C>
+__device__ __forceinline__ int block_offset(int tid, int& kq, int& nb) {
+  using S = Split<C>;
+  kq = tid % S::KQ;
+  nb = tid / S::KQ;
+  return kq * S::PANEL + (nb / 2) * 128 + (nb % 2) * 64;
+}
+
+// The warpgroup's columns [col0, col0 + WG_COLS) of chunk c of the whole
+// weight stream (l0's K0 rows, then l1..l7's 512 rows each, KC rows a chunk)
+// into its raw buffer c % RAW: the thread's block as 4 rows k of 4 columns
+// (16 bytes each); rows at or past d_in in l0 are zero.  Nothing past the
+// end.  The caller commits the group.
+template <int K0, int C>
+__device__ __forceinline__ void prefetch_chunk(unsigned char* bufs, int c, int d_in, int col0,
+                                               int block, int kq, int nb,
                                                const float* __restrict__ w_in,
                                                const float* __restrict__ w_mid) {
   using S = Split<C>;
-  constexpr int CHUNKS_IN = Stream<K0, C>::CHUNKS_IN;
   if (c < Stream<K0, C>::CHUNKS) {
-    const bool first = c < CHUNKS_IN;
-    const int m = (c - CHUNKS_IN) / S::CHUNKS_MID;
-    const float* W = first ? w_in : w_mid + (size_t)m * HIDDEN * HIDDEN;
-    const int k0 = first ? c * S::KC : (c - CHUNKS_IN - m * S::CHUNKS_MID) * S::KC;
-    const int k_real = first ? d_in : HIDDEN;
-    // thread -> column col of rows r0, r0 + ROW_STEP, ...
-    constexpr int PER_ROW = S::COLS / 4;  // 16-byte copies a row
-    constexpr int ROW_STEP = S::NT / PER_ROW;
-    static_assert(S::NT % PER_ROW == 0 && S::KC % ROW_STEP == 0, "copies per thread");
-    const int r0 = threadIdx.x / PER_ROW, col = (threadIdx.x % PER_ROW) * 4;
-    float* dst = ring + (c % S::STAGES) * S::KC * S::LDW + r0 * S::LDW + col;
-    const float* src = W + (size_t)(k0 + r0) * HIDDEN + col_base + col;
+    int layer;
+    bool last;
+    const int k0 = chunk_k<K0, C>(c, layer, last) + 4 * kq;
+    const float* W = layer == 0 ? w_in : w_mid + (size_t)(layer - 1) * HIDDEN * HIDDEN;
+    const int k_real = layer == 0 ? d_in : HIDDEN;
+    unsigned char* dst = bufs + (size_t)(2 * S::HLS + c % S::RAW) * S::BUF + block;
+    const float* src = W + (size_t)k0 * HIDDEN + col0 + 4 * nb;
 #pragma unroll
-    for (int r = 0; r < S::KC; r += ROW_STEP) {
-      const bool valid = k0 + r0 + r < k_real;
-      cp_async16(dst + r * S::LDW, valid ? src + r * HIDDEN : W, valid);
+    for (int r = 0; r < 4; ++r) {
+      const bool valid = k0 + r < k_real;
+      cp_async16(dst + 16 * r, valid ? src + r * HIDDEN : W, valid);
     }
   }
-  asm volatile("cp.async.commit_group;" ::: "memory");
 }
 
-// acc += a[:, 0:KC] @ w[0:KC, :] for the warp's block, in split-TF32 (a: the
-// tile at the warp's first row and the chunk's first column; w: the stage at
-// the warp's first column).  The tensor cores truncate when they add into
-// their accumulator; over a 512-deep layer (192 mma per output) that bias
-// reaches ~2e-5 in the SDF.  So each 8-deep step's three products go into a
-// fresh partial sum, which a round-to-nearest add folds into acc.  Every
-// output column sees the same k order at every C.
+// The thread's blocks of chunk c, one of each consumer's columns (`bufs`:
+// the first consumer's buffers), landed in raw buffer c % RAW as rows k,
+// become the B operand's K-major layout, split, in (hi, lo) slot c % HLS:
+// column 4 nb + s (row 4 (nb % 2) + s of its core matrix) holds its 4 k as
+// hi in the hi buffer and as lo in the lo buffer.  Only the thread itself
+// touches its blocks.
 template <int C>
-__device__ __forceinline__ void mma_chunk(float (&acc)[Split<C>::MI][Split<C>::NI][4],
-                                          const float* a, const float* w, int g, int t) {
+__device__ __forceinline__ void split_block(unsigned char* bufs, int c, int block) {
   using S = Split<C>;
-#pragma unroll (S::K_UNROLL)
-  for (int kk = 0; kk < S::KC; kk += 8) {
-    uint32_t bh[S::NI][2], bl[S::NI][2];
+  float w[2][4][4];  // [consumer][k][column]
 #pragma unroll
-    for (int ni = 0; ni < S::NI; ++ni) {
-      const float* p = w + (kk + t) * S::LDW + ni * 8 + g;
-      split(p[0], bh[ni][0], bl[ni][0]);             // (k=t,   n=g)
-      split(p[4 * S::LDW], bh[ni][1], bl[ni][1]);    // (k=t+4, n=g)
-    }
+  for (int q = 0; q < 2; ++q) {
+    const unsigned char* raw =
+        bufs + q * S::WG_BYTES + (size_t)(2 * S::HLS + c % S::RAW) * S::BUF + block;
 #pragma unroll
-    for (int mi = 0; mi < S::MI; ++mi) {
-      uint32_t ah[4], al[4];
-      const float* p = a + (mi * 16 + g) * LDA + kk + t;
-      split(p[0], ah[0], al[0]);                     // (g,   t)
-      split(p[8 * LDA], ah[1], al[1]);               // (g+8, t)
-      split(p[4], ah[2], al[2]);                     // (g,   t+4)
-      split(p[8 * LDA + 4], ah[3], al[3]);           // (g+8, t+4)
-      // the two small products first, then hi*hi
-      float part[S::NI][4];
-#pragma unroll
-      for (int ni = 0; ni < S::NI; ++ni) mma_set(part[ni], al, bh[ni]);
-#pragma unroll
-      for (int ni = 0; ni < S::NI; ++ni) mma_add(part[ni], ah, bl[ni]);
-#pragma unroll
-      for (int ni = 0; ni < S::NI; ++ni) mma_add(part[ni], ah, bh[ni]);
-#pragma unroll
-      for (int ni = 0; ni < S::NI; ++ni)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) acc[mi][ni][e] += part[ni][e];
+    for (int r = 0; r < 4; ++r) {
+      const float4 v = *reinterpret_cast<const float4*>(raw + 16 * r);
+      w[q][r][0] = v.x;
+      w[q][r][1] = v.y;
+      w[q][r][2] = v.z;
+      w[q][r][3] = v.w;
     }
   }
+#pragma unroll
+  for (int q = 0; q < 2; ++q) {
+    unsigned char* hi = bufs + q * S::WG_BYTES + (size_t)(c % S::HLS) * 2 * S::BUF + block;
+    unsigned char* lo = hi + S::BUF;
+#pragma unroll
+    for (int s = 0; s < 4; ++s) {
+      uint4 h, l;
+      split(w[q][0][s], h.x, l.x);
+      split(w[q][1][s], h.y, l.y);
+      split(w[q][2][s], h.z, l.z);
+      split(w[q][3][s], h.w, l.w);
+      *reinterpret_cast<uint4*>(hi + 16 * s) = h;
+      *reinterpret_cast<uint4*>(lo + 16 * s) = l;
+    }
+  }
+}
+
+// the warpgroup's A fragment of the 8-deep k-step at tile column k, split:
+// rows 16 wq + g (+ 8) of the warp, columns k + t (+ 4)
+__device__ __forceinline__ void load_a(const float* act, int wq, int g, int t, int k,
+                                       uint32_t (&hi)[4], uint32_t (&lo)[4]) {
+  const float* p = act + (16 * wq + g) * LDA + k + t;
+  split(p[0], hi[0], lo[0]);            // (g,   t)
+  split(p[8 * LDA], hi[1], lo[1]);      // (g+8, t)
+  split(p[4], hi[2], lo[2]);            // (g,   t+4)
+  split(p[8 * LDA + 4], hi[3], lo[3]);  // (g+8, t+4)
 }
 
 // torch Softplus(beta=100, threshold=20) on the fast exp and log: within
@@ -495,66 +651,137 @@ __device__ __forceinline__ float softplus100_fast(float x) {
   return bx > 20.f ? x : soft;
 }
 
-// acc <- softplus(acc + bias) in registers for the warp's block (columns
-// col0.., tile rows wrow0..); after l3 (SKIP) the tail columns take
-// x/sqrt(2) (x read at its real width from device memory) and the rest
-// softplus/sqrt(2).  SKIP is a template parameter, so that the common
-// epilogue is one basic block.
-template <int C, bool SKIP>
-__device__ __forceinline__ void activate(float (&acc)[Split<C>::MI][Split<C>::NI][4],
-                                         const float* __restrict__ bias,
+// acc <- softplus(acc + bias) in registers for the warp's rows 16 wq + g (+
+// 8) of the tile and the warpgroup's columns col0..; after l3 (SKIP) the
+// tail columns take x/sqrt(2) (x read at its real width from device memory)
+// and the rest softplus/sqrt(2).  SKIP is a template parameter, so that the
+// common epilogue is one basic block.
+template <int NI, bool SKIP>
+__device__ __forceinline__ void activate(float (&acc)[NI][4], const float* __restrict__ bias,
                                          const float* __restrict__ x, int row0, int n, int d_in,
-                                         int wrow0, int col0, int g, int t) {
+                                         int wq, int col0, int g, int t) {
   const int skip_cols = HIDDEN - d_in;
 #pragma unroll
-  for (int ni = 0; ni < Split<C>::NI; ++ni) {
+  for (int ni = 0; ni < NI; ++ni) {
     const int col = col0 + ni * 8 + 2 * t;  // accumulator columns col, col+1
     const float2 b = *reinterpret_cast<const float2*>(bias + col);
 #pragma unroll
-    for (int mi = 0; mi < Split<C>::MI; ++mi)
-#pragma unroll
-      for (int half = 0; half < 2; ++half) {  // rows g and g+8
-        float& v0 = acc[mi][ni][2 * half];
-        float& v1 = acc[mi][ni][2 * half + 1];
-        v0 = softplus100_fast(v0 + b.x);
-        v1 = softplus100_fast(v1 + b.y);
-        if (SKIP) {
-          const int row = row0 + wrow0 + mi * 16 + g + 8 * half;
-          if (col >= skip_cols) v0 = row < n ? x[(size_t)row * d_in + col - skip_cols] : 0.f;
-          if (col + 1 >= skip_cols)
-            v1 = row < n ? x[(size_t)row * d_in + col + 1 - skip_cols] : 0.f;
-          v0 *= INV_SQRT2;
-          v1 *= INV_SQRT2;
-        }
+    for (int half = 0; half < 2; ++half) {  // rows g and g+8
+      float& v0 = acc[ni][2 * half];
+      float& v1 = acc[ni][2 * half + 1];
+      v0 = softplus100_fast(v0 + b.x);
+      v1 = softplus100_fast(v1 + b.y);
+      if (SKIP) {
+        const int row = row0 + 16 * wq + g + 8 * half;
+        if (col >= skip_cols) v0 = row < n ? x[(size_t)row * d_in + col - skip_cols] : 0.f;
+        if (col + 1 >= skip_cols) v1 = row < n ? x[(size_t)row * d_in + col + 1 - skip_cols] : 0.f;
+        v0 *= INV_SQRT2;
+        v1 *= INV_SQRT2;
       }
+    }
   }
 }
 
-// the warp's activated block into the tile of every CTA of the cluster: its
-// own through a plain store, the others' through st.shared::cluster at the
-// addresses `remote` (ranks rank+1, ..., rank+C-1).  Zeroes acc for the
-// next layer.
-template <int C>
-__device__ __forceinline__ void store_tile(float (&acc)[Split<C>::MI][Split<C>::NI][4],
-                                           float* act, const uint32_t (&remote)[C],
-                                           int wrow0, int col0, int g, int t) {
+// The warpgroup's activated block into the tile of every CTA of the cluster:
+// its own through 8-byte stores (rows g and g+8, columns 2t, 2t+1 of each n8
+// tile, free of bank conflicts), the others' through 16-byte
+// st.shared::cluster at the addresses `remote` (ranks rank+1, ...,
+// rank+C-1), after lanes t and t^1 trade halves so that each holds four
+// adjacent columns of one row.  Zeroes acc for the next layer.
+template <int NI, int C>
+__device__ __forceinline__ void store_tile(float (&acc)[NI][4], float* act,
+                                           const uint32_t (&remote)[C], int wq, int col0, int g,
+                                           int t) {
+  const bool odd = t & 1;
+  const int row = 16 * wq + g;
 #pragma unroll
-  for (int mi = 0; mi < Split<C>::MI; ++mi)
+  for (int ni = 0; ni < NI; ++ni) {
+    const int col = col0 + ni * 8 + 2 * t;
+    float (&v)[4] = acc[ni];
+    *reinterpret_cast<float2*>(act + row * LDA + col) = make_float2(v[0], v[1]);
+    *reinterpret_cast<float2*>(act + (row + 8) * LDA + col) = make_float2(v[2], v[3]);
+    const float s0 = odd ? v[0] : v[2], s1 = odd ? v[1] : v[3];
+    const float r0 = __shfl_xor_sync(0xffffffffu, s0, 1);
+    const float r1 = __shfl_xor_sync(0xffffffffu, s1, 1);
+    const float4 q = odd ? make_float4(r0, r1, v[2], v[3]) : make_float4(v[0], v[1], r0, r1);
+    const int off = (row + (odd ? 8 : 0)) * LDA + col0 + ni * 8 + 4 * (t >> 1);
 #pragma unroll
-    for (int ni = 0; ni < Split<C>::NI; ++ni)
+    for (int other = 1; other < C; ++other)
+      asm volatile("st.shared::cluster.v4.f32 [%0], {%1, %2, %3, %4};" ::"r"(
+                       remote[other] + (uint32_t)(sizeof(float) * off)),
+                   "f"(q.x), "f"(q.y), "f"(q.z), "f"(q.w)
+                   : "memory");
+    v[0] = v[1] = v[2] = v[3] = 0.f;
+  }
+}
+
+// mbarriers in shared memory (shared::cta addresses)
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(bar), "r"(count) : "memory");
+}
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("{\n.reg .b64 state;\nmbarrier.arrive.shared::cta.b64 state, [%0];\n}" ::"r"(bar)
+               : "memory");
+}
+// returns once the barrier's phase of parity `parity` has completed
+__device__ __forceinline__ void mbar_wait(uint32_t bar, int parity) {
+  asm volatile(
+      "{\n.reg .pred done;\nWAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 done, [%0], %1;\n"
+      "@!done bra WAIT;\n}" ::"r"(bar),
+      "r"(parity)
+      : "memory");
+}
+
+// The producer warpgroup: for each chunk (landed, copied RAW chunks ahead),
+// once both consumer warpgroups are done with the (hi, lo) slot it takes,
+// each thread splits its block of each consumer's chunk into it, fences the
+// writes for the tensor cores and arrives at the slot's `full` barriers;
+// then it copies its blocks of chunk c + RAW.  It meets the consumers at the
+// cluster barriers of each layer's end once it has split the next layer's
+// first chunk.
+template <int K0, int C>
+__device__ __forceinline__ void produce(unsigned char* bufs, int col0, int d_in, int ptid,
+                                        uint32_t bars, const float* __restrict__ w_in,
+                                        const float* __restrict__ w_mid) {
+  using S = Split<C>;
+  constexpr int CHUNKS = Stream<K0, C>::CHUNKS;
+  int kq, nb;
+  const int block = block_offset<C>(ptid, kq, nb);
+  const auto copy = [&](int c) {  // both warpgroups' blocks of chunk c, one commit group
 #pragma unroll
-      for (int half = 0; half < 2; ++half) {  // rows g and g+8, columns 2t and 2t+1
-        const int off = (wrow0 + mi * 16 + g + 8 * half) * LDA + col0 + ni * 8 + 2 * t;
-        const float v0 = acc[mi][ni][2 * half], v1 = acc[mi][ni][2 * half + 1];
-        *reinterpret_cast<float2*>(act + off) = make_float2(v0, v1);
+    for (int w = 0; w < 2; ++w)
+      prefetch_chunk<K0, C>(bufs + w * S::WG_BYTES, c, d_in, col0 + w * S::WG_COLS, block, kq,
+                            nb, w_in, w_mid);
+    asm volatile("cp.async.commit_group;" ::: "memory");
+  };
 #pragma unroll
-        for (int q = 1; q < C; ++q)
-          asm volatile("st.shared::cluster.v2.f32 [%0], {%1, %2};" ::"r"(
-                           remote[q] + (uint32_t)(sizeof(float) * off)),
-                       "f"(v0), "f"(v1)
-                       : "memory");
-        acc[mi][ni][2 * half] = acc[mi][ni][2 * half + 1] = 0.f;
+  for (int c = 0; c < S::RAW; ++c) copy(c);
+  for (int c = 0; c < CHUNKS; ++c) {
+    const int slot = c % S::HLS;
+    asm volatile("cp.async.wait_group %0;" ::"n"(S::RAW - 1) : "memory");
+    if (c >= S::HLS) {  // both consumers are done with chunk c - HLS in this slot
+      mbar_wait(bars + 8 * (2 * S::HLS + slot), (c / S::HLS - 1) & 1);
+      mbar_wait(bars + 8 * (3 * S::HLS + slot), (c / S::HLS - 1) & 1);
+    }
+    split_block<C>(bufs, c, block);
+    asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+    mbar_arrive(bars + 8 * slot);
+    mbar_arrive(bars + 8 * (S::HLS + slot));
+    copy(c + S::RAW);
+    if (c > 0) {
+      int layer;
+      bool last;
+      chunk_k<K0, C>(c - 1, layer, last);
+      if (last) {  // chunk c - 1 ended a layer
+        tile_barrier<C>();
+        tile_barrier<C>();
       }
+    }
+  }
+  tile_barrier<C>();  // the last layer's end
+  tile_barrier<C>();
+  asm volatile("cp.async.wait_group 0;" ::: "memory");
 }
 
 template <int K0, int C>
@@ -565,74 +792,116 @@ __global__ void __launch_bounds__(Split<C>::NT, 1)
                      const float* __restrict__ w_out, const float* __restrict__ b_out,
                      float* __restrict__ out) {
   using S = Split<C>;
-  constexpr int CHUNKS_IN = Stream<K0, C>::CHUNKS_IN, CHUNKS = Stream<K0, C>::CHUNKS;
+  constexpr int CHUNKS = Stream<K0, C>::CHUNKS;
   extern __shared__ __align__(128) unsigned char smem[];
   float* act = reinterpret_cast<float*>(smem);  // (TM, LDA)
-  float* ring = act + TM * LDA;                 // STAGES x (KC, LDW)
-  // a 1-D cluster is C consecutive blocks, one tile
-  const int rank = C == 1 ? 0 : (int)cluster_rank();
-  const int row0 = blockIdx.x / C * TM;
-  const int col_base = rank * S::COLS;          // the CTA's first output column
+  unsigned char* bufs = smem + TILE_BYTES;      // each consumer warpgroup's buffers
+  // mbarriers: full[w][slot] at HLS w + slot, empty[w][slot] at 2 HLS + HLS w
+  // + slot
+  const uint32_t bars = static_cast<uint32_t>(__cvta_generic_to_shared(bufs + 2 * S::WG_BYTES));
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int g = lane / 4, t = lane % 4;  // mma fragment coordinates
-  const int wrow0 = warp / S::WC * S::WARP_ROWS;                 // the warp's first row
-  const int wcol0 = warp % S::WC * S::WARP_COLS;                 // ... column in the CTA's
-  uint32_t remote[C] = {};  // remote[q]: the tile of rank + q (q >= 1)
-#pragma unroll
-  for (int q = 1; q < C; ++q)
-    remote[q] = map_rank(static_cast<uint32_t>(__cvta_generic_to_shared(act)), (rank + q) % C);
-
-#pragma unroll
-  for (int c = 0; c < S::STAGES - 1; ++c)
-    prefetch_chunk<K0, C>(ring, c, d_in, col_base, w_in, w_mid);
+  const int wg = warp / 4;                      // 0, 1: consumers; 2: the producer
+  // a 1-D cluster is C consecutive blocks, one tile
+  const int rank = (int)cluster_rank();
+  const int row0 = blockIdx.x / C * TM;
+  const int cta_col0 = rank * S::COLS;          // the CTA's first output column
 
   // the point tile at its real width, zero padded to K0 columns and TM rows
   for (int i = threadIdx.x; i < TM * K0; i += S::NT) {
     const int r = i / K0, col = i % K0, row = row0 + r;
     act[r * LDA + col] = (row < n && col < d_in) ? x[(size_t)row * d_in + col] : 0.f;
   }
+  if (threadIdx.x < S::BARS) mbar_init(bars + 8 * threadIdx.x, 128);
+  __syncthreads();
 
-  float acc[S::MI][S::NI][4];
+  if (wg == 2) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;" ::"n"(S::PRODUCER_REGS));
+    produce<K0, C>(bufs, cta_col0, d_in, threadIdx.x - 256, bars, w_in, w_mid);
+    return;
+  }
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;" ::"n"(S::CONSUMER_REGS));
+  const int wq = warp % 4;                      // the warp in its warpgroup
+  const int g = lane / 4, t = lane % 4;         // fragment coordinates
+  const int col0 = cta_col0 + wg * S::WG_COLS;  // the warpgroup's first output column
+  const uint32_t bufs_addr =
+      static_cast<uint32_t>(__cvta_generic_to_shared(bufs + wg * S::WG_BYTES));
+  uint32_t remote[C] = {};  // remote[q]: the tile of rank + q (q >= 1)
 #pragma unroll
-  for (int mi = 0; mi < S::MI; ++mi)
+  for (int q = 1; q < C; ++q)
+    remote[q] = map_rank(static_cast<uint32_t>(__cvta_generic_to_shared(act)), (rank + q) % C);
+
+  float acc[S::NI][4], part[S::NI][4];
+#pragma unroll
+  for (int ni = 0; ni < S::NI; ++ni)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[ni][e] = part[ni][e] = 0.f;
+
+  // One fold group (CPF chunks) at a time: each chunk's products are issued
+  // as soon as it is split, behind the previous chunk's, and the slot of
+  // the previous chunk is freed once its products are done; the group's
+  // partial sum is read only after the last.
+  for (int c0 = 0; c0 < CHUNKS; c0 += S::CPF) {
+    uint32_t ah[S::CPF][S::KS][4], al[S::CPF][S::KS][4];
+    int layer;
+    bool last;
+#pragma unroll
+    for (int j = 0; j < S::CPF; ++j) {
+      const int c = c0 + j, slot = c % S::HLS;
+      const int k0 = chunk_k<K0, C>(c, layer, last);  // the chunk's first row of the layer
+      mbar_wait(bars + 8 * (S::HLS * wg + slot), (c / S::HLS) & 1);  // chunk c is split
+#pragma unroll
+      for (int s = 0; s < S::KS; ++s) load_a(act, wq, g, t, k0 + 8 * s, ah[j][s], al[j][s]);
+      wgmma_fence();
+      const uint32_t hi_addr = bufs_addr + slot * 2 * S::BUF;
+#pragma unroll
+      for (int s = 0; s < S::KS; ++s) {
+        // k-step s reads panels 2 s and 2 s + 1; the two small products
+        // first, then hi*hi; the group's first product sets the partial sum
+        const uint32_t b_hi = hi_addr + 2 * s * S::PANEL;
+        Wgmma<S::WG_COLS>::mma(part, al[j][s], b_desc<C>(b_hi), j > 0 || s > 0);
+        Wgmma<S::WG_COLS>::mma(part, ah[j][s], b_desc<C>(b_hi + S::BUF), 1);
+        Wgmma<S::WG_COLS>::mma(part, ah[j][s], b_desc<C>(b_hi), 1);
+      }
+      wgmma_commit();
+      if (j > 0) {  // the previous chunk's products are done: its slot is free
+        wgmma_wait<1>();
+        fence_regs(ah[j - 1]);
+        fence_regs(al[j - 1]);
+        mbar_arrive(bars + 8 * (2 * S::HLS + S::HLS * wg + (c - 1) % S::HLS));
+      }
+    }
+    wgmma_wait<0>();
+    fence_regs(part);
+    fence_regs(ah[S::CPF - 1]);
+    fence_regs(al[S::CPF - 1]);
+    mbar_arrive(bars + 8 * (2 * S::HLS + S::HLS * wg + (c0 + S::CPF - 1) % S::HLS));
+    // the fold: the group's partial sum into the float accumulators,
+    // rounded to nearest
 #pragma unroll
     for (int ni = 0; ni < S::NI; ++ni)
 #pragma unroll
-      for (int e = 0; e < 4; ++e) acc[mi][ni][e] = 0.f;
+      for (int e = 0; e < 4; ++e) acc[ni][e] += part[ni][e];
 
-  for (int c = 0; c < CHUNKS; ++c) {
-    // chunk c has landed for every thread, and every warp is done with chunk
-    // c-1, whose stage the next copy overwrites
-    asm volatile("cp.async.wait_group %0;" ::"n"(S::STAGES - 2) : "memory");
-    __syncthreads();
-    prefetch_chunk<K0, C>(ring, c + S::STAGES - 1, d_in, col_base, w_in, w_mid);
-
-    const bool first = c < CHUNKS_IN;
-    const int layer = first ? 0 : 1 + (c - CHUNKS_IN) / S::CHUNKS_MID;
-    const int kc = first ? c : (c - CHUNKS_IN) % S::CHUNKS_MID;  // chunk within the layer
-    mma_chunk<C>(acc, act + wrow0 * LDA + kc * S::KC,
-                 ring + (c % S::STAGES) * S::KC * S::LDW + wcol0, g, t);
-
-    if (kc == (first ? CHUNKS_IN : S::CHUNKS_MID) - 1) {
+    if (last) {
       // the layer's end: activate in registers, then replace the tile of
       // every CTA of the cluster once all of them are done reading it
       const float* bias = layer == 0 ? b_in : b_mid + (layer - 1) * HIDDEN;
       if (layer == 1 + SKIP_AFTER_MID)
-        activate<C, true>(acc, bias, x, row0, n, d_in, wrow0, col_base + wcol0, g, t);
+        activate<S::NI, true>(acc, bias, x, row0, n, d_in, wq, col0, g, t);
       else
-        activate<C, false>(acc, bias, x, row0, n, d_in, wrow0, col_base + wcol0, g, t);
+        activate<S::NI, false>(acc, bias, x, row0, n, d_in, wq, col0, g, t);
       tile_barrier<C>();  // every CTA of the cluster has read its tile
-      store_tile<C>(acc, act, remote, wrow0, col_base + wcol0, g, t);
+      store_tile<S::NI, C>(acc, act, remote, wq, col0, g, t);
       // the new tile, complete in every CTA; after the last layer's, no CTA
       // touches another's shared memory, so that each may exit
       tile_barrier<C>();
     }
   }
-  asm volatile("cp.async.wait_group 0;" ::: "memory");
 
   // last layer: the SDF column only, one 512-long float dot per point; the
-  // cluster's CTAs split the tile's rows
-  constexpr int ROWS_PER_WARP = TM / C / S::WARPS;
+  // cluster's CTAs split the tile's rows, the consumer warps of each CTA
+  // its share
+  constexpr int ROWS_PER_WARP = TM / C / S::CONSUMER_WARPS;
   for (int rr = 0; rr < ROWS_PER_WARP; ++rr) {
     const int r = rank * (TM / C) + warp * ROWS_PER_WARP + rr;
     float s = 0.f;
@@ -1091,8 +1360,8 @@ bool valid_shape(int n, int d_in, int k0) {
 // Plain C interface for ctypes.  Pointers are device pointers; the stream is
 // the caller's cudaStream_t; k0 is the compiled first-layer depth to launch
 // (64, 128, 256 or 512: the smallest that covers d_in, chosen by the
-// caller); cluster the CTAs that share a tile (1, 2 or 4).  Returns the
-// cudaError_t of the launch (0 = ok).
+// caller); cluster the CTAs that share a tile (f32: 2 or 4; bf16: 1, 2 or
+// 4).  Returns the cudaError_t of the launch (0 = ok).
 
 extern "C" int fused_sdf_raw_f32(const void* x, int n, int d_in, int k0, int cluster,
                                  const void* w_in, const void* b_in, const void* w_mid,
@@ -1101,14 +1370,18 @@ extern "C" int fused_sdf_raw_f32(const void* x, int n, int d_in, int k0, int clu
   if (!valid_shape(n, d_in, k0)) return (int)cudaErrorInvalidValue;
   return dispatch(k0, cluster, [&](auto k, auto c) {
     constexpr int K0 = decltype(k)::value, C = decltype(c)::value;
-    using S = f32::Split<C>;
-    return launch_tiles<C>(f32::fused_sdf_kernel<K0, C>, S::NT, S::SMEM, f32::ready<K0, C>,
-                           (n + f32::TM - 1) / f32::TM, static_cast<cudaStream_t>(stream),
-                           static_cast<const float*>(x), n, d_in,
-                           static_cast<const float*>(w_in), static_cast<const float*>(b_in),
-                           static_cast<const float*>(w_mid), static_cast<const float*>(b_mid),
-                           static_cast<const float*>(w_out), static_cast<const float*>(b_out),
-                           static_cast<float*>(out));
+    if constexpr (C == 1) {
+      return (int)cudaErrorInvalidValue;  // the f32 kernel's clusters are of 2 and 4
+    } else {
+      using S = f32::Split<C>;
+      return launch_tiles<C>(f32::fused_sdf_kernel<K0, C>, S::NT, S::SMEM, f32::ready<K0, C>,
+                             (n + f32::TM - 1) / f32::TM, static_cast<cudaStream_t>(stream),
+                             static_cast<const float*>(x), n, d_in,
+                             static_cast<const float*>(w_in), static_cast<const float*>(b_in),
+                             static_cast<const float*>(w_mid), static_cast<const float*>(b_mid),
+                             static_cast<const float*>(w_out), static_cast<const float*>(b_out),
+                             static_cast<float*>(out));
+    }
   });
 }
 
@@ -1136,9 +1409,13 @@ extern "C" int fused_sdf_raw_bf16(const void* x, int n, int d_in, int k0, int cl
 extern "C" int fused_sdf_raw_f32_slots(int k0, int cluster, int* slots) {
   return dispatch(k0, cluster, [&](auto k, auto c) {
     constexpr int K0 = decltype(k)::value, C = decltype(c)::value;
-    using S = f32::Split<C>;
-    return count_slots<C>(f32::fused_sdf_kernel<K0, C>, S::NT, S::SMEM, f32::ready<K0, C>,
-                          slots);
+    if constexpr (C == 1) {
+      return (int)cudaErrorInvalidValue;
+    } else {
+      using S = f32::Split<C>;
+      return count_slots<C>(f32::fused_sdf_kernel<K0, C>, S::NT, S::SMEM, f32::ready<K0, C>,
+                            slots);
+    }
   });
 }
 

@@ -11,14 +11,15 @@ forward only, for N embedded points:
   l8: only the SDF column (a 512-long dot per point).
 
 Two precisions, one kernel each: float32 weights (the 'exact' tracer; tensor
-cores in split-TF32, three TF32 products per float32 product, which keeps
-float32 accuracy) and bfloat16 weights with float32 accumulation (the
-'mixed'/'fast' tracer's guidance queries; bf16 ``mma.sync``).  Both stream
-the weights through a ``cp.async`` ring.  Biases, softplus and the skip
-scaling stay float32.  Both kernels run each 64-point tile on a thread-block
-cluster of C CTAs (1, 2 or 4), each computing 512/C columns of every layer
-and sharing the activations through distributed shared memory;
-``cluster_size`` chooses C from N and each C's measured cost.
+cores in split-TF32 on ``wgmma``, three TF32 products per float32 product,
+which keeps float32 accuracy) and bfloat16 weights with float32
+accumulation (the 'mixed'/'fast' tracer's guidance queries; bf16
+``mma.sync``).  Both stream the weights through a ``cp.async`` ring.
+Biases, softplus and the skip scaling stay float32.  Both kernels run each
+64-point tile on a thread-block cluster of C CTAs (f32: 2 or 4; bf16: 1, 2
+or 4), each computing 512/C columns of every layer and sharing the
+activations through distributed shared memory; ``cluster_size`` chooses C
+from N and each C's measured cost.
 
 ``fused_sdf_raw`` launches the kernel for a CUDA tensor and raises if it
 cannot; for a CPU tensor it runs ``fused_sdf_raw_plain``, the same math in
@@ -47,16 +48,18 @@ KERNEL_HIDDEN = 512    # the CUDA kernel's compiled width
 # that covers d_in (rows past d_in are zero); d_in < 512, as the skip after l3
 # fills columns >= 512 - d_in (JAX supports_fusion, :47-54)
 KERNEL_DEPTHS = (64, 128, 256, 512)
-# points per tile of both kernels; their cluster sizes (CTAs that share one
-# tile)
+# points per tile of both kernels; the cluster sizes (CTAs that share one
+# tile) of either
 TILE = 64
 CLUSTER_SIZES = (1, 2, 4)
 # Each variant's time of one full wave of clusters of C (slots[C] / C tiles,
-# one CTA an SM), in ms, by C: the cost ``cluster_size`` weighs.  Measured on
-# an NVIDIA H100 80GB HBM3 at 700 W with scripts/bench_fused_mlp_f32.py
-# (``--dtype bf16``: 132, 66 and 30 tiles at C = 1, 2, 4; f32: the time of
-# a wave of tiles at each C).
-WAVE_MS = {"fused_sdf_raw_f32": {1: 0.572, 2: 0.322, 4: 0.207},
+# one CTA an SM), in ms, by the cluster sizes it compiles: the cost
+# ``cluster_size`` weighs.  Measured on an NVIDIA H100 80GB HBM3 at 700 W
+# with scripts/bench_fused_mlp_f32.py (``--dtype bf16``: 132, 66 and 30
+# tiles at C = 1, 2, 4; f32: 66 and 30 tiles at C = 2, 4; the f32 kernel
+# holds a partial and a float accumulator a column, which at C = 1 would
+# not fit the registers).
+WAVE_MS = {"fused_sdf_raw_f32": {2: 0.300, 4: 0.200},
            "fused_sdf_raw_bf16": {1: 0.146, 2: 0.098, 4: 0.089}}
 
 _CSRC = Path(__file__).resolve().parent / "csrc" / "fused_mlp.cu"
@@ -238,6 +241,11 @@ def _check(t: torch.Tensor, name: str, shape, dtype, device) -> None:
         raise ValueError(f"{name} must be contiguous and 16-byte aligned")
 
 
+def cluster_sizes(variant: str) -> Tuple[int, ...]:
+    """The cluster sizes ``variant``'s kernel compiles, smallest first."""
+    return tuple(sorted(WAVE_MS[variant]))
+
+
 def kernel_depth(d_in: int) -> int:
     """The compiled first-layer depth a launch with ``d_in`` inputs takes:
     the smallest of ``KERNEL_DEPTHS`` that covers it."""
@@ -247,15 +255,15 @@ def kernel_depth(d_in: int) -> int:
 
 
 def cluster_size(n: int, slots: Dict[int, int], wave_ms: Dict[int, float]) -> int:
-    """A kernel's cluster size C for ``n`` points: of ``CLUSTER_SIZES`` that
-    the card seats, the one of least modelled time, the waves of clusters
-    ``ceil(tiles C / slots[C])`` (``tiles = ceil(n / TILE)``) times the
-    measured time of one wave, ``wave_ms[C]`` (to 1e-9 ms); a tie goes to
-    the smaller C.  ``slots[C]`` is C times the clusters of size C that can
-    run at once (the card's occupancy query, ``cluster_slots``); ``wave_ms``
-    is the variant's ``WAVE_MS``."""
+    """A kernel's cluster size C for ``n`` points: of the sizes in
+    ``wave_ms`` that the card seats, the one of least modelled time, the
+    waves of clusters ``ceil(tiles C / slots[C])`` (``tiles = ceil(n /
+    TILE)``) times the measured time of one wave, ``wave_ms[C]`` (to 1e-9
+    ms); a tie goes to the smaller C.  ``slots[C]`` is C times the clusters
+    of size C that can run at once (the card's occupancy query,
+    ``cluster_slots``); ``wave_ms`` is the variant's ``WAVE_MS``."""
     tiles = -(-n // TILE)
-    cost = {c: -(-tiles * c // slots[c]) * wave_ms[c] for c in CLUSTER_SIZES if slots[c] > 0}
+    cost = {c: -(-tiles * c // slots[c]) * wave_ms[c] for c in sorted(wave_ms) if slots[c] > 0}
     return min(cost, key=lambda c: (round(cost[c], 9), c))
 
 
@@ -264,14 +272,15 @@ _slots: Dict[Tuple[str, int, int], Dict[int, int]] = {}
 
 def cluster_slots(variant: str, k0: int, device: torch.device) -> Dict[int, int]:
     """C -> C x the clusters of C CTAs of ``variant``'s kernel at depth ``k0``
-    that can run at once on ``device``, queried once per (variant, device,
-    K0) with ``cudaOccupancyMaxActiveClusters``."""
+    that can run at once on ``device``, for each C the kernel compiles,
+    queried once per (variant, device, K0) with
+    ``cudaOccupancyMaxActiveClusters``."""
     with torch.cuda.device(device):
         key = (variant, torch.cuda.current_device(), k0)
         if key not in _slots:
             query = getattr(load_library(), f"{variant}_slots")
             slots = {}
-            for c in CLUSTER_SIZES:
+            for c in cluster_sizes(variant):
                 got = ctypes.c_int(0)
                 err = query(k0, c, ctypes.byref(got))
                 if err != 0:
@@ -285,8 +294,9 @@ def cluster_slots(variant: str, k0: int, device: torch.device) -> Dict[int, int]
 def _launch(x: torch.Tensor, packed: Dict[str, torch.Tensor],
             cluster: Optional[int] = None) -> torch.Tensor:
     """Launch the kernel of ``packed``'s weight type on ``x``.  ``cluster``
-    forces the cluster size (the card's checks hold every C against C = 1);
-    by default ``cluster_size`` chooses it from N."""
+    forces the cluster size, one of ``cluster_sizes(variant)`` (the card's
+    checks hold every C against the smallest); by default ``cluster_size``
+    chooses it from N."""
     n, d_in = x.shape
     wd = packed["w_in"].dtype
     if wd == torch.float32:
@@ -309,8 +319,9 @@ def _launch(x: torch.Tensor, packed: Dict[str, torch.Tensor],
     _check(packed["b_mid"], "b_mid", (N_MID, hidden), torch.float32, dev)
     _check(packed["w_out"], "w_out", (hidden,), wd, dev)
     _check(packed["b_out"], "b_out", (1,), torch.float32, dev)
-    if cluster is not None and cluster not in CLUSTER_SIZES:
-        raise ValueError(f"cluster must be one of {CLUSTER_SIZES}; got {cluster}")
+    if cluster is not None and cluster not in cluster_sizes(variant):
+        raise ValueError(f"{variant}: cluster must be one of {cluster_sizes(variant)}; "
+                         f"got {cluster}")
     out = torch.empty(n, dtype=torch.float32, device=dev)
     if n == 0:
         return out

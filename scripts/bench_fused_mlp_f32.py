@@ -4,23 +4,30 @@ sizes: every cluster size, against other versions of its source and the
 cuBLAS chain, and the time of one full wave of clusters of each size.
 
     python3 scripts/bench_fused_mlp_f32.py [--dtype f32|bf16] [--other OTHER.cu ...]
-        [--variant NAME ...] [--n 256 2048 ...]
+        [--other-wave-ms JSON] [--variant NAME ...] [--n 256 2048 ...]
+        [--errors-d-in 59 102 198 510 --errors-n 4113 49152]
 
 Builds the current ``hashmodnffbanks_idr_tpu_torch/ops/csrc/fused_mlp.cu``,
 each ``--other`` source and each ``--variant`` (a copy of the current source
 with one constant of the variant's kernel changed, or one part taken out, by
 a text substitution inside its namespace, ``f32`` or ``bf16k``; see
 ``VARIANTS``) into ``build/bench_<dtype>/`` (one ``nvcc`` each, all started
-together).  A source whose C interface for the variant has no cluster
-argument (a kernel before clusters) is called as it is, with one CTA a
-tile; a source with one is called at every cluster size and at the size its
-own occupancy query and ``fused_mlp.cluster_size`` (with the variant's
-``WAVE_MS``) choose ("auto").  On the flagship's SDF network (d_in 59,
+together; a version other than the current one that fails to build is
+reported and left out).  A source whose C interface for the variant has no
+cluster argument (a kernel before clusters) is called as it is, with one
+CTA a tile; a source with one is called at every cluster size its
+occupancy query takes and at the size that query and
+``fused_mlp.cluster_size`` choose ("auto"), with the variant's ``WAVE_MS``
+(an ``--other`` source's: ``--other-wave-ms``, by C).  First, with
+``--errors-d-in``, every version's error against the plain twin at each of
+those first-layer widths (``chip_smoke.CHECK_D_IN``, input weights spread)
+at ``--errors-n``, untimed.  Then on the flagship's SDF network (d_in 59,
 random weights from seed 0) and seeded points at each N:
 
   - every version and cluster size is held against the plain twin (the
     card's tolerance: f32 1e-5, bf16 3e-2 with signs where |sdf| > 5e-2),
-    and compared bit for bit with the current source's C = 1 output;
+    and compared bit for bit with the current source's output at its
+    smallest C;
   - each is timed with CUDA events (warm L2, mean of ``--iters`` launches)
     in two passes, the versions in opposite orders (others, current; then
     current, others), beside the cuBLAS chain and the plain twin.
@@ -49,7 +56,8 @@ import torch
 ROOT = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT))
 
-from chip_smoke import library_chain, sdf_mlp_cost  # noqa: E402
+from chip_smoke import (CHECK_D_IN, library_chain, sdf_mlp_cost,  # noqa: E402
+                        spread_input_weights)
 from hashmodnffbanks_idr_tpu_torch import resolve_device  # noqa: E402
 from hashmodnffbanks_idr_tpu_torch.models.renderer import IDRNetwork  # noqa: E402
 from hashmodnffbanks_idr_tpu_torch.ops import fused_mlp as fm  # noqa: E402
@@ -66,7 +74,7 @@ from hashmodnffbanks_idr_tpu_torch.utils.profiling import (  # noqa: E402
 # and the mixed sweep's coarse probes (69632)
 DTYPES = {"f32": dict(name="fused_sdf_raw_f32", namespace="f32", dtype=torch.float32,
                       mangled="3f3216fused_sdf_kernel", tol=1e-5, peak="tf32", products=3,
-                      sizes=(256, 2048, 4096, 24576, 49152)),
+                      sizes=(256, 2048, 4096, 24576, 49152, 69632)),
           "bf16": dict(name="fused_sdf_raw_bf16", namespace="bf16k", dtype=torch.bfloat16,
                        mangled="5bf16k16fused_sdf_kernel", tol=3e-2, peak="bf16", products=1,
                        sizes=(256, 2048, 4096, 69632))}
@@ -76,29 +84,21 @@ D_IN = 59  # the flagship's first-layer width: K0 = 64
 # The constants of the cluster split and the ring keep the math; the others
 # take a part out and are for timing only
 F32_VARIANTS = {
-    # 16-row stages at C = 2 and 4 too, three of them
-    "kc16": [(r"static constexpr int KC = C == 1 \? 16 : 32;", "static constexpr int KC = 16;"),
-             (r"static constexpr int STAGES = C == 2 \? 2 : 3;",
-              "static constexpr int STAGES = 3;")],
-    # a fourth 32-row stage at C = 4
-    "ring4": [(r"static constexpr int STAGES = C == 2 \? 2 : 3;",
-               "static constexpr int STAGES = C == 2 ? 2 : (C == 4 ? 4 : 3);")],
-    # one 8-deep k-step at a time at every C
-    "unroll1": [(r"static constexpr int K_UNROLL = C == 1 \? 1 : 2;",
-                 "static constexpr int K_UNROLL = 1;")],
-    # 16 warps a CTA at C = 2 (2 x 8 of 32 x 32) and 4 (4 x 4 of 16 x 32)
-    "nt512": [(r"static constexpr int NT = 256;", "static constexpr int NT = C == 1 ? 256 : 512;"),
-              (r"static constexpr int WR = C == 1 \? 1 : 2;",
-               "static constexpr int WR = C == 1 ? 1 : C;")],
-    # the other warp layouts: 1 x 8 of 64 x 32 at C = 2, 4 x 2 of 16 x 64 at 4
-    "warps_alt": [(r"static constexpr int WR = C == 1 \? 1 : 2;",
-                   "static constexpr int WR = C == 1 ? 1 : (C == 2 ? 1 : 4);")],
-    # timing only: no store into another CTA's tile
-    "no_dsmem": [(r'asm volatile\("st\.shared::cluster\.v2\.f32.*?: "memory"\);', ";")],
-    # timing only: each mma.sync becomes one float add that reads its operands
-    "no_mma": [(r'asm\("mma\.sync.*?"f"\(0\.f\)\);',
-                "c[0] = c[1] = c[2] = c[3] = __uint_as_float(a[0] ^ b[0]);"),
-               (r'asm\("mma\.sync.*?"r"\(b\[1\]\)\);', "c[0] += __uint_as_float(a[1] ^ b[1]);")],
+    # timing only: no weight copies (the products read stale weights)
+    "no_copy": [(r"cp_async16\(dst \+ 16 \* r, valid \? src \+ r \* HIDDEN : W, valid\);", ";")],
+    # timing only: every copy reads the same 16 bytes a thread (L2 and L1
+    # hits, no stream)
+    "copy_same": [(r"cp_async16\(dst \+ 16 \* r, valid \? src \+ r \* HIDDEN : W, valid\);",
+                   "cp_async16(dst + 16 * r, w_in + (threadIdx.x % 64) * 4, true);")],
+    # timing only: no weight copies, no split, no A loads (A from one
+    # column): the products, folds, barriers and epilogues alone
+    "wgmma_only": [(r"cp_async16\(dst \+ 16 \* r, valid \? src \+ r \* HIDDEN : W, valid\);", ";"),
+                   (r"split_block<C>\(bufs, c, block\);", ";"),
+                   (r"load_a\(act, wq, g, t, k0 \+ 8 \* s, ah\[j\]\[s\], al\[j\]\[s\]\);",
+                    "load_a(act, wq, g, t, 0, ah[j][s], al[j][s]);")],
+    # timing only: no split of the weights (the products read stale hi and
+    # lo)
+    "no_split": [(r"split_block<C>\(bufs, c, block\);", ";")],
 }
 # the bf16 kernel's parts, each taken out by itself (timing only)
 _BF16_PARTS = {
@@ -138,8 +138,7 @@ BF16_VARIANTS = {
     "mma_only": sum(_BF16_PARTS.values(), []),
 }
 VARIANTS = {"f32": F32_VARIANTS, "bf16": BF16_VARIANTS}
-KEEPS_MATH = ("kc16", "ring4", "unroll1", "nt512", "warps_alt", "stages4", "kc32", "warps16",
-              "c4_two_ctas")
+KEEPS_MATH = ("stages4", "kc32", "warps16", "c4_two_ctas")
 
 
 def variant_source(src: str, namespace: str, subs) -> str:
@@ -156,7 +155,8 @@ def variant_source(src: str, namespace: str, subs) -> str:
 
 def build_all(sources, out_dir: Path):
     """{name: path} -> {name: (library, ptxas report)}, all nvcc runs in
-    parallel."""
+    parallel; a version other than the current one that fails to build is
+    reported and left out."""
     out_dir.mkdir(parents=True, exist_ok=True)
     procs = {}
     for name, path in sources.items():
@@ -169,7 +169,10 @@ def build_all(sources, out_dir: Path):
     for name, (lib, p) in procs.items():
         log = p.communicate()[0]
         if p.returncode != 0:
-            raise RuntimeError(f"nvcc failed for {name}:\n{log}")
+            if name == "current":
+                raise RuntimeError(f"nvcc failed for {name}:\n{log}")
+            print(json.dumps({"version": name, "build_failed": log[-2000:]}))
+            continue
         built[name] = (lib, log)
     return built
 
@@ -205,14 +208,16 @@ def bind(path: Path, name: str):
     return fn, slots
 
 
-def lib_slots(query, k0: int) -> dict:
+def lib_slots(query, k0: int, sizes=fm.CLUSTER_SIZES) -> dict:
+    """C -> the library's slots at depth k0 for each C of ``sizes`` that its
+    occupancy query takes (a source need not compile every C)."""
     slots = {}
-    for c in fm.CLUSTER_SIZES:
+    for c in sizes:
         got = ctypes.c_int(0)
-        err = query(k0, c, ctypes.byref(got))
-        if err:
-            raise RuntimeError(f"occupancy query K0={k0} C={c}: CUDA error {err}")
-        slots[c] = got.value
+        if query(k0, c, ctypes.byref(got)) == 0:
+            slots[c] = got.value
+    if not slots:
+        raise RuntimeError(f"occupancy query K0={k0}: no cluster size of {sizes} is taken")
     return slots
 
 
@@ -226,6 +231,14 @@ def main() -> int:
                     help="a variant of the current source (VARIANTS of --dtype)")
     ap.add_argument("--n", type=int, nargs="+", help="call sizes (default: the variant's)")
     ap.add_argument("--iters", type=int, default=20)
+    ap.add_argument("--errors-d-in", type=int, nargs="*", default=[],
+                    help="first-layer widths (chip_smoke.CHECK_D_IN, input weights spread) "
+                         "at which every version's error against the plain twin is read, "
+                         "untimed, at --errors-n")
+    ap.add_argument("--errors-n", type=int, nargs="+", default=[4113, 49152])
+    ap.add_argument("--other-wave-ms", type=json.loads, default=None,
+                    help='each --other\'s WAVE_MS for its "auto" C, as JSON by C '
+                         '(default: the current WAVE_MS of the sizes it compiles)')
     args = ap.parse_args()
     spec, variants = DTYPES[args.dtype], VARIANTS[args.dtype]
     unknown = sorted(set(args.variant) - set(variants))
@@ -254,8 +267,11 @@ def main() -> int:
     for name, (path, log) in built.items():
         libs[name] = bind(path, spec["name"])
         print(json.dumps({"version": name, "clustered": libs[name][1] is not None,
-                          "ptxas": kernel_ptxas(log, spec["mangled"])}))
-    slots = {k0: lib_slots(libs["current"][1], k0) for k0 in fm.KERNEL_DEPTHS}
+                          "ptxas": kernel_ptxas(log, spec["mangled"]),
+                          "ptxas_warnings": sorted({ln.strip() for ln in log.splitlines()
+                                                    if "arning" in ln})}))
+    sizes = fm.cluster_sizes(spec["name"])
+    slots = {k0: lib_slots(libs["current"][1], k0, sizes) for k0 in fm.KERNEL_DEPTHS}
     print(json.dumps({"slots": slots}))
 
     net = IDRNetwork(flagship_conf(num_pixels=2048).get_config("model"), device=dev,
@@ -268,32 +284,64 @@ def main() -> int:
     stream = torch.cuda.current_stream(dev).cuda_stream
     gen = torch.Generator(device=dev).manual_seed(1)
     wave_ms = fm.WAVE_MS[spec["name"]]
+    other_wave_ms = ({int(c): v for c, v in args.other_wave_ms.items()}
+                     if args.other_wave_ms else None)
 
-    # (version, C) -> (entry, its slots); C is "auto", 1, 2, 4, or None (no
-    # cluster interface)
+    # (version, C) -> (entry, its slots, its WAVE_MS); C is "auto", one of
+    # the sizes the version compiles, or None (no cluster interface)
     entries = {}
     for name, (fn, query) in libs.items():
         if query is None:
-            entries[(name, None)] = (fn, None)
+            entries[(name, None)] = (fn, None, None)
             continue
-        own = lib_slots(query, k0)
-        for c in ("auto",) + fm.CLUSTER_SIZES:
-            entries[(name, c)] = (fn, own)
+        this_source = name in ("current", *args.variant)
+        own = lib_slots(query, k0, sizes if this_source else fm.CLUSTER_SIZES)
+        own_wave = wave_ms if this_source else other_wave_ms or wave_ms
+        own_wave = {c: v for c, v in own_wave.items() if c in own}
+        for c in ("auto",) + tuple(own):
+            entries[(name, c)] = (fn, own, own_wave)
 
-    def launcher(key, x, out):
-        (fn, own), n = entries[key], x.shape[0]
+    def launcher(key, x, out, ptrs=pointers):
+        (fn, own, own_wave), (n, d_in) = entries[key], x.shape
         if key[1] is None:
             extra = []
         elif key[1] == "auto":
-            extra = [fm.cluster_size(n, own, wave_ms)]
+            extra = [fm.cluster_size(n, own, own_wave)]
         else:
             extra = [key[1]]
 
         def call():
-            err = fn(x.data_ptr(), n, D_IN, k0, *extra, *pointers, out.data_ptr(), stream)
+            err = fn(x.data_ptr(), n, d_in, fm.kernel_depth(d_in), *extra, *ptrs,
+                     out.data_ptr(), stream)
             if err:
                 raise RuntimeError(f"{key}: launch failed: CUDA error {err}")
         return call, (extra[0] if extra else 1)
+
+    # each version's error at other first-layer depths (the occupancy of
+    # another K0 is that of K0 64: the depth changes only l0's chunk count)
+    for d_in in args.errors_d_in:
+        embed_type, puts = CHECK_D_IN[d_in]
+        conf = flagship_conf(num_pixels=2048, embed_type=embed_type)
+        for key_, v in puts.items():
+            conf.put(key_, v)
+        dnet = IDRNetwork(conf.get_config("model"), device=dev, seed=0).implicit_network
+        spread_input_weights(dnet, torch.Generator(device=dev).manual_seed(d_in))
+        dpacked = fm.pack_params(dnet.lin, d_in, dnet.dims[1], dtype=spec["dtype"])
+        dptrs = [dpacked[k].data_ptr() for k in ("w_in", "b_in", "w_mid", "b_mid", "w_out",
+                                                 "b_out")]
+        for n in args.errors_n:
+            pts = (torch.rand(n, 3, generator=gen, device=dev) * 2 - 1) * 0.6
+            with torch.no_grad():
+                x = dnet._embed(pts).contiguous()
+                want = fm.fused_sdf_raw_plain(x, dpacked)
+            errs = {}
+            for key in entries:
+                out = torch.full((n,), float("nan"), device=dev)
+                launcher(key, x, out, dptrs)[0]()
+                torch.cuda.synchronize()
+                errs[f"{key[0]},{key[1]}"] = float((out - want).abs().max())
+            print(json.dumps({"d_in": d_in, "k0": fm.kernel_depth(d_in), "n": n,
+                              "max_abs_err": errs}))
 
     def time_ms(fn):
         for _ in range(3):
@@ -324,7 +372,7 @@ def main() -> int:
         for key, (call, _) in calls.items():
             call()
         torch.cuda.synchronize()
-        ref = outs[("current", 1)].view(torch.int32)
+        ref = outs[("current", sizes[0])].view(torch.int32)
         ms = {key: [] for key in entries}
         lib_ms, plain_ms = [], []
         for order in (others + mine, mine + others):
@@ -344,13 +392,14 @@ def main() -> int:
                    "ms": ms[key], "library_ms": lib_ms, "plain_ms": plain_ms,
                    "bound_ms": bound_ms, "max_abs_err": err,
                    "within_tol": bool(err <= spec["tol"]) and not math.isnan(err) and signs,
-                   "bit_equal_to_current_c1": bool(torch.equal(outs[key].view(torch.int32), ref))}
+                   "bit_equal_to_current_smallest_c": bool(
+                       torch.equal(outs[key].view(torch.int32), ref))}
             print(json.dumps(rec))
 
     # wave_ms: one full wave of clusters of C, and four waves over four
-    for name, (fn, own) in {k[0]: v for k, v in entries.items() if k[1] == 1}.items():
+    for name, (fn, own, _) in {k[0]: v for k, v in entries.items() if k[1] == "auto"}.items():
         rec = {"version": name, "slots": own, "wave_ms": {}, "four_waves_ms_per_wave": {}}
-        for c in fm.CLUSTER_SIZES:
+        for c in own:
             if own[c] < c:
                 continue
             for waves, field in ((1, "wave_ms"), (4, "four_waves_ms_per_wave")):

@@ -5,7 +5,8 @@ the checks that need no sanitizer.
 Each variant (f32, bf16) is launched at every compiled first-layer depth
 K0 (64, 128, 256, 512; d_in 59, 102, 198 and 510, the depths the encoders
 and NerfPos give, as ``chip_smoke.py`` holds them), at every cluster size
-C (1, 2, 4: the CTAs that share a tile through distributed shared memory),
+C it compiles (f32: 2, 4; bf16: 1, 2, 4: the CTAs that share a tile
+through distributed shared memory),
 and at N = 1, 63, 64, 65 and 4113 (the 64-point tile's
 edges and a ragged last tile), from seeded points and an ``IDRNetwork``
 whose first-layer and skip weights are spread as
@@ -27,7 +28,8 @@ catch where it changes the output:
     would show, such as a slice of a layer that a CTA of the cluster did not
     write into another's tile);
   - ten more launches on the same input give the same bits;
-  - each cluster size gives the bits of C = 1 on the same input.
+  - each cluster size gives the bits of the variant's smallest C on the
+    same input.
 Then, for each tool, it runs itself with ``--launches-only`` (each launch
 once, nothing else) under ``compute-sanitizer --tool <tool>`` and reads the
 tool's ERROR SUMMARY.  The last line is a JSON record: the checks, and per
@@ -89,7 +91,7 @@ def cases(dev):
                 pts = (torch.rand(n, 3, generator=gen, device=dev) * 2 - 1) * 0.6
                 with torch.no_grad():
                     x = net._embed(pts).contiguous()
-                for c in fm.CLUSTER_SIZES:
+                for c in fm.cluster_sizes(name):
                     yield name, k0, c, n, x, packed, tol
 
 
@@ -132,7 +134,7 @@ def checks(dev) -> dict:
     nan_bits = torch.tensor(float("nan"), device=dev).view(torch.int32)
     worst = {name: 0.0 for name, *_ in VARIANTS}
     n_cases = 0
-    c1 = {}  # (variant, K0, N) -> the C = 1 output bits
+    c1 = {}  # (variant, K0, N) -> the output bits at the variant's smallest C
     for name, k0, c, n, x, packed, tol in cases(dev):
         where = f"{name} K0={k0} C={c} N={n}"
         xbuf = torch.full((n + 2 * GUARD, x.shape[1]), float("nan"), device=dev)
@@ -165,12 +167,13 @@ def checks(dev) -> dict:
                                      "repeat, changed the output")
         bits = first.view(torch.int32)
         if not torch.equal(c1.setdefault((name, k0, n), bits), bits):
-            raise AssertionError(f"{where}: differs from C=1 on the same input")
+            raise AssertionError(f"{where}: differs from the smallest C on the same input")
         n_cases += 1
         print(f"[check] {where}: guards intact, all written, max abs err {err:.3e}, "
-              f"{REPEATS} launches over poisoned shared memory bit-identical, equal to C=1")
+              f"{REPEATS} launches over poisoned shared memory bit-identical, equal to the "
+              "smallest C")
     return {"cases": n_cases, "max_abs_err": worst, "repeats": REPEATS,
-            "clusters": list(fm.CLUSTER_SIZES)}
+            "clusters": {name: list(fm.cluster_sizes(name)) for name, *_ in VARIANTS}}
 
 
 def launches_only(dev) -> None:

@@ -30,12 +30,15 @@ TOL = {"f32": 1e-5, "bf16": 3e-2}
 DTYPE = {"f32": torch.float32, "bf16": torch.bfloat16}
 # each variant: the edges of its 64-point tile (csrc/fused_mlp.cu, f32::TM
 # and bf16k::TM) and the tracer's batch sizes up to its largest call (on
-# the H100 the rule runs 2048 and 4096 on clusters of 2, 49152 and 69632 on
-# one CTA a tile)
+# the H100 the rule runs the f32 kernel's 2048 and up on clusters of 2, the
+# bf16 kernel's 2048 and 4096 on clusters of 2 and 69632 on one CTA a tile)
 F32_TILE = 64
 BF16_TILE = 64
 CHECK_N = {"f32": (1, F32_TILE - 1, F32_TILE, F32_TILE + 1, 513, 2048, 4096, 49152),
            "bf16": (1, BF16_TILE - 1, BF16_TILE, BF16_TILE + 1, 513, 4096, 69632)}
+# the f32 kernel at every compiled depth and cluster size against its plain
+# twin at the main path's sizes (chip_smoke.py F32_HELD_N)
+F32_HELD_N = (256, 2048, 4096, 24576, 49152, 69632)
 
 
 @pytest.fixture
@@ -92,27 +95,59 @@ def test_cuda_wrapper_refuses_what_the_kernel_does_not_take(net):
     for dtype in DTYPE.values():                                # cluster size
         with pytest.raises(ValueError):
             fm._launch(x, fm.pack_params(net.lin, 59, 512, dtype=dtype), cluster=3)
+    with pytest.raises(ValueError):                             # f32: no C = 1
+        fm._launch(x, packed, cluster=1)
 
 
-@pytest.mark.parametrize("cluster", [1, 2, 4])
+@pytest.mark.parametrize("cluster", [2, 4])
 def test_cuda_f32_cluster_matches_c1_bit_for_bit(net, cluster):
-    """Each cluster size (the CTAs that share a 64-point tile through
-    distributed shared memory) within the f32 tolerance of the plain twin
-    and equal to the C = 1 launch bit for bit, since every column keeps its
-    k order; at the tile's edges, the secant's and the march's sizes and one
-    past them."""
+    """Each cluster size the f32 kernel compiles (the CTAs that share a
+    64-point tile through distributed shared memory) within the f32
+    tolerance of the plain twin and equal to the launch at its smallest C
+    (2; it has no C = 1) bit for bit, since every column keeps its k order
+    and fold grouping; at the tile's edges, the secant's and the march's
+    sizes and one past them."""
     packed = fm.pack_params(net.lin, 59, 512, dtype=torch.float32)
+    smallest = fm.cluster_sizes("fused_sdf_raw_f32")[0]
     for n in (1, F32_TILE - 1, F32_TILE, F32_TILE + 1, 2048, 2049, 4096, 4113):
         x = _points(net, n, seed=n)
         fm.reset_launch_counts()
         got = fm._launch(x, packed, cluster=cluster)
-        ref = fm._launch(x, packed, cluster=1)
+        ref = fm._launch(x, packed, cluster=smallest)
         want = fm.fused_sdf_raw_plain(x, packed)
         torch.cuda.synchronize()
         counts = fm.launch_counts["fused_sdf_raw_f32"]
-        assert counts[f"cluster_{cluster}"] == (2 if cluster == 1 else 1)
+        assert counts[f"cluster_{cluster}"] == (2 if cluster == smallest else 1)
         assert float((got - want).abs().max()) <= TOL["f32"], n
         assert torch.equal(got.view(torch.int32), ref.view(torch.int32)), n
+
+
+@pytest.mark.parametrize("d_in", [59, 102, 198, 510])
+def test_cuda_f32_every_depth_and_cluster_at_the_main_paths_sizes(cuda_device, d_in):
+    """The f32 kernel at each compiled first-layer depth (K0 64, 128, 256,
+    512), its input weights spread so that every input column counts, and
+    each cluster size it compiles: within 1e-5 of the plain twin at the
+    main path's sizes, each C bit-identical to the smallest."""
+    kw = {59: {}, **DEPTH_KW}[d_in]
+    net = ImplicitNetwork(**{**NET_KW, **kw})
+    net.reset_parameters(torch.Generator().manual_seed(d_in))
+    net = net.to(cuda_device)
+    assert net.dims[0] == d_in
+    with torch.no_grad():
+        for l in (0, *net.skip_in):
+            net.lin[l].v.add_(0.03 * torch.randn(net.lin[l].v.shape, device=cuda_device,
+                                                 generator=torch.Generator(cuda_device)
+                                                 .manual_seed(l)))
+    packed = fm.pack_params(net.lin, d_in, 512, dtype=torch.float32)
+    sizes = fm.cluster_sizes("fused_sdf_raw_f32")
+    for n in F32_HELD_N:
+        x = _points(net, n, seed=n)
+        want = fm.fused_sdf_raw_plain(x, packed)
+        got = {c: fm._launch(x, packed, cluster=c) for c in sizes}
+        torch.cuda.synchronize()
+        for c, out in got.items():
+            assert float((out - want).abs().max()) <= TOL["f32"], (n, c)
+            assert torch.equal(out.view(torch.int32), got[sizes[0]].view(torch.int32)), (n, c)
 
 
 @pytest.mark.parametrize("cluster", [1, 2, 4])
@@ -141,7 +176,7 @@ def _takes_the_rules_cluster_size(net, precision, sizes):
     packed = fm.pack_params(net.lin, 59, 512, dtype=DTYPE[precision])
     name = f"fused_sdf_raw_{precision}"
     slots = fm.cluster_slots(name, fm.kernel_depth(59), net.lin[0].b.device)
-    assert all(slots[c] >= c for c in fm.CLUSTER_SIZES), slots
+    assert all(slots[c] >= c for c in fm.cluster_sizes(name)), slots
     for n in sizes:
         fm.reset_launch_counts()
         fm.fused_sdf_raw(_points(net, n, seed=n), packed)
@@ -177,7 +212,7 @@ def test_cuda_kernel_matches_plain_at_every_depth(cuda_device, precision, d_in):
     """With the geometric init, whose first-layer and skip weights past the
     3 coordinates are zero, and again with those weights spread, so that
     every input column counts; at N=4096 at every cluster size, each equal
-    to C = 1 bit for bit (bf16: the signs agreeing)."""
+    to the smallest C bit for bit (bf16: the signs agreeing)."""
     assert fm.kernel_depth(d_in) == max(64, 1 << (d_in - 1).bit_length())
     torch.manual_seed(d_in)
     net = ImplicitNetwork(**{**NET_KW, **DEPTH_KW[d_in]})
@@ -197,8 +232,9 @@ def test_cuda_kernel_matches_plain_at_every_depth(cuda_device, precision, d_in):
             torch.cuda.synchronize()
             assert float((got - want).abs().max()) <= TOL[precision], (spread, n)
         big = want.abs() > 5e-2
-        ref = fm._launch(x, packed, cluster=1)
-        for c in fm.CLUSTER_SIZES:
+        sizes = fm.cluster_sizes(f"fused_sdf_raw_{precision}")
+        ref = fm._launch(x, packed, cluster=sizes[0])
+        for c in sizes:
             got = fm._launch(x, packed, cluster=c)
             torch.cuda.synchronize()
             assert float((got - want).abs().max()) <= TOL[precision], (spread, c)

@@ -8,6 +8,7 @@ kernel itself is held against the plain twin by tests/test_torch_cuda.py
 (skipped without a card) and by chip_smoke.py.
 """
 
+import re
 from fractions import Fraction
 
 import numpy as np
@@ -109,11 +110,19 @@ def _emulated_sdf(x, packed, dot):
     return h @ packed["w_out"] + packed["b_out"][0]
 
 
+_PALLAS_F32 = {}
+
+
 def _pallas_f32(nets, n):
+    """Inputs of n points, the port's packed f32 weights and the Pallas
+    kernel's output on them (interpret mode; computed once per n)."""
     _, params, net = nets
-    jpacked = jfm.pack_params(params["lin"], 59, 512, dtype=jnp.float32)
-    x = _inputs(n, seed=n)
-    want = np.asarray(jfm.fused_sdf_raw(jnp.asarray(x), jpacked, 59, 512, interpret=True))
+    if n not in _PALLAS_F32:
+        jpacked = jfm.pack_params(params["lin"], 59, 512, dtype=jnp.float32)
+        x = _inputs(n, seed=n)
+        _PALLAS_F32[n] = (x, np.asarray(jfm.fused_sdf_raw(jnp.asarray(x), jpacked, 59, 512,
+                                                            interpret=True)))
+    x, want = _PALLAS_F32[n]
     return torch.from_numpy(x), fm.pack_params(net.lin, 59, 512, dtype=torch.float32), want
 
 
@@ -125,6 +134,55 @@ def test_split_tf32_scheme_matches_pallas_kernel(nets, n):
     x, packed, want = _pallas_f32(nets, n)
     got = _emulated_sdf(x, packed, _dot_split_tf32).numpy()
     np.testing.assert_allclose(got, want, rtol=0, atol=2e-6)
+
+
+# the fold depths (8-deep k-steps a partial sum spans) the f32 kernel may
+# take: csrc/fused_mlp.cu f32::FOLD, which must divide l0's 64-deep K0
+FOLDS = (1, 2, 4, 8)
+
+
+def _dot_split_tf32_folded(fold):
+    """The wgmma kernel's product: each operand split as hi + lo, the low
+    13 bits of both cleared (``_tf32``), three TF32 products; the tensor
+    cores sum the products of ``fold`` 8-deep k-steps into a fresh partial
+    sum (here exactly, then rounded to float32), and round-to-nearest
+    float32 adds fold the partial sums into the accumulator in k order."""
+    depth = 8 * fold
+
+    def dot(h, w):
+        h_hi, w_hi = _tf32(h), _tf32(w)
+        h_lo, w_lo = _tf32(h - h_hi), _tf32(w - w_hi)
+        k = h.shape[1]
+        pad = -k % depth  # the kernel's zero rows past d_in
+        hs = [torch.nn.functional.pad(v, (0, pad)).double() for v in (h_hi, h_lo)]
+        ws = [torch.nn.functional.pad(v, (0, 0, 0, pad)).double() for v in (w_hi, w_lo)]
+        acc = torch.zeros(h.shape[0], w.shape[1], dtype=torch.float32)
+        for k0 in range(0, k + pad, depth):
+            sl = slice(k0, k0 + depth)
+            part = (hs[1][:, sl] @ ws[0][sl] + hs[0][:, sl] @ ws[1][sl]
+                    + hs[0][:, sl] @ ws[0][sl])
+            acc = acc + part.float()
+        return acc
+    return dot
+
+
+@pytest.mark.parametrize("fold", FOLDS)
+@pytest.mark.parametrize("n", [1, 96, 513])
+def test_wgmma_split_tf32_fold_matches_pallas_kernel(nets, fold, n):
+    """The f32 kernel's arithmetic on ``wgmma`` (split-TF32 with explicit hi
+    and lo, and a fresh partial sum folded every ``fold`` k-steps), emulated
+    in torch, holds the f32 Pallas kernel's tolerance at every fold depth
+    the kernel may take."""
+    x, packed, want = _pallas_f32(nets, n)
+    got = _emulated_sdf(x, packed, _dot_split_tf32_folded(fold)).numpy()
+    np.testing.assert_allclose(got, want, rtol=0, atol=2e-6)
+
+
+def test_kernel_fold_depth_is_one_of_the_emulated():
+    """The fold depth compiled into the f32 kernel is one the test above
+    holds, and divides l0's shallowest depth."""
+    m = re.search(r"constexpr int FOLD = (\d+);", fm._CSRC.read_text())
+    assert m and int(m.group(1)) in FOLDS and fm.KERNEL_DEPTHS[0] % (8 * int(m.group(1))) == 0
 
 
 def test_one_tf32_product_misses_the_card_tolerance(nets):
@@ -161,7 +219,8 @@ def test_wrapper_refuses_gradients(nets):
 
 
 # the kernels' cluster size from N (ops/fused_mlp.py:cluster_size): the waves
-# of clusters of C times each C's measured wave time, per variant.  132 slots:
+# of clusters of C times each C's measured wave time, per variant, over the
+# sizes the variant compiles (f32: 2 and 4; bf16: 1, 2 and 4).  132 slots:
 # an H100's 132 SMs, one CTA an SM at every cluster size; the card's own
 # slots, by its occupancy query, are 132 / 132 / 120 (its GPCs seat 30
 # clusters of 4)
@@ -178,13 +237,28 @@ def _cost(n, slots, wave_ms, c):
     return -(-tiles * c // slots[c]) * Fraction(str(wave_ms[c]))
 
 
-@pytest.mark.parametrize("n, want", [(2048, 4), (4096, 2), (256, 4), (1, 4), (24576, 1),
-                                     (49152, 1), (69632, 1)])
+def test_each_variant_compiles_its_cluster_sizes():
+    """The f32 kernel holds a partial and a float accumulator a column, which
+    one CTA a tile could not keep in registers: its clusters are of 2 and 4,
+    and the wrapper refuses a tile on one CTA before it reaches the card."""
+    assert fm.cluster_sizes("fused_sdf_raw_f32") == (2, 4)
+    assert fm.cluster_sizes("fused_sdf_raw_bf16") == (1, 2, 4)
+    assert set(fm.CLUSTER_SIZES) == set(F32) | set(BF16)
+    x = torch.zeros(8, 59)
+    packed = {"w_in": torch.zeros(59, 512), "b_in": torch.zeros(512),
+              "w_mid": torch.zeros(fm.N_MID, 512, 512), "b_mid": torch.zeros(fm.N_MID, 512),
+              "w_out": torch.zeros(512), "b_out": torch.zeros(1)}
+    with pytest.raises(ValueError, match="cluster must be one of"):
+        fm._launch(x, packed, cluster=1)
+
+
+@pytest.mark.parametrize("n, want", [(2048, 4), (4096, 2), (256, 4), (1, 4), (24576, 2),
+                                     (49152, 2), (69632, 2)])
 def test_cluster_size_at_132_slots(n, want):
     """The f32 kernel: the secant's calls (2048) on clusters of 4, the
     march's (4096) on clusters of 2 (two waves of 4 cost more than one of
     2), the camera step's (256) on 4, the exact sweep's probes (24576,
-    49152) and the ngp cells' (69632) one CTA a tile."""
+    49152) and the ngp cells' (69632) on clusters of 2."""
     assert fm.cluster_size(n, SLOTS_132, F32) == want
 
 
@@ -197,12 +271,13 @@ def test_bf16_cluster_size_at_the_h100s_slots(n, want):
 
 
 def test_f32_cluster_size_at_69632_weighs_the_wave_time():
-    """The ngp cells' largest f32 call: 17 waves of clusters of 2 are 8.5
-    a CTA share against 9 waves at C = 1, but a wave of clusters of 2 takes
-    0.322 ms, not half of 0.572: the rule takes C = 1."""
+    """The ngp cells' largest f32 call: 37 waves of clusters of 4 are 18.5
+    two-CTA waves' worth against 17 waves of clusters of 2, and a wave of
+    clusters of 4 takes more than half of one of 2: the rule takes C = 2."""
     tiles = 69632 // fm.TILE
-    assert -(-tiles * 2 // 132) == 17 and -(-tiles // 132) == 9
-    assert fm.cluster_size(69632, SLOTS_H100, F32) == fm.cluster_size(69632, SLOTS_132, F32) == 1
+    assert -(-tiles * 2 // 132) == 17 and -(-tiles * 4 // 120) == 37
+    assert 2 * F32[4] > F32[2]
+    assert fm.cluster_size(69632, SLOTS_H100, F32) == fm.cluster_size(69632, SLOTS_132, F32) == 2
 
 
 @pytest.mark.parametrize("variant", sorted(fm.WAVE_MS))
@@ -211,15 +286,17 @@ def test_f32_cluster_size_at_69632_weighs_the_wave_time():
                                    {1: 114, 2: 114, 4: 112}])
 def test_cluster_size_never_worse_than_one_cta_a_tile(slots, variant):
     """Over N up to 200,000 the rule takes the least modelled time, never
-    more than C = 1's, the smaller C on a tie, and no C that the card cannot
-    seat."""
+    more than that of the smallest C the variant compiles (one CTA a tile
+    for bf16, clusters of 2 for f32), the smaller C on a tie, and no C that
+    the card cannot seat."""
     wave_ms = fm.WAVE_MS[variant]
+    smallest = fm.cluster_sizes(variant)[0]
     for n in range(1, 200_000, 89):
         c = fm.cluster_size(n, slots, wave_ms)
-        assert slots[c] > 0
-        cost = {d: _cost(n, slots, wave_ms, d) for d in fm.CLUSTER_SIZES if slots[d] > 0}
+        assert slots[c] > 0 and c in wave_ms
+        cost = {d: _cost(n, slots, wave_ms, d) for d in wave_ms if slots[d] > 0}
         best = min(cost.values())
-        assert cost[c] == best <= cost[1]
+        assert cost[c] == best <= cost[smallest]
         assert all(cost[d] > best for d in cost if d < c)
 
 
