@@ -9,10 +9,12 @@ It prints the versions of the CUDA toolkit and the CUDA driver, builds the CUDA
 sources of ``hashmodnffbanks_idr_tpu_torch/ops/csrc`` (``fused_mlp.cu`` and
 ``graph_loops.cu``, one ``nvcc`` each, started together) into ``build/``,
 holds each kernel variant against its plain PyTorch twin at
-the flagship widths, and at every cluster size it compiles (CTAs sharing a
-64-point tile: f32 2 and 4, bf16 1, 2 and 4) against the twin and bit for
-bit against its smallest C (N = 1, 63, 64, 65, 2048, 2049, 4096, 4113),
-times each C at each timed call and
+the flagship widths, and at every configuration it compiles (the CTAs C
+that share a tile and the tile's points: f32 64-point tiles at C = 2 and
+4; bf16 a 64-point tile at C = 1 and a 128-point tile at C = 4)
+against the twin and bit for bit against its smallest C (N = 1, 63, 64,
+65, 127, 128, 129, 2048, 2049, 4096, 4113), times each C at each timed
+call and
 prints the C that ``fused_mlp.cluster_size`` takes there with the card's
 slots (it fails where that C is over 10% slower than the fastest forced
 one), checks small train steps on the card against the
@@ -79,10 +81,11 @@ gave it, a parameter checksum equal across ranks), times 10 steps of each,
 and trains the dummy conf (mixed) through ``IDRTrainRunner(mesh=...)``.  It
 fails if ``-Xptxas -v`` reports a spill in either kernel at any
 compiled first-layer depth and cluster size.  The kernels line gives each
-kernel's cluster sizes (``cluster`` and ``ms_by_cluster`` by N, ``slots``,
-``launches_by_cluster`` on its first main-path cell, exact+fused or mixed,
-whose march calls of 4096 points must run on the rule's clusters).  The
-step and runner records give the launches a step by cluster size.  Every
+kernel's configurations (``cluster`` and ``ms_by_cluster`` by N, ``slots``,
+``tiles`` by C, ``launches_by_cluster`` on its first main-path cell,
+exact+fused or mixed, whose march calls of 4096 points must run on the
+rule's configuration).  The step and runner records give the launches a
+step by configuration (``<tile>x<C>``).  Every
 runner record reports the steps whose update the train step skipped
 (``skipped_steps``).  Any failed check
 raises and the script exits non-zero.  The second-to-last line is the kernels' JSON
@@ -139,23 +142,27 @@ TILE = 64
 CHECK_N = (1, TILE - 1, TILE, TILE + 1, 513, 2048, 4096, 24576, 49152, 69632)
 # each variant's largest calls on the main path, the last where its time is
 # reported (f32: the flagship's exact sweep, 49152, and the ngp cells',
-# 69632); it is also timed at the small calls (the camera step's 256 rays,
-# secant, march), which fill few SMs
-TIME_N = {"fused_sdf_raw_f32": (69632, 49152), "fused_sdf_raw_bf16": (69632,)}
+# 69632; bf16: the mixed march, 4096, the fast sweep, 49152, and the mixed
+# sweep's coarse probes, 69632); it is also timed at the small calls (the
+# camera step's 256 rays, secant, march), which fill few SMs
+TIME_N = {"fused_sdf_raw_f32": (69632, 49152), "fused_sdf_raw_bf16": (4096, 49152, 69632)}
 TIME_SMALL_N = (256, 2048, 4096)
 # at every timed call the rule's cluster size may be at most this much
 # slower than the fastest forced one of the same run
 RULE_SLACK = 1.10
-# each variant at every cluster size it compiles (fm.cluster_sizes: f32 2
-# and 4, bf16 1, 2 and 4), forced, against the plain twin and bit for bit
-# against its smallest C on the same input: the tile's edges, the secant's
-# and the march's sizes and one past them, and the determinism input
-CLUSTER_CHECK_N = (1, TILE - 1, TILE, TILE + 1, 2048, 2049, 4096, 4113)
+# each variant at every configuration it compiles (fm.cluster_sizes: f32 2
+# and 4, bf16 1 and 4, on the tiles of fm.TILES), forced, against the
+# plain twin and bit for bit against its smallest C on the same input: the
+# edges of the 64- and 128-point tiles, the secant's and the march's sizes
+# and one past them, and the determinism input
+CLUSTER_CHECK_N = (1, TILE - 1, TILE, TILE + 1, 2 * TILE - 1, 2 * TILE, 2 * TILE + 1, 2048,
+                   2049, 4096, 4113)
 # each variant's kernel in the ``-Xptxas -v`` report, by its namespace in the
 # mangled name (csrc/fused_mlp.cu: f32::, bf16k::), and the cluster sizes C,
-# the template argument after K0 of its instantiations
+# the template argument after K0 of its instantiations (each C one tile:
+# fm.TILES)
 PTXAS_ENTRY = {"fused_sdf_raw_f32": ("3f3216fused_sdf_kernel", (2, 4)),
-               "fused_sdf_raw_bf16": ("5bf16k16fused_sdf_kernel", (1, 2, 4))}
+               "fused_sdf_raw_bf16": ("5bf16k16fused_sdf_kernel", (1, 4))}
 # the runner phase: the repo's dummy check (read in place, not imported)
 DUMMY_CONF = Path(__file__).resolve().parent / "hashmodnffbanks_idr_tpu/config/confs/dummy_stylemodnffb.conf"
 RUNNER_EPOCHS = 30
@@ -179,9 +186,13 @@ KERNEL_DESIGN = {
                          "a producer warpgroup into a K-major shared layout, a fresh "
                          "partial sum folded every 32 k; a 64-point tile on a cluster of 2 "
                          "or 4 CTAs over DSMEM; cp.async weight ring",
-    "fused_sdf_raw_bf16": "bf16 mma.sync m16n8k16 on ldmatrix fragments, float accumulators; "
-                          "a 64-point tile on a cluster of 1, 2 or 4 CTAs over DSMEM; "
-                          "cp.async weight ring"}
+    "fused_sdf_raw_bf16": "bf16 wgmma.mma_async m64nNk16, A (the bf16 tile, K-major) and B "
+                          "(the weights, MN-major) from shared memory through descriptors, "
+                          "float accumulators; two consumer warpgroups, each 64 rows of a "
+                          "128-point tile on a cluster of 4 CTAs (one weight stream for 128 "
+                          "points) or half the columns of a 64-point tile on one CTA; "
+                          "a producer warpgroup's ring of bulk copies (TMA) from a pre-tiled "
+                          "weight image; DSMEM stores"}
 # the [ngp] phase.  Each encoder's first-layer depth, from the flagship conf
 # with that SDF encoder: FourierFeatures 9, HashGridTcnn 15, HashGrid 27,
 # StyleModNFFB 59, NerfPos at multires 16 (dtu_shaped_posenc.conf) 102.  No
@@ -270,6 +281,15 @@ SET_WHILE_TIMED = 10000
 SET_WHILE_BYTES = 1 + 8 + 8 + 8
 
 
+def by_config(counts, name: str, per: int) -> dict:
+    """A variant's launches by configuration (``<tile>x<C>``), over ``per``
+    (steps)."""
+    from hashmodnffbanks_idr_tpu_torch.ops import fused_mlp as fm
+
+    return {f"{fm.TILES[name][c]}x{c}": counts[name][f"cluster_{c}"] / per
+            for c in fm.cluster_sizes(name)}
+
+
 def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     """Mean device time of ``fn`` over ``iters`` back-to-back calls (CUDA
     events; warm L2, as in the tracer's repeated calls)."""
@@ -297,7 +317,8 @@ def sdf_mlp_cost(n: int, d_in: int, hidden: int, itemsize: int):
 
 def library_chain(x, packed):
     """The same nine-layer chain as cuBLAS GEMMs in the weight type with
-    torch's own softplus: the yardstick (the port never calls it)."""
+    torch's own softplus: the yardstick (the port never calls it).
+    ``packed`` in the plain twin's form (``fused_mlp.plain_pack``)."""
     import torch.nn.functional as F
 
     wd = packed["w_in"].dtype
@@ -324,7 +345,7 @@ def hold_against_plain(fm, name, x, packed, where="") -> float:
     print(f"[kernel] {name} N={x.shape[0]}{where}: max_abs_err={err:.3e} (tol {tol:g})")
     if not err <= tol:
         raise AssertionError(f"{name} N={x.shape[0]}{where}: max abs err {err} > {tol}")
-    if packed["w_in"].dtype == torch.bfloat16:
+    if packed["w_out"].dtype == torch.bfloat16:
         big = want.abs() > 5e-2
         if not bool((torch.sign(got[big]) == torch.sign(want[big])).all()):
             raise AssertionError(f"{name} N={x.shape[0]}{where}: sign disagreement "
@@ -389,14 +410,15 @@ def phase_kernels(dev, fm, model):
             cluster_err = {c: max(cluster_err[c], e) for c, e in errs.items()}
         max_err = max([max_err] + list(cluster_err.values()))
         slots = fm.cluster_slots(name, k0, dev)
+        layers = fm.plain_pack(packed, d_in)
         timed = []
-        for n in TIME_SMALL_N + TIME_N[name]:
+        for n in dict.fromkeys(TIME_SMALL_N + TIME_N[name]):
             pts = (torch.rand(n, 3, generator=gen, device=dev) * 2 - 1) * 0.6
             x = net._embed(pts).contiguous()
             ms = cuda_ms(lambda: fm.fused_sdf_raw(x, packed))
-            plain_ms = cuda_ms(lambda: fm.fused_sdf_raw_plain(x, packed))
-            library_ms = cuda_ms(lambda: library_chain(x, packed))
-            flops, nbytes = sdf_mlp_cost(n, d_in, hidden, packed["w_in"].element_size())
+            plain_ms = cuda_ms(lambda: fm.fused_sdf_raw_plain(x, layers))
+            library_ms = cuda_ms(lambda: library_chain(x, layers))
+            flops, nbytes = sdf_mlp_cost(n, d_in, hidden, packed["w_out"].element_size())
             t_ops = products * flops / PEAK_FLOPS[peak_key] * 1e3
             t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
             rec = {"n": n, "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
@@ -406,7 +428,8 @@ def phase_kernels(dev, fm, model):
             if dtype == torch.float32:
                 rec["bound_fp32_cores_ms"] = max(flops / PEAK_FLOPS["f32"] * 1e3, t_bytes)
             rec["slots"] = slots
-            rec["cluster"] = fm.cluster_size(n, slots, fm.WAVE_MS[name])
+            rec["cluster"] = fm.cluster_size(n, slots, fm.WAVE_MS[name], fm.TILES[name])
+            rec["tile"] = fm.TILES[name][rec["cluster"]]
             rec["ms_by_cluster"] = {c: cuda_ms(lambda: fm._launch(x, packed, cluster=c))
                                     for c in fm.cluster_sizes(name)}
             fastest = min(rec["ms_by_cluster"].values())
@@ -635,12 +658,8 @@ def phase_step(dev, fm, scene, label, mode, fused, warmup, steps, expect=None, c
            "rays_per_s": N_RAYS / (ms * 1e-3), "tracer_ms_median": tracer_ms, "loss": loss,
            "launches_per_step": {k: v["launches"] / steps for k, v in counts.items()},
            "points_per_step": {k: v["points"] / steps for k, v in counts.items()},
-           "f32_launches_per_step_by_cluster": {
-               c: counts["fused_sdf_raw_f32"][f"cluster_{c}"] / steps
-               for c in fm.cluster_sizes("fused_sdf_raw_f32")},
-           "bf16_launches_per_step_by_cluster": {
-               c: counts["fused_sdf_raw_bf16"][f"cluster_{c}"] / steps
-               for c in fm.cluster_sizes("fused_sdf_raw_bf16")},
+           "f32_launches_per_step_by_config": by_config(counts, "fused_sdf_raw_f32", steps),
+           "bf16_launches_per_step_by_config": by_config(counts, "fused_sdf_raw_bf16", steps),
            "max_memory_allocated_mib": torch.cuda.max_memory_allocated() / 2**20,
            "graph_launches_per_step": graph_launches / steps,
            "loop_iterations_per_step": {k: v / steps for k, v in iterations.items()},
@@ -906,8 +925,7 @@ def phase_runner(fm, smi: str, workdir: str) -> dict:
            "dummy_scene_decode_ms": decode_ms,
            "bf16_launches_per_epoch": bf16, "bf16_launches": sum(bf16),
            "bf16_points": counts["fused_sdf_raw_bf16"]["points"],
-           "bf16_launches_per_step_by_cluster": {
-               c: counts["fused_sdf_raw_bf16"][f"cluster_{c}"] / steps for c in fm.CLUSTER_SIZES},
+           "bf16_launches_per_step_by_config": by_config(counts, "fused_sdf_raw_bf16", steps),
            "skipped_steps": sum(r["skipped_steps"] for r in rows)}
     print(f"[runner] {json.dumps(rec)}")
     return counts
@@ -998,7 +1016,7 @@ def keep_largest_call(fm, kept: dict):
     variant = {dtype: name for name, dtype, *_ in VARIANTS}
 
     def keeping(x, packed):
-        name = variant[packed["w_in"].dtype]
+        name = variant[packed["w_out"].dtype]
         if name not in kept or x.shape[0] > kept[name][0].shape[0]:
             kept[name] = (x.clone(), packed)
         return launch(x, packed)
@@ -1575,11 +1593,12 @@ def kernel_record(fm, name, x, packed, where=""):
     products, peak_key = {n: (p, k) for n, _, _, k, p in VARIANTS}[name]
     err = hold_against_plain(fm, name, x, packed, where)
     n, d_in = x.shape
-    hidden = packed["w_in"].shape[1]
+    hidden = packed["b_in"].shape[0]
+    layers = fm.plain_pack(packed, d_in)
     ms = cuda_ms(lambda: fm.fused_sdf_raw(x, packed))
-    plain_ms = cuda_ms(lambda: fm.fused_sdf_raw_plain(x, packed))
-    library_ms = cuda_ms(lambda: library_chain(x, packed))
-    flops, nbytes = sdf_mlp_cost(n, d_in, hidden, packed["w_in"].element_size())
+    plain_ms = cuda_ms(lambda: fm.fused_sdf_raw_plain(x, layers))
+    library_ms = cuda_ms(lambda: library_chain(x, layers))
+    flops, nbytes = sdf_mlp_cost(n, d_in, hidden, packed["w_out"].element_size())
     t_ops = products * flops / PEAK_FLOPS[peak_key] * 1e3
     t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
     return {"d_in": d_in, "k0": fm.kernel_depth(d_in), "n": n, "ms": ms, "plain_ms": plain_ms,
@@ -1606,7 +1625,9 @@ def phase_depths(dev, fm):
     timed.  The geometric init zeroes the first layer's and the skip's
     weights past the 3 coordinates, so each depth is held a second time with
     those weights spread (``spread_input_weights``), where every input
-    column counts.  Launches made here are comparisons and are not counted."""
+    column counts, and there at every configuration the variant compiles,
+    each bit for bit equal to its smallest C (``hold_clusters``).  Launches
+    made here are comparisons and are not counted."""
     from hashmodnffbanks_idr_tpu_torch.models.renderer import IDRNetwork
     from hashmodnffbanks_idr_tpu_torch.testing import flagship_conf
 
@@ -1626,10 +1647,12 @@ def phase_depths(dev, fm):
         spread_input_weights(net, gen)
         for name, dtype, *_ in VARIANTS:
             rec = kernel_record(fm, name, x, packed[name], f" d_in={d_in} ({embed_type})")
-            rec["max_abs_err_spread"] = hold_against_plain(
-                fm, name, x, fm.pack_params(net.lin, d_in, net.dims[1], dtype=dtype),
-                f" d_in={d_in} ({embed_type}, input weights spread)")
-            rec["max_abs_err"] = max(rec["max_abs_err"], rec["max_abs_err_spread"])
+            spread = fm.pack_params(net.lin, d_in, net.dims[1], dtype=dtype)
+            where = f" d_in={d_in} ({embed_type}, input weights spread)"
+            rec["max_abs_err_spread"] = hold_against_plain(fm, name, x, spread, where)
+            rec["max_abs_err_by_cluster"] = hold_clusters(fm, name, x, spread, where)
+            rec["max_abs_err"] = max([rec["max_abs_err"], rec["max_abs_err_spread"]]
+                                     + list(rec["max_abs_err_by_cluster"].values()))
             print(f"[ngp] kernel {name} {embed_type}: {json.dumps(rec)}")
             records[name].append(rec)
     fm.reset_launch_counts()
@@ -1773,9 +1796,8 @@ def phase_ngp_runner(fm, smi: str, workdir: str, data_root: str) -> dict:
                    r["rays_per_s"] for r in rows[2:]),
                "bf16_launches_per_epoch": bf16,
                "bf16_points": counts[conf_name]["fused_sdf_raw_bf16"]["points"],
-               "bf16_launches_per_step_by_cluster": {
-                   c: counts[conf_name]["fused_sdf_raw_bf16"][f"cluster_{c}"]
-                   / (len(rows) * runner.steps_per_epoch) for c in fm.CLUSTER_SIZES},
+               "bf16_launches_per_step_by_config": by_config(
+                   counts[conf_name], "fused_sdf_raw_bf16", len(rows) * runner.steps_per_epoch),
                "skipped_steps": sum(r["skipped_steps"] for r in rows)}
         print(f"[ngp] runner {json.dumps(rec)}")
         if [r["step"] for r in rows] != list(range(NGP_RUNNER_EPOCHS + 1)):
@@ -1996,12 +2018,14 @@ def main() -> int:
         rec["cluster"] = {c["n"]: c["cluster"] for c in calls}
         rec["ms_by_cluster"] = {c["n"]: c["ms_by_cluster"] for c in calls}
         rec["slots"] = r["slots"]
+        rec["tiles"] = fm.TILES[name]
         rec["launches_by_cluster"] = {c: phases[cell][name][f"cluster_{c}"]
                                       for c in fm.cluster_sizes(name)}
         rec["cluster_check"] = r["cluster_check"]
-        # the cell's march calls (2 x 2048 rays) run on the rule's clusters
+        # the cell's march calls (2 x 2048 rays) run on the rule's
+        # configuration
         march_c = rec["cluster"][4096]
-        if march_c > 1 and not rec["launches_by_cluster"][march_c]:
+        if not rec["launches_by_cluster"][march_c]:
             raise AssertionError(f"{cell}: {name} never ran on clusters of {march_c}, the "
                                  f"rule's size at N=4096: {rec['launches_by_cluster']}")
         out.append(rec)

@@ -16,7 +16,7 @@
 // epilogues are the same at every depth.
 //
 // Two variants.  float weights (the 'exact' tracer) run on the tensor cores
-// in split-TF32 on wgmma; bf16 weights (guidance queries) on bf16 mma.sync
+// in split-TF32 on wgmma; bf16 weights (guidance queries) on bf16 wgmma
 // with float accumulation.  Each layer rounds its input to the weight type,
 // as the Pallas kernel does; biases, softplus and the skip scaling stay
 // float.
@@ -131,68 +131,125 @@
 // product, at the H100's 989 TFLOP/s dense bf16: 0.258 ms at N=69632 and
 // 0.0152 ms at N=4096.
 //
-// bf16 variant: design.  The skeleton of the float variant: a tile of 64
-// points stays on chip across all nine layers, as a 64x520 bf16 activation
-// tile (66,560 B), and the weights stream through a cp.async ring of two
-// 64-row bf16 stages: one uniform chunk stream over l0 (K0 rows, rows >=
-// d_in zero-filled) and l1..l7, the next chunk in flight while the current
-// one is multiplied, across layer boundaries too.  One tile is a cluster of
-// C CTAs (C = 1, 2 or 4), as in the float variant: each CTA holds the whole
-// tile and computes 512 / C columns of each layer, streaming only their
-// weights (stages of 64 x (512/C + 8): 199,680 B in all at C = 1, 134,144 B
-// at 2, 101,376 B at 4; one CTA an SM).  Its eight warps each own 64 / C
-// output columns for all 64 rows (128, 64 or 32 float accumulators a
-// thread); at C = 1, of the two layouts that fit, this one reads the least
-// from shared memory (per 16-deep k-step 32 KB through ldmatrix, against 48
-// KB for sixteen warps of 64x32, which also spill at their 128-register
-// cap).  Per k-step a warp loads 4 A fragments with ldmatrix.x4 and 16 / C
-// B fragments with ldmatrix.x4.trans straight from the input-major (k, n)
-// weight stage, and issues 32 / C mma.sync.m16n8k16.bf16 accumulating in
-// float in the tensor cores (their truncating adds stay far below bf16
-// rounding).  Row strides of 16 mod 128 bytes make both ldmatrix reads free
-// of bank conflicts.  Every output column keeps its k order and its m16n8k16
-// grouping, so every C gives the bits of C = 1, and C = 1 those of the
-// kernel before clusters.  Three choices, each measured on the card
-// against a version without it when the design was set:
-// the fragments of k-step s+1 are loaded before k-step s's products; each
-// warp copies exactly the weights it reads, so that it waits for its own
-// copies (wait_group + __syncwarp) and the block meets only around the
-// epilogues, where the shared tile is rewritten (two barriers a layer
-// instead of one a chunk); and softplus is branch free.  The epilogue runs
-// on the accumulators in registers: bias, softplus on MUFU ex2/lg2, after l3
-// bf16(x)/sqrt(2) (x read at its real width from device memory) in the tail
-// columns, rounded to bf16 and stored as pairs into the tile.  At C > 1 the
-// pairs go into the CTA's own tile by 4-byte stores (free of bank
-// conflicts) and into the other CTAs' tiles by 16-byte st.shared::cluster:
-// the four lanes of a quad hold the 8 columns of one n8 tile's row, and a
-// 4x4 transpose by shuffles gives each lane all 8 of one row.  Around the
-// stores the cluster meets as the float variant's does, but the first
-// barrier is split: a warp arrives once it has loaded its last fragments of
-// the tile and waits only after its last products and its activation.
-// The last layer is a 512-long float dot per point with a warp reduction,
-// the cluster's CTAs taking 64 / C rows each; only (N,) is written.  What
-// bounds it at the large calls (C = 1): mma.sync, which alone runs at about
-// 37% of the H100's dense bf16 peak (the mma_only variant at N=69632),
-// then the weight copies, softplus and the layer barriers, which no other
-// work overlaps while every warp runs its epilogue.  At the small calls
-// (NVIDIA H100 80GB HBM3, 700 W; scripts/bench_fused_mlp_f32.py --dtype bf16
-// beside the kernel before clusters): N=256 takes 0.072 ms on clusters of 4
-// against 0.099, N=2048 0.085-0.089 on clusters of 2 against 0.099-0.102,
-// but N=4096 0.094-0.098 against 0.099-0.105, and a full wave of clusters
-// takes 0.146 / 0.098 / 0.089 ms at C = 1 / 2 / 4.  A cluster divides a
-// tile's products and its weight stream, not the weights the call reads
-// from L2: every tile still reads all 3.73 MB, 239 MB at N=4096, which
-// arrive at about 2.4 TB/s when every CTA starts at once, at C = 1 and 2
-// alike (4.5 TB/s in the steady waves of N=69632).  With the weight
-// copies taken out N=4096 at C = 2 runs 28% faster; with the products
-// taken out 8%; without the stores into other tiles 8% (40% at C = 4,
-// N=256); what remains is the per-layer latency of eight epilogues, their
-// softplus on MUFU and their barrier pairs.
+// bf16 variant: design.  The float variant's skeleton on bf16 wgmma: a CTA
+// is two consumer warpgroups and a producer warpgroup, a tile of points
+// stays on chip across all nine layers as a bf16 tile in shared memory (the
+// A operand of every layer), and the weights stream through a ring.  Every
+// product is a wgmma.mma_async.m64nNk16.f32.bf16.bf16 with both operands in
+// shared memory, read through matrix descriptors: A, the tile, in the
+// K-major layout without swizzle (core matrices of 8 rows x 8 k, 128
+// contiguous bytes, the rows' one after another, panels of 8 k padded by 32
+// bytes); B, the weights, in the MN-major (transposed-B, imm-trans-b 1)
+// layout (core matrices of 8 k x 8 columns, the columns' one after another,
+// panels of 8 k), which is how the weights lie, (k, n) with n fastest, so
+// nothing is transposed.  A comes from shared memory, not registers: the
+// same 2 KB a warpgroup and k-step are read either way, and from the
+// descriptor a consumer's loop is mbarrier waits and wgmma issues, with no
+// A fragments kept live beside up to 128 accumulators.  (The descriptor
+// fields as CUTLASS's cute/arch/mma_sm90_desc.hpp lays out the no-swizzle
+// layouts: the leading byte offset steps k, the stride byte offset the rows
+// of A and the columns of B; with B's two exchanged the kernel faulted on
+// the card.)
 //
-// Left for later: wgmma (the only path to the full tensor-core rate, with B
-// read from shared memory without per-warp ldmatrix traffic) and TMA; and
-// the L2 traffic of 64-point tiles: every block re-reads all 3.73 MB of bf16
-// weights, about 4.1 GB from L2 at N=69632 (1088 blocks).
+// The configurations (tile, C), C the CTAs of a cluster that share the tile
+// through distributed shared memory, each computing 512 / C columns of each
+// layer and streaming only their weights:
+//   (128, 4): each consumer owns 64 rows of a 128-point tile and all of the
+//     CTA's 128 columns (m64n128k16), so both read the same weight chunk:
+//     each weight byte read from L2 serves 128 points.
+//   (64, 1): a 128-point tile on one CTA would take 64 x 512 float
+//     accumulators a consumer, 256 registers a thread, over the cap, so the
+//     tile is 64 points and the consumers split the columns (m64n256k16).
+// Not compiled, as the rule never takes them on the H100: (128, 2), the same
+// layout at m64n256k16, whose waves end at the same N as (64, 1)'s and took
+// 0.0999-0.1001 ms against 0.0775 (NVIDIA H100 80GB HBM3, 700 W;
+// scripts/bench_fused_mlp_f32.py --dtype bf16 while it was compiled; below:
+// its ring keeps too few bytes in flight); (64, 2) and (64, 4), which serve
+// 64 points a weight byte; (192, 4), whose 192 KB tile leaves no room for a
+// ring.
+//
+// Budget.  Registers: 128 (C = 1) or 64 (C = 4) float accumulators a
+// consumer thread and, in the epilogue, their 64 or 32 bf16 pairs, under the
+// 224 that setmaxnreg gives a consumer (the producer drops to 56: 128 x 56 +
+// 256 x 224 = 384 x 168, the launch bounds' share); ptxas reports 168 a
+// thread at launch and no spill at any <K0, C>.  Shared memory: the tile, 64
+// panels of TM x 16 + 32 bytes (133,120 B at TM = 128, 67,584 at 64), then
+// stages of KC weight rows of the CTA's columns (KC = 32 at C = 1, 64 at C =
+// 4: 32 KB a stage at C = 1, 16 KB at 4), as many as fit with their two
+// mbarriers each (5 at C = 1, 6 at 4): 231,504 B at C = 1, 231,520 at 4; one
+// CTA an SM.
+//
+// The stream.  The producer's thread 0 copies each chunk with the Tensor
+// Memory Accelerator, one bulk copy (cp.async.bulk) of COLS x 16 bytes for
+// each 8-row group, from a pre-tiled image of the weights in device memory
+// (ops/fused_mlp.py:stream_image, built by pack_params: l0 zero-padded to
+// K0, then l1..l7, in the stages' core-matrix order), into a slot whose
+// `full` mbarrier expects the chunk's bytes; the consumers issue a chunk's
+// products as soon as it lands, behind the previous chunk's, and free the
+// previous chunk's slot (its `empty` mbarrier) once those are done
+// (wgmma.wait_group 1).  The copies write through the async proxy, which
+// the tensor cores read, so no proxy fence stands between them.  (16-byte
+// cp.async copies by the producer's 128 threads, handed over with
+// cp.async.mbarrier.arrive.noinc, kept too few bytes in flight: on the card
+// that stream alone was slower than the bulk copies' whole kernel.)
+//
+// A layer's end.  The consumers await the layer's last products (wait_group
+// 0) and activate their accumulators in registers: bias, branch-free softplus
+// on MUFU ex2/lg2, after l3 bf16(x)/sqrt(2) (x read at its real width from
+// device memory) in the tail columns, rounding to bf16. Once every CTA of the
+// cluster is done reading its tile (the first cluster barrier, arrived at
+// right after the wait and waited for after the activation; at C = 1 a named
+// barrier of the consumers), each stores its block into its own tile and the
+// others' with 16-byte stores, st.shared and st.shared::cluster: a quad's 4x4
+// transpose by shuffles gives each lane the 8 columns of one row of one n8
+// tile, one row of a core matrix, and the 32-byte panel padding puts a
+// quarter warp's stores (2 rows x 4 panels) on 8 bank quads.  A second
+// barrier makes the tile complete, and each consumer thread fences what it
+// has acquired for the tensor cores (fence.proxy.async).  At C > 1 the
+// producer takes part in both cluster barriers without stalling the ring: it
+// arrives at the first as soon as it has issued the layer's last chunk, and
+// waits for it, then arrives at and waits for the second, only before it
+// waits for a slot that the consumers free after them; so the ring is full
+// when the next layer starts.  The last layer is a 512-long float dot per
+// point with a warp reduction, the cluster's CTAs taking TM / C rows each;
+// only (N,) is written.
+//
+// Accumulation.  The tensor cores add each k-step's 16 products into the
+// float accumulators with truncation, in k order, the layer's first k-step
+// setting them (scale-d 0), with no fold: the truncating adds stay far below
+// bf16 rounding (tests/test_torch_fused_mlp.py holds that arithmetic,
+// emulated, to the Pallas kernel's bf16 tolerance).  Max abs error against
+// the plain twin (NVIDIA H100 80GB HBM3, 700 W;
+// scripts/bench_fused_mlp_f32.py --dtype bf16 --errors-d-in 59 102 198 510
+// --errors-n 4113 49152, input weights spread), at K0 = 64 / 128 / 256 / 512:
+// 1.85e-3 / 3.58e-3 / 3.71e-3 / 1.73e-3 at N=4113, 2.45e-3 / 3.78e-3 /
+// 4.46e-3 / 3.54e-3 at N=49152; tol 3e-2, signs agreeing.  Every
+// configuration keeps each column's k order and k16 grouping, so every (tile,
+// C) gives the bits of (64, 1).
+//
+// The configuration is chosen from N by the float variant's rule
+// (ops/fused_mlp.py:cluster_size) over each configuration's tiles
+// (fused_mlp.TILES): on the H100 (132 / 120 slots, waves of 0.077 / 0.074
+// ms at (64, 1) / (128, 4)) it takes (128, 4) up to 3,840 points and (64, 1)
+// above.
+//
+// What bounds it (NVIDIA H100 80GB HBM3, 700 W;
+// scripts/bench_fused_mlp_f32.py --dtype bf16 and its variants): at N=69632
+// on (64, 1) the kernel takes 0.66-0.67 ms, 2.6x its bound; without
+// softplus 0.52-0.53, without the weight copies 0.63-0.64, the products,
+// barriers and stores alone (wgmma_only) 0.48-0.49.  So the epilogue's
+// softplus on MUFU, which no product overlaps, is the largest part after
+// the products, and the stream, 4.1 GB from L2 at about 6.1 TB/s, is nearly
+// hidden.  (128, 2) read half the bytes but ran 0.83-0.86 ms there: its
+// ring holds 96 KB beside the 130 KB tile, against 160 KB at (64, 1), and
+// a CTA's stream is bound by the bytes it keeps in flight (the copies'
+// latency under load), not by L2's bandwidth.  At the small calls (one CTA
+// a few tiles) the chain of eight layers is latency: (128, 4) takes 0.069
+// ms at N=256 and 2048, 0.050 without the stores into other tiles.
+//
+// Left for later: softplus off MUFU (log1p as a polynomial on the FMA pipe)
+// or under the next tile's products (two tiles a CTA, one a consumer); TMA
+// multicast of one chunk to the CTAs of several tiles; the K0=128 question.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -221,9 +278,9 @@ __device__ __forceinline__ void cp_async16(void* dst, const void* src, bool vali
 }
 
 // ---------------------------------------------------------------------------
-// thread-block clusters: both variants run a 64-point tile on a cluster of C
-// CTAs (f32: 2 or 4; bf16: 1, 2 or 4) that share it through distributed
-// shared memory
+// thread-block clusters: both variants run a tile on a cluster of C CTAs
+// that share it through distributed shared memory (f32: 64 points on 2 or
+// 4; bf16: 64 points on 1, 128 on 4)
 // ---------------------------------------------------------------------------
 
 // the CTA's rank in its cluster
@@ -264,6 +321,58 @@ __device__ __forceinline__ void cluster_arrive() {
 
 __device__ __forceinline__ void cluster_wait() {
   asm volatile("barrier.cluster.wait.acquire.aligned;" ::: "memory");
+}
+
+// ---------------------------------------------------------------------------
+// wgmma's fences and mbarriers, which both variants' producer and consumer
+// warpgroups use
+// ---------------------------------------------------------------------------
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
+}
+// returns once at most N of the warpgroup's committed groups are pending
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;" ::"n"(N) : "memory");
+}
+
+// registers that an asynchronous wgmma reads or writes: the compiler may
+// neither move their uses across this point nor give them away before it
+template <int R, int E>
+__device__ __forceinline__ void fence_regs(float (&v)[R][E]) {
+#pragma unroll
+  for (int i = 0; i < R; ++i)
+#pragma unroll
+    for (int e = 0; e < E; ++e) asm volatile("" : "+f"(v[i][e])::"memory");
+}
+template <int R, int E>
+__device__ __forceinline__ void fence_regs(uint32_t (&v)[R][E]) {
+#pragma unroll
+  for (int i = 0; i < R; ++i)
+#pragma unroll
+    for (int e = 0; e < E; ++e) asm volatile("" : "+r"(v[i][e])::"memory");
+}
+
+// mbarriers in shared memory (shared::cta addresses)
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(bar), "r"(count) : "memory");
+}
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("{\n.reg .b64 state;\nmbarrier.arrive.shared::cta.b64 state, [%0];\n}" ::"r"(bar)
+               : "memory");
+}
+// returns once the barrier's phase of parity `parity` has completed
+__device__ __forceinline__ void mbar_wait(uint32_t bar, int parity) {
+  asm volatile(
+      "{\n.reg .pred done;\nWAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 done, [%0], %1;\n"
+      "@!done bra WAIT;\n}" ::"r"(bar),
+      "r"(parity)
+      : "memory");
 }
 
 // a launch of `tiles` tiles in clusters of C CTAs of `threads` along x
@@ -458,35 +567,6 @@ template <int C>
 __device__ __forceinline__ uint64_t b_desc(uint32_t addr) {
   constexpr uint64_t LBO = Split<C>::PANEL >> 4, SBO = 128 >> 4;
   return (uint64_t)((addr & 0x3FFFF) >> 4) | (LBO << 16) | (SBO << 32);
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
-}
-// returns once at most N of the warpgroup's committed groups are pending
-template <int N>
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;" ::"n"(N) : "memory");
-}
-
-// registers that an asynchronous wgmma reads or writes: the compiler may
-// neither move their uses across this point nor give them away before it
-template <int R, int E>
-__device__ __forceinline__ void fence_regs(float (&v)[R][E]) {
-#pragma unroll
-  for (int i = 0; i < R; ++i)
-#pragma unroll
-    for (int e = 0; e < E; ++e) asm volatile("" : "+f"(v[i][e])::"memory");
-}
-template <int R, int E>
-__device__ __forceinline__ void fence_regs(uint32_t (&v)[R][E]) {
-#pragma unroll
-  for (int i = 0; i < R; ++i)
-#pragma unroll
-    for (int e = 0; e < E; ++e) asm volatile("" : "+r"(v[i][e])::"memory");
 }
 
 template <int N>
@@ -715,24 +795,6 @@ __device__ __forceinline__ void store_tile(float (&acc)[NI][4], float* act,
   }
 }
 
-// mbarriers in shared memory (shared::cta addresses)
-__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(bar), "r"(count) : "memory");
-}
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("{\n.reg .b64 state;\nmbarrier.arrive.shared::cta.b64 state, [%0];\n}" ::"r"(bar)
-               : "memory");
-}
-// returns once the barrier's phase of parity `parity` has completed
-__device__ __forceinline__ void mbar_wait(uint32_t bar, int parity) {
-  asm volatile(
-      "{\n.reg .pred done;\nWAIT:\n"
-      "mbarrier.try_wait.parity.shared::cta.b64 done, [%0], %1;\n"
-      "@!done bra WAIT;\n}" ::"r"(bar),
-      "r"(parity)
-      : "memory");
-}
-
 // The producer warpgroup: for each chunk (landed, copied RAW chunks ahead),
 // once both consumer warpgroups are done with the (hi, lo) slot it takes,
 // each thread splits its block of each consumer's chunk into it, fences the
@@ -920,168 +982,275 @@ bool ready = false;
 }  // namespace f32
 
 // ---------------------------------------------------------------------------
-// bf16 weights: bf16 mma.sync fed by a cp.async weight ring, one tile of 64
-// points shared by a cluster of C CTAs
+// bf16 weights: bf16 wgmma, A (the activation tile) and B (the weights, fed
+// by a producer warpgroup's bulk copies) from shared memory through matrix
+// descriptors; a tile of 64 or 128 points shared by a cluster of C CTAs
 // ---------------------------------------------------------------------------
 
 namespace bf16k {
 
-constexpr int TM = 64;                  // points per tile (per cluster)
-constexpr int KC = 64;                  // weight rows per ring stage
-// the tile's row stride, 1040 B (16 mod 128): the eight 16-byte rows an
-// ldmatrix phase reads fall in distinct banks
-constexpr int LDA = HIDDEN + 8;
-constexpr size_t TILE_BYTES = sizeof(bf16) * TM * LDA;
-constexpr int CHUNKS_MID = HIDDEN / KC;     // each of l1..l7's chunks
-// an even number of 16-deep k-steps a chunk: the main loop's two fragment
-// buffers then alternate from chunk to chunk
-static_assert(KC % 32 == 0 && HIDDEN % KC == 0, "chunking");
-
 // How a cluster of C CTAs splits one tile's work.  Every CTA holds the whole
-// 64 x 512 tile (the A operand of every layer) and computes HIDDEN / C output
-// columns of each layer, streaming only those columns' weights through its
-// ring.  Each of its 8 warps owns WARP_COLS of those columns for all 64
-// rows and copies exactly their weights, so that it waits for its own
-// copies only: 64 x 64 at C = 1, 64 x 32 at C = 2, 64 x 16 at C = 4.
+// tile (the A operand of every layer) and computes COLS = HIDDEN / C output
+// columns of each layer, streaming only those columns' weights.  A CTA is
+// three warpgroups: two consumers, which run the products, and a producer,
+// which copies the weights.  At C = 4 the tile is 128 points and each
+// consumer owns 64 rows and all 128 columns (one m64n128k16 wgmma a k-step),
+// so both consumers read every weight chunk: each weight byte read from L2
+// serves 128 points.  At C = 1 a 128-point tile would need 64 x 512
+// accumulators a consumer, 256 registers a thread, over the cap: the tile is
+// 64 points and the consumers split the columns, 256 each.  (C = 2 is not
+// compiled: see the note at the top.)
 template <int C>
 struct Split {
-  static_assert(C == 1 || C == 2 || C == 4, "cluster sizes 1, 2 and 4");
-  static constexpr int NT = 256;                  // 8 warps a CTA
-  static constexpr int WARPS = NT / 32;
+  static_assert(C == 1 || C == 4, "cluster sizes 1 and 4");
+  static constexpr int TM = C == 1 ? 64 : 128;    // points a tile
+  static constexpr bool ROW_SPLIT = TM == 128;    // consumers split rows, else columns
+  static constexpr int NT = 384;                  // two consumer warpgroups, a producer
+  static constexpr int CONSUMER_WARPS = 8;
+  // registers a thread after setmaxnreg: 128 x 56 + 256 x 224 = 384 x 168,
+  // what the launch bounds give each thread at the start
+  static constexpr int PRODUCER_REGS = 56, CONSUMER_REGS = 224;
   static constexpr int COLS = HIDDEN / C;         // a CTA's output columns
-  static constexpr int WARP_COLS = COLS / WARPS;  // a warp's
-  static constexpr int MI = TM / 16, NI = WARP_COLS / 8;  // m16n8 tiles a warp
-  // ring stages: two fill shared memory beside the tile at C = 1; at C = 2
-  // and 4 four fit, but ran 1-8% slower on the card than two
-  static constexpr int STAGES = 2;
-  // the stage's row stride, COLS + 8 elements: 16 mod 128 bytes at every C
-  static constexpr int LDW = COLS + 8;
-  static constexpr size_t SMEM = TILE_BYTES + sizeof(bf16) * STAGES * KC * LDW;
-  static_assert(SMEM <= MAX_SMEM, "bf16 tile and weight ring exceed shared memory");
-  static_assert(NI % 2 == 0, "ldmatrix.x4.trans loads two n8 tiles");
-  static_assert(MI * NI * 2 % 4 == 0, "the stores into other tiles: four fragments a store");
-  static_assert(TM % (C * WARPS) == 0, "the last layer's rows: whole rows a warp");
+  static constexpr int WG_COLS = ROW_SPLIT ? COLS : COLS / 2;  // wgmma's N: 256, 128
+  static constexpr int NI = WG_COLS / 8;          // n8 tiles of an accumulator
+  static constexpr int KC = C == 1 ? 32 : 64;     // weight rows a chunk
+  static constexpr int KS = KC / 16;              // 16-deep k-steps a chunk
+  // The tile in wgmma's K-major canonical layout without swizzle: core
+  // matrices of 8 rows x 8 k (128 contiguous bytes), the rows' core matrices
+  // one after another (stride byte offset 128) in panels of 8 k, the panels
+  // (leading byte offset) padded by 32 bytes, so that the 16-byte stores of
+  // a quarter warp (2 rows x 4 panels) fall on 8 bank quads
+  static constexpr int PANEL_A = TM * 16 + 32;
+  static constexpr int TILE_BYTES = HIDDEN / 8 * PANEL_A;
+  // A stage holds a chunk in the MN-major (transposed-B) canonical layout
+  // without swizzle: core matrices of 8 k x 8 columns (a 16-byte row of 8
+  // columns a k, 128 contiguous bytes), one after another along the columns
+  // (stride byte offset 128), in panels of 8 k (leading byte offset)
+  static constexpr int PANEL_B = COLS * 16;
+  static constexpr int STAGE = KC / 8 * PANEL_B;
+  // as many stages as fit beside the tile and their two mbarriers each (5
+  // at C = 1, 6 at C = 4), fewer than a layer's chunks (the producer meets
+  // at most one layer end at a time)
+  static constexpr int FIT = (MAX_SMEM - TILE_BYTES) / (STAGE + 16);
+  static constexpr int STAGES = FIT < HIDDEN / KC - 1 ? FIT : HIDDEN / KC - 1;
+  static constexpr size_t SMEM = TILE_BYTES + (size_t)STAGES * (STAGE + 16);
+  static_assert(SMEM <= MAX_SMEM && STAGES >= 3, "bf16 tile and weight ring exceed shared memory");
+  static_assert(NI % 4 == 0, "the tile stores: four n8 tiles a quad transpose");
+  static_assert(TM % (C * CONSUMER_WARPS) == 0, "the last layer's rows: whole rows a warp");
 };
 
 // the chunk stream of first-layer depth K0: l0's chunks, then l1..l7's
-template <int K0>
+template <int K0, int C>
 struct Stream {
+  static constexpr int KC = Split<C>::KC;
   static_assert(K0 % KC == 0 && K0 <= HIDDEN, "l0 depth: whole chunks, inside the tile");
-  static constexpr int CHUNKS_IN = K0 / KC;
+  static constexpr int CHUNKS_IN = K0 / KC, CHUNKS_MID = HIDDEN / KC;
   static constexpr int CHUNKS = CHUNKS_IN + N_MID * CHUNKS_MID;
 };
+
+// Chunk c of the stream: its layer (0 = l0), whether it is the layer's
+// last, and the first row k of the layer it covers
+template <int K0, int C>
+__device__ __forceinline__ int chunk_k(int c, int& layer, bool& last) {
+  using T = Stream<K0, C>;
+  const bool first = c < T::CHUNKS_IN;
+  const int kc = first ? c : (c - T::CHUNKS_IN) % T::CHUNKS_MID;  // the chunk in the layer
+  layer = first ? 0 : 1 + (c - T::CHUNKS_IN) / T::CHUNKS_MID;
+  last = kc == (first ? T::CHUNKS_IN : T::CHUNKS_MID) - 1;
+  return kc * T::KC;
+}
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
-// four 8x8 b16 matrices; lanes 8i..8i+7 give the row addresses of matrix i
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], uint32_t addr) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(addr));
+// a shared memory matrix descriptor without swizzle: start address, leading
+// byte offset (between core matrices along k), stride byte offset (along
+// the rows of A, the columns of B), all in 16-byte units (CUTLASS's
+// cute/arch/mma_sm90_desc.hpp: GmmaDescriptor)
+__device__ __forceinline__ uint64_t desc(uint32_t addr, uint32_t lbo, uint32_t sbo) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)(lbo >> 4) << 16) |
+         ((uint64_t)(sbo >> 4) << 32);
 }
 
-// the same, each matrix transposed
-__device__ __forceinline__ void ldsm_x4_trans(uint32_t& r0, uint32_t& r1, uint32_t& r2,
-                                              uint32_t& r3, uint32_t addr) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];"
-               : "=r"(r0), "=r"(r1), "=r"(r2), "=r"(r3)
-               : "r"(addr));
-}
+template <int N>
+struct Wgmma;
 
-// c += a b (16x8x16, bf16 operands, float accumulator)
-__device__ __forceinline__ void mma(float (&c)[4], const uint32_t (&a)[4],
-                                    const uint32_t (&b)[2]) {
-  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, "
-      "{%8,%9}, {%0,%1,%2,%3};"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-// the warp's columns of chunk c of the whole weight stream (l0's K0 rows,
-// then l1..l7's 512 rows each, KC rows a chunk) into its ring stage, as one
-// commit group: weight columns [col0, col0 + WARP_COLS) into stage columns
-// [scol0, scol0 + WARP_COLS); rows at or past d_in in l0 are zero.  A warp
-// copies exactly the part of each stage that it reads, so it waits for its
-// own copies only.  Past the end it commits an empty group, so that the
-// group count stays uniform for wait_group.
-template <int K0, int C>
-__device__ __forceinline__ void prefetch_chunk(bf16* ring, int c, int d_in, int scol0, int col0,
-                                               int lane, const bf16* __restrict__ w_in,
-                                               const bf16* __restrict__ w_mid) {
-  using S = Split<C>;
-  constexpr int CHUNKS_IN = Stream<K0>::CHUNKS_IN, CHUNKS = Stream<K0>::CHUNKS;
-  // lane -> 16-byte piece of rows r0, r0 + ROW_STEP, ...
-  constexpr int PER_ROW = S::WARP_COLS / 8;  // 16-byte copies a row
-  constexpr int ROW_STEP = 32 / PER_ROW;
-  static_assert(32 % PER_ROW == 0 && KC % ROW_STEP == 0, "copies per lane");
-  const int r0 = lane / PER_ROW, piece = (lane % PER_ROW) * 8, col = col0 + piece;
-  bf16* dst = ring + (c % S::STAGES) * KC * S::LDW + r0 * S::LDW + scol0 + piece;
-  if (c < CHUNKS_IN) {
-    const int k0 = c * KC;
-#pragma unroll
-    for (int r = 0; r < KC; r += ROW_STEP) {
-      const bool valid = k0 + r0 + r < d_in;
-      cp_async16(dst + r * S::LDW, valid ? w_in + (size_t)(k0 + r0 + r) * HIDDEN + col : w_in,
-                 valid);
-    }
-  } else if (c < CHUNKS) {
-    // l1..l7 are one contiguous stream of full rows
-    const bf16* src = w_mid + ((size_t)(c - CHUNKS_IN) * KC + r0) * HIDDEN + col;
-#pragma unroll
-    for (int r = 0; r < KC; r += ROW_STEP) cp_async16(dst + r * S::LDW, src + r * HIDDEN, true);
+// d (+)= a b: d the m64nN float accumulator of the warpgroup, a the 64x16
+// bf16 tile block (K-major) and b the 16xN bf16 weight block (MN-major:
+// imm-trans-b 1) through their descriptors; scale_d = 0 sets d
+template <>
+struct Wgmma<128> {
+  static __device__ __forceinline__ void mma(float (&d)[16][4], uint64_t a, uint64_t b,
+                                             int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+        "{"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+        "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+        "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+        "}, %64, %65, p, 1, 1, 0, 1;\n}\n"
+        : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
+          "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
+          "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
+          "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]),
+          "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]),
+          "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]),
+          "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]),
+          "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3]),
+          "+f"(d[8][0]), "+f"(d[8][1]), "+f"(d[8][2]), "+f"(d[8][3]),
+          "+f"(d[9][0]), "+f"(d[9][1]), "+f"(d[9][2]), "+f"(d[9][3]),
+          "+f"(d[10][0]), "+f"(d[10][1]), "+f"(d[10][2]), "+f"(d[10][3]),
+          "+f"(d[11][0]), "+f"(d[11][1]), "+f"(d[11][2]), "+f"(d[11][3]),
+          "+f"(d[12][0]), "+f"(d[12][1]), "+f"(d[12][2]), "+f"(d[12][3]),
+          "+f"(d[13][0]), "+f"(d[13][1]), "+f"(d[13][2]), "+f"(d[13][3]),
+          "+f"(d[14][0]), "+f"(d[14][1]), "+f"(d[14][2]), "+f"(d[14][3]),
+          "+f"(d[15][0]), "+f"(d[15][1]), "+f"(d[15][2]), "+f"(d[15][3])
+        : "l"(a), "l"(b), "r"(scale_d));
   }
-  asm volatile("cp.async.commit_group;" ::: "memory");
-}
-
-// one 16-deep k-step's fragments of the warp's block
-template <int C>
-struct Frags {
-  uint32_t a[Split<C>::MI][4];
-  uint32_t b[Split<C>::NI][2];
 };
 
-// a_addr: the thread's ldmatrix address in the tile at the k-step's first
-// column; w_addr: its address in the stage at the k-step's first row and the
-// warp's first column
-template <int C>
-__device__ __forceinline__ void load_frags(Frags<C>& f, uint32_t a_addr, uint32_t w_addr) {
-  // A: matrices (rows 0-7, k 0-7), (8-15, 0-7), (0-7, 8-15), (8-15, 8-15)
-  // give a0..a3 of m16n8k16
-#pragma unroll
-  for (int mi = 0; mi < Split<C>::MI; ++mi)
-    ldsm_x4(f.a[mi], a_addr + sizeof(bf16) * mi * 16 * LDA);
-  // B from (k, n) rows, transposed: (k 0-7, n 0-7), (8-15, 0-7),
-  // (0-7, 8-15), (8-15, 8-15) give b0, b1 of two n8 tiles
-#pragma unroll
-  for (int nj = 0; nj < Split<C>::NI / 2; ++nj)
-    ldsm_x4_trans(f.b[2 * nj][0], f.b[2 * nj][1], f.b[2 * nj + 1][0], f.b[2 * nj + 1][1],
-                  w_addr + sizeof(bf16) * nj * 16);
+template <>
+struct Wgmma<256> {
+  static __device__ __forceinline__ void mma(float (&d)[32][4], uint64_t a, uint64_t b,
+                                             int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 "
+        "{"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+        "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+        "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, "
+        "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "
+        "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, "
+        "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111, "
+        "%112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127"
+        "}, %128, %129, p, 1, 1, 0, 1;\n}\n"
+        : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
+          "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
+          "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
+          "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]),
+          "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]),
+          "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]),
+          "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]),
+          "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3]),
+          "+f"(d[8][0]), "+f"(d[8][1]), "+f"(d[8][2]), "+f"(d[8][3]),
+          "+f"(d[9][0]), "+f"(d[9][1]), "+f"(d[9][2]), "+f"(d[9][3]),
+          "+f"(d[10][0]), "+f"(d[10][1]), "+f"(d[10][2]), "+f"(d[10][3]),
+          "+f"(d[11][0]), "+f"(d[11][1]), "+f"(d[11][2]), "+f"(d[11][3]),
+          "+f"(d[12][0]), "+f"(d[12][1]), "+f"(d[12][2]), "+f"(d[12][3]),
+          "+f"(d[13][0]), "+f"(d[13][1]), "+f"(d[13][2]), "+f"(d[13][3]),
+          "+f"(d[14][0]), "+f"(d[14][1]), "+f"(d[14][2]), "+f"(d[14][3]),
+          "+f"(d[15][0]), "+f"(d[15][1]), "+f"(d[15][2]), "+f"(d[15][3]),
+          "+f"(d[16][0]), "+f"(d[16][1]), "+f"(d[16][2]), "+f"(d[16][3]),
+          "+f"(d[17][0]), "+f"(d[17][1]), "+f"(d[17][2]), "+f"(d[17][3]),
+          "+f"(d[18][0]), "+f"(d[18][1]), "+f"(d[18][2]), "+f"(d[18][3]),
+          "+f"(d[19][0]), "+f"(d[19][1]), "+f"(d[19][2]), "+f"(d[19][3]),
+          "+f"(d[20][0]), "+f"(d[20][1]), "+f"(d[20][2]), "+f"(d[20][3]),
+          "+f"(d[21][0]), "+f"(d[21][1]), "+f"(d[21][2]), "+f"(d[21][3]),
+          "+f"(d[22][0]), "+f"(d[22][1]), "+f"(d[22][2]), "+f"(d[22][3]),
+          "+f"(d[23][0]), "+f"(d[23][1]), "+f"(d[23][2]), "+f"(d[23][3]),
+          "+f"(d[24][0]), "+f"(d[24][1]), "+f"(d[24][2]), "+f"(d[24][3]),
+          "+f"(d[25][0]), "+f"(d[25][1]), "+f"(d[25][2]), "+f"(d[25][3]),
+          "+f"(d[26][0]), "+f"(d[26][1]), "+f"(d[26][2]), "+f"(d[26][3]),
+          "+f"(d[27][0]), "+f"(d[27][1]), "+f"(d[27][2]), "+f"(d[27][3]),
+          "+f"(d[28][0]), "+f"(d[28][1]), "+f"(d[28][2]), "+f"(d[28][3]),
+          "+f"(d[29][0]), "+f"(d[29][1]), "+f"(d[29][2]), "+f"(d[29][3]),
+          "+f"(d[30][0]), "+f"(d[30][1]), "+f"(d[30][2]), "+f"(d[30][3]),
+          "+f"(d[31][0]), "+f"(d[31][1]), "+f"(d[31][2]), "+f"(d[31][3])
+        : "l"(a), "l"(b), "r"(scale_d));
+  }
+};
+
+// mbarriers after the ring: full[s] at 16 s, empty[s] at 16 s + 8
+__device__ __forceinline__ uint32_t full_bar(uint32_t bars, int s) { return bars + 16 * s; }
+__device__ __forceinline__ uint32_t empty_bar(uint32_t bars, int s) { return bars + 16 * s + 8; }
+
+// the consumers' barrier at C = 1 (named barrier 1: the producer does not
+// take part); at C > 1 the cluster's, which every thread joins
+__device__ __forceinline__ void consumer_barrier() {
+  asm volatile("bar.sync 1, 256;" ::: "memory");
 }
 
-// acc += the k-step's 64 x 16 by 16 x WARP_COLS product
+// Chunk c of the weight stream, the CTA's columns [col0, col0 + COLS), into
+// its stage: one bulk copy (the Tensor Memory Accelerator) of COLS x 16
+// bytes for each 8-row group, whose core matrices lie one after another in
+// the weight image (ops/fused_mlp.py:stream_image) as in the stage; the
+// stage's `full` mbarrier expects their bytes.  One thread issues them.
 template <int C>
-__device__ __forceinline__ void mma_step(float (&acc)[Split<C>::MI][Split<C>::NI][4],
-                                         const Frags<C>& f) {
+__device__ __forceinline__ void copy_chunk(unsigned char* ring, uint32_t bars, int c, int col0,
+                                           const bf16* __restrict__ w_img) {
+  using S = Split<C>;
+  const int slot = c % S::STAGES;
+  const uint32_t full = full_bar(bars, slot);
+  const uint32_t dst = smem_addr(ring + (size_t)slot * S::STAGE);
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(full),
+               "r"(S::STAGE)
+               : "memory");
 #pragma unroll
-  for (int mi = 0; mi < Split<C>::MI; ++mi)
-#pragma unroll
-    for (int ni = 0; ni < Split<C>::NI; ++ni) mma(acc[mi][ni], f.a[mi], f.b[ni]);
+  for (int g = 0; g < S::KC / 8; ++g) {
+    // 8-row group c KC / 8 + g of the stream: HIDDEN / 8 core matrices of 64
+    // elements, the CTA's from col0 / 8
+    const bf16* src = w_img + ((size_t)(c * (S::KC / 8) + g) * (HIDDEN / 8) + col0 / 8) * 64;
+    asm volatile(
+        "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];" ::
+            "r"(dst + g * S::PANEL_B),
+        "l"(src), "r"(S::PANEL_B), "r"(full)
+        : "memory");
+  }
 }
 
-// chunk c's first column in its layer's input
-template <int K0>
-__device__ __forceinline__ int chunk_col(int c) {
-  constexpr int CHUNKS_IN = Stream<K0>::CHUNKS_IN;
-  return c < CHUNKS_IN ? c * KC : (c - CHUNKS_IN) % CHUNKS_MID * KC;
+// The producer warpgroup: thread 0 copies chunk c into its slot once both
+// consumers are done with the chunk the slot held; the copies arrive at the
+// slot's `full` mbarrier as they land.  At C > 1 every thread of the
+// cluster takes part in the consumers' two cluster barriers of each layer's
+// end: the producer arrives at the first as soon as it has issued the
+// layer's last chunk, and waits for it, arrives at the second and waits
+// for that only before it waits for a slot that the consumers free after
+// them.  So the ring is full when the next layer starts.
+template <int K0, int C>
+__device__ __forceinline__ void produce(unsigned char* ring, uint32_t bars, int col0, int ptid,
+                                        const bf16* __restrict__ w_img) {
+  using S = Split<C>;
+  using T = Stream<K0, C>;
+  static_assert(C == 1 || T::CHUNKS_MID > S::STAGES, "one layer end in the producer's way");
+  int pending = -1;  // the last chunk of the layer whose first barrier it has arrived at
+  const auto finish = [&]() {  // the rest of that layer end's barriers
+    if constexpr (C > 1) {
+      cluster_wait();
+      cluster_arrive();
+      cluster_wait();
+    }
+    pending = -1;
+  };
+#pragma unroll 1
+  for (int c = 0; c < T::CHUNKS; ++c) {
+    if (c >= S::STAGES) {  // both consumers are done with chunk c - STAGES
+      if (pending >= 0 && c - S::STAGES > pending) finish();
+      mbar_wait(empty_bar(bars, c % S::STAGES), (c / S::STAGES - 1) & 1);
+    }
+    if (ptid == 0) copy_chunk<C>(ring, bars, c, col0, w_img);
+    if constexpr (C > 1) {
+      int layer;
+      bool last;
+      chunk_k<K0, C>(c, layer, last);
+      if (last) {
+        cluster_arrive();
+        pending = c;
+      }
+    }
+  }
+  if (pending >= 0) finish();
 }
 
 // torch Softplus(beta=100, threshold=20) on MUFU ex2 and lg2: within ~5e-8
 // of log1pf(expf()) (their errors, scaled down by beta), far below bf16
 // rounding.  Branch free: both sides are computed and one is selected.  A
 // C++ ternary evaluates only its taken side and compiles to a branch per
-// element, which keeps ptxas from interleaving a thread's 128 exp-log chains
+// element, which keeps ptxas from interleaving a thread's exp-log chains
 // (the epilogue is then latency bound).
 __device__ __forceinline__ float softplus100(float x) {
   constexpr float LOG2E_100 = 144.269504088896341f;  // 100 log2(e)
@@ -1098,44 +1267,35 @@ __device__ __forceinline__ float skip_input(const float* __restrict__ x, int row
   return row < n ? __bfloat162float(__float2bfloat16_rn(x[(size_t)row * d_in + j])) : 0.f;
 }
 
-// bf16(softplus(acc + bias)) for the warp's block (columns col0.. of the
-// layer), from the accumulators in registers; after l3 (SKIP) the tail
-// columns take bf16(bf16(x)/sqrt(2)) and the rest bf16(softplus/sqrt(2)).
-// At C = 1 the pairs of columns go straight into the tile, at C > 1 into
-// `pairs` (pairs[mi][ni][half]: row mi*16 + g + 8*half, columns ni*8 + 2t
-// and + 1) for store_tile.  Zeroes acc for the next layer.  SKIP is a
-// template parameter, so that the common epilogue is one basic block.
-template <int C, bool SKIP>
-__device__ __forceinline__ void epilogue(float (&acc)[Split<C>::MI][Split<C>::NI][4],
-                                         uint32_t (&pairs)[Split<C>::MI][Split<C>::NI][2],
-                                         bf16* act, const float* __restrict__ bias,
-                                         const float* __restrict__ x, int row0, int n,
-                                         int d_in, int col0, int g, int t) {
+// bf16(softplus(acc + bias)) of the warpgroup's block in registers, as
+// pairs[i][half]: row `row` (+ 8 half) of the tile, layer columns col0 + 8 i
+// + 2t and + 1; after l3 (SKIP) the tail columns take bf16(bf16(x)/sqrt(2))
+// and the rest bf16(softplus/sqrt(2)).  SKIP is a template parameter, so
+// that the common epilogue is one basic block.
+template <int NI, bool SKIP>
+__device__ __forceinline__ void activate(const float (&acc)[NI][4], uint32_t (&pairs)[NI][2],
+                                         const float* __restrict__ bias,
+                                         const float* __restrict__ x, int row, int n, int d_in,
+                                         int col0, int t) {
   const int skip_cols = HIDDEN - d_in;
 #pragma unroll
-  for (int ni = 0; ni < Split<C>::NI; ++ni) {
-    const int col = col0 + ni * 8 + 2 * t;  // accumulator columns col, col+1
+  for (int i = 0; i < NI; ++i) {
+    const int col = col0 + i * 8 + 2 * t;  // accumulator columns col, col+1
     const float2 b = *reinterpret_cast<const float2*>(bias + col);
 #pragma unroll
-    for (int mi = 0; mi < Split<C>::MI; ++mi)
-#pragma unroll
-      for (int half = 0; half < 2; ++half) {  // rows g and g+8
-        const int r = mi * 16 + g + 8 * half;
-        float v0 = softplus100(acc[mi][ni][2 * half] + b.x);
-        float v1 = softplus100(acc[mi][ni][2 * half + 1] + b.y);
-        if (SKIP) {
-          if (col >= skip_cols) v0 = skip_input(x, row0 + r, n, d_in, col - skip_cols);
-          if (col + 1 >= skip_cols) v1 = skip_input(x, row0 + r, n, d_in, col + 1 - skip_cols);
-          v0 *= INV_SQRT2;
-          v1 *= INV_SQRT2;
-        }
-        const __nv_bfloat162 v = __floats2bfloat162_rn(v0, v1);
-        if constexpr (C == 1)
-          *reinterpret_cast<__nv_bfloat162*>(act + r * LDA + col) = v;
-        else
-          pairs[mi][ni][half] = *reinterpret_cast<const uint32_t*>(&v);
-        acc[mi][ni][2 * half] = acc[mi][ni][2 * half + 1] = 0.f;
+    for (int half = 0; half < 2; ++half) {  // rows row and row+8
+      float v0 = softplus100(acc[i][2 * half] + b.x);
+      float v1 = softplus100(acc[i][2 * half + 1] + b.y);
+      if (SKIP) {
+        const int r = row + 8 * half;
+        if (col >= skip_cols) v0 = skip_input(x, r, n, d_in, col - skip_cols);
+        if (col + 1 >= skip_cols) v1 = skip_input(x, r, n, d_in, col + 1 - skip_cols);
+        v0 *= INV_SQRT2;
+        v1 *= INV_SQRT2;
       }
+      const __nv_bfloat162 v = __floats2bfloat162_rn(v0, v1);
+      pairs[i][half] = *reinterpret_cast<const uint32_t*>(&v);
+    }
   }
 }
 
@@ -1164,182 +1324,182 @@ __device__ __forceinline__ void quad_transpose(uint32_t (&v)[4], int t) {
   }
 }
 
-// The warp's activated block (C > 1) into the tile of every CTA of the
-// cluster: its own through 4-byte stores, free of bank conflicts; the
-// others' (`remote`: ranks rank+1, ..., rank+C-1) through 16-byte
-// st.shared::cluster.  The four lanes of a quad hold the 8 columns of one
-// n8 tile's row, so a quad transposes each four of its fragments
-// (fragment i: mi = i / (2 NI), half = i / NI % 2, ni = i % NI), after which
-// lane t holds all 8 columns of fragment t of the four.
+// The warpgroup's activated block into the tile of every CTA of the
+// cluster, 16 bytes a store: the four lanes of a quad hold the 8 columns of
+// one n8 tile's row, so a quad transposes the pairs of four adjacent n8
+// tiles of one row, after which lane t holds all 8 columns of tile 4 j + t,
+// one row of one core matrix.  Its own tile through st.shared, the others'
+// (`remote`: ranks rank+1, ..., rank+C-1) through st.shared::cluster; a
+// quarter warp's stores (2 rows x 4 panels) fall on 8 bank quads.
 template <int C>
-__device__ __forceinline__ void store_tile(const uint32_t (&pairs)[Split<C>::MI][Split<C>::NI][2],
-                                           bf16* act, const uint32_t (&remote)[C], int col0,
-                                           int g, int t) {
-  constexpr int MI = Split<C>::MI, NI = Split<C>::NI;
+__device__ __forceinline__ void store_tile(const uint32_t (&pairs)[Split<C>::NI][2],
+                                           unsigned char* tile, const uint32_t (&remote)[C],
+                                           int row, int col0, int t) {
+  using S = Split<C>;
 #pragma unroll
-  for (int mi = 0; mi < MI; ++mi)
+  for (int j = 0; j < S::NI / 4; ++j)
 #pragma unroll
-    for (int ni = 0; ni < NI; ++ni)
+    for (int half = 0; half < 2; ++half) {
+      uint32_t v[4];
 #pragma unroll
-      for (int half = 0; half < 2; ++half)
-        *reinterpret_cast<uint32_t*>(act + (mi * 16 + g + 8 * half) * LDA + col0 + ni * 8 +
-                                     2 * t) = pairs[mi][ni][half];
+      for (int k = 0; k < 4; ++k) v[k] = pairs[4 * j + k][half];
+      quad_transpose(v, t);
+      const uint32_t off = (col0 / 8 + 4 * j + t) * S::PANEL_A + (row + 8 * half) * 16;
+      *reinterpret_cast<uint4*>(tile + off) = make_uint4(v[0], v[1], v[2], v[3]);
 #pragma unroll
-  for (int q = 0; q < MI * NI * 2 / 4; ++q) {
-    uint32_t v[4];
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int i = 4 * q + j;
-      v[j] = pairs[i / (2 * NI)][i % NI][i / NI % 2];
+      for (int other = 1; other < C; ++other)
+        asm volatile("st.shared::cluster.v4.b32 [%0], {%1, %2, %3, %4};" ::"r"(remote[other] + off),
+                     "r"(v[0]), "r"(v[1]), "r"(v[2]), "r"(v[3])
+                     : "memory");
     }
-    quad_transpose(v, t);
-    const int i = 4 * q + t;
-    const uint32_t off = sizeof(bf16) * ((i / (2 * NI) * 16 + g + 8 * (i / NI % 2)) * LDA +
-                                         col0 + i % NI * 8);
-#pragma unroll
-    for (int other = 1; other < C; ++other)
-      asm volatile("st.shared::cluster.v4.b32 [%0], {%1, %2, %3, %4};" ::"r"(remote[other] + off),
-                   "r"(v[0]), "r"(v[1]), "r"(v[2]), "r"(v[3])
-                   : "memory");
-  }
 }
 
 template <int K0, int C>
 __global__ void __launch_bounds__(Split<C>::NT, 1)
     fused_sdf_kernel(const float* __restrict__ x, int n, int d_in,
-                     const bf16* __restrict__ w_in, const float* __restrict__ b_in,
-                     const bf16* __restrict__ w_mid, const float* __restrict__ b_mid,
-                     const bf16* __restrict__ w_out, const float* __restrict__ b_out,
-                     float* __restrict__ out) {
+                     const bf16* __restrict__ w_img, const float* __restrict__ b_in,
+                     const float* __restrict__ b_mid, const bf16* __restrict__ w_out,
+                     const float* __restrict__ b_out, float* __restrict__ out) {
   using S = Split<C>;
-  constexpr int CHUNKS_IN = Stream<K0>::CHUNKS_IN, CHUNKS = Stream<K0>::CHUNKS;
+  constexpr int CHUNKS = Stream<K0, C>::CHUNKS;
   extern __shared__ __align__(128) unsigned char smem[];
-  bf16* act = reinterpret_cast<bf16*>(smem);  // (TM, LDA)
-  bf16* ring = act + TM * LDA;                // STAGES x (KC, LDW)
+  unsigned char* tile = smem;                  // the activations, K-major (PANEL_A)
+  unsigned char* ring = smem + S::TILE_BYTES;  // STAGES stages
+  const uint32_t bars = smem_addr(ring + (size_t)S::STAGES * S::STAGE);
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int wg = warp / 4;  // 0, 1: consumers; 2: the producer
   // a 1-D cluster is C consecutive blocks, one tile
   const int rank = C == 1 ? 0 : (int)cluster_rank();
-  const int row0 = blockIdx.x / C * TM;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int g = lane / 4, t = lane % 4;  // mma fragment coordinates
-  const int scol0 = warp * S::WARP_COLS;      // the warp's first column in the stage
-  const int col0 = rank * S::COLS + scol0;    // ... in the layer
-  // ldmatrix row addresses: lanes 0-15 rows 0-15 at column 0, lanes 16-31
-  // the same rows at column 8
-  const int lrow = lane % 16, lcol = lane / 16 * 8;
-  const uint32_t a_base = smem_addr(act + lrow * LDA + lcol);
-  const uint32_t w_base = smem_addr(ring + lrow * S::LDW + scol0 + lcol);
-  uint32_t remote[C] = {};  // remote[q]: the tile of rank + q (q >= 1)
-#pragma unroll
-  for (int q = 1; q < C; ++q) remote[q] = map_rank(smem_addr(act), (rank + q) % C);
-
-#pragma unroll
-  for (int c = 0; c < S::STAGES - 1; ++c)
-    prefetch_chunk<K0, C>(ring, c, d_in, scol0, col0, lane, w_in, w_mid);
+  const int row0 = blockIdx.x / C * S::TM;
+  const int cta_col0 = rank * S::COLS;  // the CTA's first output column
 
   // the point tile at its real width in bf16, zero padded to K0 columns and
-  // TM rows
-  for (int i = threadIdx.x; i < TM * K0; i += S::NT) {
-    const int r = i / K0, col = i % K0, row = row0 + r;
-    act[r * LDA + col] =
-        __float2bfloat16_rn((row < n && col < d_in) ? x[(size_t)row * d_in + col] : 0.f);
+  // TM rows: 8 columns of a row (one row of a core matrix) a thread
+  for (int i = threadIdx.x; i < S::TM * K0 / 8; i += S::NT) {
+    const int r = i / (K0 / 8), kg = i % (K0 / 8), row = row0 + r;
+    uint32_t v[4];
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int col = 8 * kg + 2 * e;
+      const float a = row < n && col < d_in ? x[(size_t)row * d_in + col] : 0.f;
+      const float b = row < n && col + 1 < d_in ? x[(size_t)row * d_in + col + 1] : 0.f;
+      const __nv_bfloat162 p = __floats2bfloat162_rn(a, b);
+      v[e] = *reinterpret_cast<const uint32_t*>(&p);
+    }
+    *reinterpret_cast<uint4*>(tile + kg * S::PANEL_A + r * 16) = make_uint4(v[0], v[1], v[2], v[3]);
   }
-
-  float acc[S::MI][S::NI][4];
-#pragma unroll
-  for (int mi = 0; mi < S::MI; ++mi)
-#pragma unroll
-    for (int ni = 0; ni < S::NI; ++ni)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[mi][ni][e] = 0.f;
-
-  // The main loop is software pipelined: a warp loads k-step s+1's fragments
-  // before it issues k-step s's products, and the wait for the next chunk
-  // sits between the loads of a chunk's last k-step and its products.  A
-  // warp reads only the weights it copied, so the wait is its own: its
-  // copies of chunk j have landed, and __syncwarp makes them visible to all
-  // its lanes.  The copy of chunk j+STAGES-1 goes into chunk j-1's stage,
-  // which the warp finished reading before, after k-step 0's products of
-  // chunk j.  Only the tile, which every warp of the cluster reads and each
-  // writes in part, needs the others: a barrier before an epilogue
-  // overwrites it and one after.
-  constexpr int KSTEPS = KC / 16, LAST = (KSTEPS - 1) % 2;
-  const auto wait_chunk = [&]() {
-    asm volatile("cp.async.wait_group %0;" ::"n"(S::STAGES - 2) : "memory");
-    __syncwarp();
-  };
-  const auto frag_addr = [&](int j, int s, uint32_t& a, uint32_t& w) {
-    a = a_base + sizeof(bf16) * (chunk_col<K0>(j) + s * 16);
-    w = w_base + sizeof(bf16) * ((j % S::STAGES) * KC + s * 16) * S::LDW;
-  };
-  Frags<C> f[2];
-  uint32_t a_addr, w_addr;
-  __syncthreads();  // the point tile
-  wait_chunk();
-  frag_addr(0, 0, a_addr, w_addr);
-  load_frags<C>(f[0], a_addr, w_addr);
-
-  for (int c = 0; c < CHUNKS; ++c) {
-#pragma unroll
-    for (int s = 0; s + 1 < KSTEPS; ++s) {
-      frag_addr(c, s + 1, a_addr, w_addr);
-      load_frags<C>(f[(s + 1) % 2], a_addr, w_addr);
-      mma_step<C>(acc, f[s % 2]);
-      if (s == 0)
-        prefetch_chunk<K0, C>(ring, c + S::STAGES - 1, d_in, scol0, col0, lane, w_in, w_mid);
-    }
-    const bool first = c < CHUNKS_IN;
-    const bool layer_end = chunk_col<K0>(c) == (first ? K0 : HIDDEN) - KC;
-    if (layer_end) {
-      // every warp of the cluster has loaded its last fragments of the tile
-      // (at C > 1 the wait comes after the products and the activation)
-      if constexpr (C == 1)
-        __syncthreads();
-      else
-        cluster_arrive();
-      mma_step<C>(acc, f[LAST]);
-      const int layer = first ? 0 : 1 + (c - CHUNKS_IN) / CHUNKS_MID;
-      const float* bias = layer == 0 ? b_in : b_mid + (layer - 1) * HIDDEN;
-      uint32_t pairs[S::MI][S::NI][2];
-      if (layer == 1 + SKIP_AFTER_MID)
-        epilogue<C, true>(acc, pairs, act, bias, x, row0, n, d_in, col0, g, t);
-      else
-        epilogue<C, false>(acc, pairs, act, bias, x, row0, n, d_in, col0, g, t);
-      if constexpr (C > 1) {
-        cluster_wait();
-        store_tile<C>(pairs, act, remote, col0, g, t);
-      }
-      // the new tile, complete in every CTA; after the last layer's, no CTA
-      // touches another's shared memory, so that each may exit
-      tile_barrier<C>();
-    }
-    if (c + 1 < CHUNKS) {
-      wait_chunk();
-      frag_addr(c + 1, 0, a_addr, w_addr);
-      load_frags<C>(f[(LAST + 1) % 2], a_addr, w_addr);
-    }
-    if (!layer_end) mma_step<C>(acc, f[LAST]);
+  if (threadIdx.x < S::STAGES) {
+    mbar_init(full_bar(bars, threadIdx.x), 1);                   // the producer's expect_tx
+    mbar_init(empty_bar(bars, threadIdx.x), S::CONSUMER_WARPS);  // a lane of each consumer warp
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");  // ... for the copies
   }
-  asm volatile("cp.async.wait_group 0;" ::: "memory");
+  asm volatile("fence.proxy.async.shared::cta;" ::: "memory");  // the tile, for the tensor cores
   __syncthreads();
 
+  if (wg == 2) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;" ::"n"(S::PRODUCER_REGS));
+    produce<K0, C>(ring, bars, cta_col0, threadIdx.x - 256, w_img);
+    return;
+  }
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;" ::"n"(S::CONSUMER_REGS));
+  const int wq = warp % 4;                  // the warp in its warpgroup
+  const int g = lane / 4, t = lane % 4;     // accumulator coordinates
+  // the warpgroup's block: 64 rows from wg_row0, WG_COLS columns from col0
+  const int wg_row0 = S::ROW_SPLIT ? 64 * wg : 0;
+  const int wg_col = S::ROW_SPLIT ? 0 : S::WG_COLS * wg;  // ... of the CTA's
+  const int col0 = cta_col0 + wg_col;
+  const int row = wg_row0 + 16 * wq + g;    // the thread's rows row and row + 8
+  const uint32_t a_base = smem_addr(tile) + 16 * wg_row0;
+  const uint32_t b_base = smem_addr(ring) + wg_col * 16;
+  uint32_t remote[C] = {};  // remote[q]: the tile of rank + q (q >= 1)
+#pragma unroll
+  for (int q = 1; q < C; ++q) remote[q] = map_rank(smem_addr(tile), (rank + q) % C);
+
+  float acc[S::NI][4];
+#pragma unroll
+  for (int i = 0; i < S::NI; ++i)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[i][e] = 0.f;
+
+  // Each chunk's products are issued as soon as it has landed, behind the
+  // previous chunk's, and the previous chunk's slot is freed once those are
+  // done; at a layer's end all are awaited.  The layer's first product sets
+  // the accumulators (scale-d 0).
+  for (int c = 0; c < CHUNKS; ++c) {
+    const int slot = c % S::STAGES;
+    int layer;
+    bool last;
+    const int k0 = chunk_k<K0, C>(c, layer, last);  // the chunk's first row of the layer
+    mbar_wait(full_bar(bars, slot), (c / S::STAGES) & 1);  // the chunk has landed
+    wgmma_fence();
+    const uint32_t b_stage = b_base + slot * S::STAGE;
+#pragma unroll
+    for (int s = 0; s < S::KS; ++s) {
+      const int k = k0 + 16 * s;
+      Wgmma<S::WG_COLS>::mma(acc, desc(a_base + k / 8 * S::PANEL_A, S::PANEL_A, 128),
+                             desc(b_stage + 2 * s * S::PANEL_B, S::PANEL_B, 128), k > 0);
+    }
+    wgmma_commit();
+    if (k0 > 0) {  // the previous chunk's products are done: its slot is free
+      wgmma_wait<1>();
+      if (lane == 0) mbar_arrive(empty_bar(bars, (c - 1) % S::STAGES));
+    }
+    if (last) {
+      wgmma_wait<0>();
+      fence_regs(acc);
+      if (lane == 0) mbar_arrive(empty_bar(bars, slot));
+      // the layer's end: the tile is read; activate in registers, then
+      // replace the tile of every CTA of the cluster once all of them are
+      // done reading it
+      if constexpr (C > 1) cluster_arrive();
+      const float* bias = layer == 0 ? b_in : b_mid + (layer - 1) * HIDDEN;
+      uint32_t pairs[S::NI][2];
+      if (layer == 1 + SKIP_AFTER_MID)
+        activate<S::NI, true>(acc, pairs, bias, x, row0 + row, n, d_in, col0, t);
+      else
+        activate<S::NI, false>(acc, pairs, bias, x, row0 + row, n, d_in, col0, t);
+      if constexpr (C > 1)
+        cluster_wait();
+      else
+        consumer_barrier();
+      store_tile<C>(pairs, tile, remote, row, col0, t);
+      // the new tile, complete in every CTA; after the last layer's, no CTA
+      // touches another's shared memory, so that each may exit
+      if constexpr (C > 1)
+        tile_barrier<C>();
+      else
+        consumer_barrier();
+      // ... and the stores into it that this thread has acquired, visible
+      // to the tensor cores
+      asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+    }
+  }
+
   // last layer: the SDF column only, one 512-long float dot per point; the
-  // cluster's CTAs split the tile's rows
-  constexpr int ROWS_PER_WARP = TM / C / S::WARPS;
+  // cluster's CTAs split the tile's rows, the consumer warps of each CTA its
+  // share; lane l reads panels l and l + 32 (16 bytes each) of its row
+  constexpr int ROWS_PER_WARP = S::TM / C / S::CONSUMER_WARPS;
   for (int rr = 0; rr < ROWS_PER_WARP; ++rr) {
-    const int r = rank * (TM / C) + warp * ROWS_PER_WARP + rr;
+    const int r = rank * (S::TM / C) + warp * ROWS_PER_WARP + rr;
     float s = 0.f;
 #pragma unroll
-    for (int k = 2 * lane; k < HIDDEN; k += 64) {
-      const float2 a =
-          __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(act + r * LDA + k));
-      const float2 w = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(w_out + k));
-      s = fmaf(a.x, w.x, s);
-      s = fmaf(a.y, w.y, s);
+    for (int h = 0; h < 2; ++h) {
+      const int kg = lane + 32 * h;
+      const uint4 a = *reinterpret_cast<const uint4*>(tile + kg * S::PANEL_A + r * 16);
+      const uint4 w = *reinterpret_cast<const uint4*>(w_out + 8 * kg);
+      const uint32_t av[4] = {a.x, a.y, a.z, a.w}, wv[4] = {w.x, w.y, w.z, w.w};
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float2 af = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&av[e]));
+        const float2 wf = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&wv[e]));
+        s = fmaf(af.x, wf.x, s);
+        s = fmaf(af.y, wf.y, s);
+      }
     }
 #pragma unroll
     for (int off = 16; off > 0; off >>= 1) s += __shfl_xor_sync(0xffffffffu, s, off);
-    const int row = row0 + r;
-    if (lane == 0 && row < n) out[row] = s + b_out[0];
+    const int grow = row0 + r;
+    if (lane == 0 && grow < n) out[grow] = s + b_out[0];
   }
 }
 
@@ -1360,8 +1520,9 @@ bool valid_shape(int n, int d_in, int k0) {
 // Plain C interface for ctypes.  Pointers are device pointers; the stream is
 // the caller's cudaStream_t; k0 is the compiled first-layer depth to launch
 // (64, 128, 256 or 512: the smallest that covers d_in, chosen by the
-// caller); cluster the CTAs that share a tile (f32: 2 or 4; bf16: 1, 2 or
-// 4).  Returns the cudaError_t of the launch (0 = ok).
+// caller); cluster the CTAs that share a tile, which also fixes the points
+// a tile (f32: 64 at C = 2 or 4; bf16: 64 at C = 1, 128 at C = 4; any other
+// C is refused).  Returns the cudaError_t of the launch (0 = ok).
 
 extern "C" int fused_sdf_raw_f32(const void* x, int n, int d_in, int k0, int cluster,
                                  const void* w_in, const void* b_in, const void* w_mid,
@@ -1386,20 +1547,22 @@ extern "C" int fused_sdf_raw_f32(const void* x, int n, int d_in, int k0, int clu
 }
 
 extern "C" int fused_sdf_raw_bf16(const void* x, int n, int d_in, int k0, int cluster,
-                                  const void* w_in, const void* b_in, const void* w_mid,
-                                  const void* b_mid, const void* w_out, const void* b_out,
-                                  void* out, void* stream) {
+                                  const void* w_img, const void* b_in, const void* b_mid,
+                                  const void* w_out, const void* b_out, void* out, void* stream) {
   if (!valid_shape(n, d_in, k0)) return (int)cudaErrorInvalidValue;
   return dispatch(k0, cluster, [&](auto k, auto c) {
     constexpr int K0 = decltype(k)::value, C = decltype(c)::value;
-    using S = bf16k::Split<C>;
-    return launch_tiles<C>(bf16k::fused_sdf_kernel<K0, C>, S::NT, S::SMEM, bf16k::ready<K0, C>,
-                           (n + bf16k::TM - 1) / bf16k::TM, static_cast<cudaStream_t>(stream),
-                           static_cast<const float*>(x), n, d_in,
-                           static_cast<const bf16*>(w_in), static_cast<const float*>(b_in),
-                           static_cast<const bf16*>(w_mid), static_cast<const float*>(b_mid),
-                           static_cast<const bf16*>(w_out), static_cast<const float*>(b_out),
-                           static_cast<float*>(out));
+    if constexpr (C == 2) {
+      return (int)cudaErrorInvalidValue;  // (64, 1) and (128, 4) only
+    } else {
+      using S = bf16k::Split<C>;
+      return launch_tiles<C>(bf16k::fused_sdf_kernel<K0, C>, S::NT, S::SMEM, bf16k::ready<K0, C>,
+                             (n + S::TM - 1) / S::TM, static_cast<cudaStream_t>(stream),
+                             static_cast<const float*>(x), n, d_in,
+                             static_cast<const bf16*>(w_img), static_cast<const float*>(b_in),
+                             static_cast<const float*>(b_mid), static_cast<const bf16*>(w_out),
+                             static_cast<const float*>(b_out), static_cast<float*>(out));
+    }
   });
 }
 
@@ -1422,8 +1585,12 @@ extern "C" int fused_sdf_raw_f32_slots(int k0, int cluster, int* slots) {
 extern "C" int fused_sdf_raw_bf16_slots(int k0, int cluster, int* slots) {
   return dispatch(k0, cluster, [&](auto k, auto c) {
     constexpr int K0 = decltype(k)::value, C = decltype(c)::value;
-    using S = bf16k::Split<C>;
-    return count_slots<C>(bf16k::fused_sdf_kernel<K0, C>, S::NT, S::SMEM, bf16k::ready<K0, C>,
-                          slots);
+    if constexpr (C == 2) {
+      return (int)cudaErrorInvalidValue;
+    } else {
+      using S = bf16k::Split<C>;
+      return count_slots<C>(bf16k::fused_sdf_kernel<K0, C>, S::NT, S::SMEM, bf16k::ready<K0, C>,
+                            slots);
+    }
   });
 }

@@ -14,12 +14,15 @@ Two precisions, one kernel each: float32 weights (the 'exact' tracer; tensor
 cores in split-TF32 on ``wgmma``, three TF32 products per float32 product,
 which keeps float32 accuracy) and bfloat16 weights with float32
 accumulation (the 'mixed'/'fast' tracer's guidance queries; bf16
-``mma.sync``).  Both stream the weights through a ``cp.async`` ring.
-Biases, softplus and the skip scaling stay float32.  Both kernels run each
-64-point tile on a thread-block cluster of C CTAs (f32: 2 or 4; bf16: 1, 2
-or 4), each computing 512/C columns of every layer and sharing the
-activations through distributed shared memory; ``cluster_size`` chooses C
-from N and each C's measured cost.
+``wgmma``, its weights copied by the Tensor Memory Accelerator from the
+pre-tiled ``w_img`` that ``pack_params`` adds; the f32 kernel streams its
+weights through a ``cp.async`` ring).  Biases, softplus and the skip
+scaling stay float32.  Both kernels run each tile of
+points on a thread-block cluster of C CTAs, each computing 512/C columns of
+every layer and sharing the activations through distributed shared memory:
+f32 64-point tiles on clusters of 2 or 4; bf16 64-point tiles on one CTA
+and 128-point tiles on clusters of 4 (``TILES``).  ``cluster_size``
+chooses the configuration from N and each one's measured cost.
 
 ``fused_sdf_raw`` launches the kernel for a CUDA tensor and raises if it
 cannot; for a CPU tensor it runs ``fused_sdf_raw_plain``, the same math in
@@ -34,7 +37,7 @@ from __future__ import annotations
 import ctypes
 import math
 from pathlib import Path
-from typing import Callable, Dict, List, Optional, Tuple
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import torch
 
@@ -48,30 +51,37 @@ KERNEL_HIDDEN = 512    # the CUDA kernel's compiled width
 # that covers d_in (rows past d_in are zero); d_in < 512, as the skip after l3
 # fills columns >= 512 - d_in (JAX supports_fusion, :47-54)
 KERNEL_DEPTHS = (64, 128, 256, 512)
-# points per tile of both kernels; the cluster sizes (CTAs that share one
-# tile) of either
-TILE = 64
+# Each variant's configurations, by cluster size C (the CTAs that share one
+# tile): the points a tile at each C it compiles, which the kernel fixes by
+# C (csrc/fused_mlp.cu) and ``cluster_size``'s cost reads.  The f32 kernel
+# holds a partial and a float accumulator a column, which at C = 1 would not
+# fit the registers.  The bf16 kernel's two consumer warpgroups own 64 rows each of a
+# 128-point tile at C = 4, so that each weight byte read from L2 serves 128
+# points; at C = 1 that would take 256 accumulators a thread, so its tile is
+# 64 points there; its C = 2 (a 128-point tile), whose waves end where C =
+# 1's do and run slower on the H100, is not compiled (csrc/fused_mlp.cu).
+TILES = {"fused_sdf_raw_f32": {2: 64, 4: 64},
+         "fused_sdf_raw_bf16": {1: 64, 4: 128}}
 CLUSTER_SIZES = (1, 2, 4)
-# Each variant's time of one full wave of clusters of C (slots[C] / C tiles,
-# one CTA an SM), in ms, by the cluster sizes it compiles: the cost
-# ``cluster_size`` weighs.  Measured on an NVIDIA H100 80GB HBM3 at 700 W
-# with scripts/bench_fused_mlp_f32.py (``--dtype bf16``: 132, 66 and 30
-# tiles at C = 1, 2, 4; f32: 66 and 30 tiles at C = 2, 4; the f32 kernel
-# holds a partial and a float accumulator a column, which at C = 1 would
-# not fit the registers).
+# Each variant's time of one full wave of clusters at each configuration
+# (slots[C] / C tiles, one CTA an SM), in ms: the cost ``cluster_size``
+# weighs.  Measured on an NVIDIA H100 80GB HBM3 at 700 W with
+# scripts/bench_fused_mlp_f32.py (``--dtype bf16``: 132 tiles of 64 points
+# at C = 1, 30 tiles of 128 at C = 4; f32: 66 and 30 tiles of 64 at C = 2,
+# 4).
 WAVE_MS = {"fused_sdf_raw_f32": {2: 0.300, 4: 0.200},
-           "fused_sdf_raw_bf16": {1: 0.146, 2: 0.098, 4: 0.089}}
+           "fused_sdf_raw_bf16": {1: 0.077, 4: 0.074}}
 
 _CSRC = Path(__file__).resolve().parent / "csrc" / "fused_mlp.cu"
 
 # Kernel launches and points, per variant, counted by the wrapper only where
 # it launches the CUDA kernel (chip_smoke.py reads them to show that the
-# main path went through the kernel); the launches also by cluster size
-# (``cluster_<C>``).  A launch recorded into a CUDA graph counts when the
-# graph runs instead: ``utils/graphs.py`` adds a program's straight-line
-# launches at each launch of it, and its loops' launches from the iteration
-# totals the device keeps, folded in before every read here
-# (``fold_device_counts``).
+# main path went through the kernel); the launches also by configuration
+# (``cluster_<C>``: clusters of C, on tiles of ``TILES[variant][C]``).  A
+# launch recorded into a CUDA graph counts when the graph runs instead:
+# ``utils/graphs.py`` adds a program's straight-line launches at each launch
+# of it, and its loops' launches from the iteration totals the device
+# keeps, folded in before every read here (``fold_device_counts``).
 launch_counts: Dict[str, Dict[str, int]] = {
     name: {"launches": 0, "points": 0, **{f"cluster_{c}": 0 for c in CLUSTER_SIZES}}
     for name in WAVE_MS
@@ -139,7 +149,10 @@ def pack_params(lins: List[Linear], d_in: int, hidden: int,
       w_mid (7, hidden, hidden)     b_mid (7, hidden)    # l3 zero-padded
       w_out (hidden,)               b_out (1,)           # SDF column only
 
-    Weights are stored input-major (``h @ w``) in ``dtype``; biases float32."""
+    Weights are stored input-major (``h @ w``) in ``dtype``; biases float32.
+    bf16 weights on a CUDA device at the kernel's shape take the bf16
+    kernel's weight stream, ``w_img`` (``stream_image``), in place of
+    ``w_in`` and ``w_mid``; ``plain_pack`` reads them back."""
     def w_of(l):
         return lins[l].weight().detach().T  # (in, out)
 
@@ -149,25 +162,62 @@ def pack_params(lins: List[Linear], d_in: int, hidden: int,
         if w.shape[1] != hidden:  # l3: hidden -> hidden - d_in; pad tail columns
             w = torch.nn.functional.pad(w, (0, hidden - w.shape[1]))
             b = torch.nn.functional.pad(b, (0, hidden - b.shape[0]))
-        mids_w.append(w)
+        mids_w.append(w.to(dtype))
         mids_b.append(b)
     w_last = w_of(1 + N_MID)
-    return {
-        "w_in": w_of(0).to(dtype).contiguous(),
+    packed = {
         "b_in": lins[0].b.detach().float().contiguous(),
-        "w_mid": torch.stack(mids_w).to(dtype).contiguous(),
         "b_mid": torch.stack(mids_b).float().contiguous(),
         "w_out": w_last[:, 0].to(dtype).contiguous(),
         "b_out": lins[1 + N_MID].b.detach()[:1].float().contiguous(),
     }
+    w_in = w_of(0).to(dtype)
+    if (dtype == torch.bfloat16 and lins[0].b.is_cuda and hidden == KERNEL_HIDDEN
+            and 0 < d_in < KERNEL_HIDDEN):
+        packed["w_img"] = stream_image(w_in, mids_w)
+    else:
+        packed["w_in"] = w_in.contiguous()
+        packed["w_mid"] = torch.stack(mids_w).contiguous()
+    return packed
+
+
+def stream_image(w_in: torch.Tensor, w_mid: Sequence[torch.Tensor]) -> torch.Tensor:
+    """The bf16 kernel's weight stream, as it copies it into shared memory:
+    l0's rows zero-padded to its compiled depth K0 (``kernel_depth``), then
+    l1..l7's (``w_mid``: the seven (hidden, hidden) weights, or their
+    stack), as core matrices of 8 rows k x 8 columns n (128 bytes, n
+    fastest), ordered by 8-row group, then 8-column group: (K0 + 7 hidden)
+    / 8 x hidden / 8 x 8 x 8, element (k, n) of the stream at [k // 8, n //
+    8, k % 8, n % 8].  A CTA's chunk of columns is one run of bytes per
+    8-row group (csrc/fused_mlp.cu, bf16k::copy_chunk)."""
+    d_in, hidden = w_in.shape
+    k0 = kernel_depth(d_in)
+    w = torch.cat([torch.nn.functional.pad(w_in, (0, 0, 0, k0 - d_in)), *w_mid])
+    return w.view(w.shape[0] // 8, 8, hidden // 8, 8).transpose(1, 2).contiguous()
+
+
+def plain_pack(packed: Dict[str, torch.Tensor], d_in: int) -> Dict[str, torch.Tensor]:
+    """``packed`` with its weights as ``w_in`` and ``w_mid``, the plain
+    twin's form: as it is where it holds them, else read back from the bf16
+    kernel's stream ``w_img`` (``stream_image``) for a first layer of
+    ``d_in`` inputs."""
+    if "w_mid" in packed:
+        return packed
+    img = packed["w_img"]
+    hidden = img.shape[1] * 8
+    w = img.transpose(1, 2).reshape(-1, hidden)
+    rest = {k: v for k, v in packed.items() if k != "w_img"}
+    return {**rest, "w_in": w[:d_in],
+            "w_mid": w[w.shape[0] - N_MID * hidden:].view(N_MID, hidden, hidden)}
 
 
 def fused_sdf_raw_plain(x: torch.Tensor, packed: Dict[str, torch.Tensor]) -> torch.Tensor:
     """The kernel's math in plain torch ops: x (N, d_in) f32 -> raw SDF (N,).
     Each layer rounds its input to the weight type and accumulates in
     float32, as the kernel (and the Pallas kernel) does."""
-    wd = packed["w_in"].dtype
     d_in = x.shape[1]
+    packed = plain_pack(packed, d_in)
+    wd = packed["w_in"].dtype
     hidden = packed["w_in"].shape[1]
     skip_cols = hidden - d_in
     inv_sqrt2 = 1.0 / math.sqrt(2.0)
@@ -200,6 +250,9 @@ def fused_sdf_raw(x_embedded: torch.Tensor, packed: Dict[str, torch.Tensor]) -> 
 # ---------------------------------------------------------------------------
 
 _lib = None
+# each variant's tensors, in the order its C entry takes them
+POINTERS = {"fused_sdf_raw_f32": ("w_in", "b_in", "w_mid", "b_mid", "w_out", "b_out"),
+            "fused_sdf_raw_bf16": ("w_img", "b_in", "b_mid", "w_out", "b_out")}
 
 
 def _lib_path() -> Path:
@@ -222,8 +275,9 @@ def load_library() -> ctypes.CDLL:
     lib = ctypes.CDLL(str(out))
     ptr, c_int = ctypes.c_void_p, ctypes.c_int
     for name in WAVE_MS:
-        # x, n, d_in, k0, cluster, w_in, b_in, w_mid, b_mid, w_out, b_out, out, stream
-        getattr(lib, name).argtypes = [ptr, c_int, c_int, c_int, c_int] + [ptr] * 8
+        # x, n, d_in, k0, cluster, the tensors (POINTERS), out, stream
+        getattr(lib, name).argtypes = [ptr, c_int, c_int, c_int, c_int] + [ptr] * (
+            len(POINTERS[name]) + 2)
         getattr(lib, f"{name}_slots").argtypes = [c_int, c_int, ctypes.POINTER(c_int)]
         getattr(lib, name).restype = getattr(lib, f"{name}_slots").restype = c_int
     _lib = lib
@@ -254,16 +308,18 @@ def kernel_depth(d_in: int) -> int:
     return next(k for k in KERNEL_DEPTHS if k >= d_in)
 
 
-def cluster_size(n: int, slots: Dict[int, int], wave_ms: Dict[int, float]) -> int:
-    """A kernel's cluster size C for ``n`` points: of the sizes in
-    ``wave_ms`` that the card seats, the one of least modelled time, the
-    waves of clusters ``ceil(tiles C / slots[C])`` (``tiles = ceil(n /
-    TILE)``) times the measured time of one wave, ``wave_ms[C]`` (to 1e-9
-    ms); a tie goes to the smaller C.  ``slots[C]`` is C times the clusters
-    of size C that can run at once (the card's occupancy query,
-    ``cluster_slots``); ``wave_ms`` is the variant's ``WAVE_MS``."""
-    tiles = -(-n // TILE)
-    cost = {c: -(-tiles * c // slots[c]) * wave_ms[c] for c in sorted(wave_ms) if slots[c] > 0}
+def cluster_size(n: int, slots: Dict[int, int], wave_ms: Dict[int, float],
+                 tiles: Dict[int, int]) -> int:
+    """A kernel's configuration for ``n`` points, as its cluster size C (on
+    tiles of ``tiles[C]`` points): of the sizes in ``wave_ms`` that the
+    card seats, the one of least modelled time, the waves of clusters
+    ``ceil(ceil(n / tiles[C]) C / slots[C])`` times the measured time of one
+    wave, ``wave_ms[C]`` (to 1e-9 ms); a tie goes to the smaller C.
+    ``slots[C]`` is C times the clusters of size C that can run at once
+    (the card's occupancy query, ``cluster_slots``); ``wave_ms`` and
+    ``tiles`` are the variant's ``WAVE_MS`` and ``TILES``."""
+    cost = {c: -(-(-(-n // tiles[c])) * c // slots[c]) * wave_ms[c]
+            for c in sorted(wave_ms) if slots[c] > 0}
     return min(cost, key=lambda c: (round(cost[c], 9), c))
 
 
@@ -294,18 +350,19 @@ def cluster_slots(variant: str, k0: int, device: torch.device) -> Dict[int, int]
 def _launch(x: torch.Tensor, packed: Dict[str, torch.Tensor],
             cluster: Optional[int] = None) -> torch.Tensor:
     """Launch the kernel of ``packed``'s weight type on ``x``.  ``cluster``
-    forces the cluster size, one of ``cluster_sizes(variant)`` (the card's
+    forces the configuration by its cluster size, one of
+    ``cluster_sizes(variant)``, on that size's tile (``TILES``; the card's
     checks hold every C against the smallest); by default ``cluster_size``
     chooses it from N."""
     n, d_in = x.shape
-    wd = packed["w_in"].dtype
+    wd = packed["w_out"].dtype
     if wd == torch.float32:
         variant = "fused_sdf_raw_f32"
     elif wd == torch.bfloat16:
         variant = "fused_sdf_raw_bf16"
     else:
         raise ValueError(f"packed weights of dtype {wd} are not supported")
-    hidden = packed["w_in"].shape[1]
+    hidden = packed["b_in"].shape[0]
     if hidden != KERNEL_HIDDEN:
         raise ValueError(f"the CUDA kernel is compiled for hidden={KERNEL_HIDDEN}; "
                          f"got hidden={hidden}")
@@ -313,12 +370,13 @@ def _launch(x: torch.Tensor, packed: Dict[str, torch.Tensor],
     dev = x.device
     if x.dtype != torch.float32 or not x.is_contiguous():
         raise ValueError("x_embedded must be a contiguous float32 (N, d_in) tensor")
-    _check(packed["w_in"], "w_in", (d_in, hidden), wd, dev)
-    _check(packed["b_in"], "b_in", (hidden,), torch.float32, dev)
-    _check(packed["w_mid"], "w_mid", (N_MID, hidden, hidden), wd, dev)
-    _check(packed["b_mid"], "b_mid", (N_MID, hidden), torch.float32, dev)
-    _check(packed["w_out"], "w_out", (hidden,), wd, dev)
-    _check(packed["b_out"], "b_out", (1,), torch.float32, dev)
+    shapes = {"w_in": (d_in, hidden), "b_in": (hidden,), "w_mid": (N_MID, hidden, hidden),
+              "b_mid": (N_MID, hidden), "w_out": (hidden,), "b_out": (1,),
+              "w_img": ((k0 + N_MID * hidden) // 8, hidden // 8, 8, 8)}
+    for k in POINTERS[variant]:
+        if k not in packed:
+            raise ValueError(f"{variant} takes packed[{k!r}] (pack_params on the device)")
+        _check(packed[k], k, shapes[k], wd if k.startswith("w") else torch.float32, dev)
     if cluster is not None and cluster not in cluster_sizes(variant):
         raise ValueError(f"{variant}: cluster must be one of {cluster_sizes(variant)}; "
                          f"got {cluster}")
@@ -326,12 +384,12 @@ def _launch(x: torch.Tensor, packed: Dict[str, torch.Tensor],
     if n == 0:
         return out
     lib = load_library()
-    pointers = [packed[k].data_ptr() for k in ("w_in", "b_in", "w_mid", "b_mid", "w_out",
-                                               "b_out")]
+    pointers = [packed[k].data_ptr() for k in POINTERS[variant]]
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         if cluster is None:
-            cluster = cluster_size(n, cluster_slots(variant, k0, dev), WAVE_MS[variant])
+            cluster = cluster_size(n, cluster_slots(variant, k0, dev), WAVE_MS[variant],
+                                   TILES[variant])
         err = getattr(lib, variant)(x.data_ptr(), n, d_in, k0, cluster, *pointers,
                                     out.data_ptr(), stream)
     if err != 0:

@@ -13,12 +13,17 @@ with one constant of the variant's kernel changed, or one part taken out, by
 a text substitution inside its namespace, ``f32`` or ``bf16k``; see
 ``VARIANTS``) into ``build/bench_<dtype>/`` (one ``nvcc`` each, all started
 together; a version other than the current one that fails to build is
-reported and left out).  A source whose C interface for the variant has no
-cluster argument (a kernel before clusters) is called as it is, with one
-CTA a tile; a source with one is called at every cluster size its
-occupancy query takes and at the size that query and
-``fused_mlp.cluster_size`` choose ("auto"), with the variant's ``WAVE_MS``
-(an ``--other`` source's: ``--other-wave-ms``, by C).  First, with
+reported and left out).  Each version's C interface is read from its
+source: a version whose entry for the variant has no cluster argument (a
+kernel before clusters) is called as it is, with one CTA a 64-point tile;
+one with a cluster argument is called at every cluster size its occupancy
+query takes and at the size that query and ``fused_mlp.cluster_size``
+choose ("auto"), with the variant's ``WAVE_MS`` (an ``--other`` source's:
+``--other-wave-ms``, by C).  The current source and its variants run each C
+on the tile of ``fused_mlp.TILES``, an ``--other`` source (the port's
+kernels before the bf16 kernel's 128-point tiles) on 64-point tiles.  The
+weights go to each entry in the order its parameters name them (``w_img``,
+the bf16 kernel's weight stream, or ``w_in`` and ``w_mid``).  First, with
 ``--errors-d-in``, every version's error against the plain twin at each of
 those first-layer widths (``chip_smoke.CHECK_D_IN``, input weights spread)
 at ``--errors-n``, untimed.  Then on the flagship's SDF network (d_in 59,
@@ -33,8 +38,8 @@ random weights from seed 0) and seeded points at each N:
     current, others), beside the cuBLAS chain and the plain twin.
 
 Then each clustered version's ``wave_ms``: the time of a call of exactly one
-full wave of clusters of C (slots[C] / C tiles), and of four waves over
-four, in two passes.  Prints the card's name and power limit, each
+full wave of clusters of C (slots[C] / C tiles of its tile at C), and of
+four waves over four, in two passes.  Prints the card's name and power limit, each
 version's registers and spills from ``-Xptxas -v``, the current source's
 slots per (K0, C), and one JSON line per (version, C, N).  Needs one CUDA
 card; imports nothing of JAX.
@@ -70,19 +75,18 @@ from hashmodnffbanks_idr_tpu_torch.utils.profiling import (  # noqa: E402
 # and its mangled kernel name, its tolerance against the plain twin, the
 # peak and products per product of its bound, and its calls: the camera
 # step's (256 rays), the secant (2048), the march and line search (4096),
-# the exact sweep's coarse and fine probes (24576, 49152), the ngp cells'
-# and the mixed sweep's coarse probes (69632)
+# the exact sweep's coarse and fine probes (24576, 49152; in bf16 the fast
+# sweep's, 49152), the ngp cells' and the mixed sweep's coarse probes (69632)
 DTYPES = {"f32": dict(name="fused_sdf_raw_f32", namespace="f32", dtype=torch.float32,
                       mangled="3f3216fused_sdf_kernel", tol=1e-5, peak="tf32", products=3,
                       sizes=(256, 2048, 4096, 24576, 49152, 69632)),
           "bf16": dict(name="fused_sdf_raw_bf16", namespace="bf16k", dtype=torch.bfloat16,
                        mangled="5bf16k16fused_sdf_kernel", tol=3e-2, peak="bf16", products=1,
-                       sizes=(256, 2048, 4096, 69632))}
+                       sizes=(256, 2048, 4096, 24576, 49152, 69632))}
 D_IN = 59  # the flagship's first-layer width: K0 = 64
 # variants of the current source, by weight type: (pattern, replacement)
 # pairs applied inside the variant's namespace, every pattern must match.
-# The constants of the cluster split and the ring keep the math; the others
-# take a part out and are for timing only
+# Each takes a part out and is for timing only
 F32_VARIANTS = {
     # timing only: no weight copies (the products read stale weights)
     "no_copy": [(r"cp_async16\(dst \+ 16 \* r, valid \? src \+ r \* HIDDEN : W, valid\);", ";")],
@@ -103,42 +107,22 @@ F32_VARIANTS = {
 # the bf16 kernel's parts, each taken out by itself (timing only)
 _BF16_PARTS = {
     # bias and rounding stay; softplus becomes the identity
-    "softplus": [(r"softplus100\((acc\[mi\]\[ni\]\[2 \* half(?: \+ 1)?\] \+ b\.[xy])\)",
-                  r"(\1)")],
-    # fragments come from the address registers instead of ldmatrix
-    "ldmatrix": [(r'asm volatile\("ldmatrix\.sync\.aligned\.m8n8\.x4\.shared\.b16.*?\);',
-                  "r[0] = r[1] = r[2] = r[3] = addr;"),
-                 (r'asm volatile\("ldmatrix\.sync\.aligned\.m8n8\.x4\.trans\.shared\.b16.*?\);',
-                  "r0 = r1 = r2 = r3 = addr;")],
-    # the ring is never filled
-    "weight_copy": [(r"cp_async16\(dst \+ r \* S::LDW, .*?\);", ";")],
+    "softplus": [(r"softplus100\((acc\[i\]\[2 \* half(?: \+ 1)?\] \+ b\.[xy])\)", r"(\1)")],
+    # the ring is never filled: the producer's bulk copies are not issued and
+    # each `full` mbarrier expects no bytes
+    "weight_copy": [(r'"r"\(S::STAGE\)', '"r"(0)'),
+                    (r'asm volatile\(\s*"cp\.async\.bulk\.shared::cluster\.global.*?: "memory"\);',
+                     ";")],
 }
-_BF16_STAGES = r"static constexpr int STAGES = 2;"
 BF16_VARIANTS = {
-    # four ring stages at C = 2 and 4
-    "stages4": [(_BF16_STAGES, "static constexpr int STAGES = C == 1 ? 2 : 4;")],
-    # 32-row stages, four of them
-    "kc32": [(r"constexpr int KC = 64;", "constexpr int KC = 32;"),
-             (_BF16_STAGES, "static constexpr int STAGES = 4;")],
-    # sixteen warps a CTA at C = 1 and 2 (64 x 32 and 64 x 16 a warp)
-    "warps16": [(r"static constexpr int NT = 256;",
-                 "static constexpr int NT = C == 4 ? 256 : 512;")],
-    # two CTAs an SM at C = 4 (128 registers a thread)
-    "c4_two_ctas": [(r"__launch_bounds__\(Split<C>::NT, 1\)",
-                     "__launch_bounds__(Split<C>::NT, C == 4 ? 2 : 1)")],
     # timing only: no store into another CTA's tile
     "no_dsmem": [(r'asm volatile\("st\.shared::cluster\.v4\.b32.*?: "memory"\);', ";")],
-    # timing only: each mma.sync becomes one float add that reads its operands
-    "no_mma": [(r'asm\("mma\.sync.*?"r"\(b\[1\]\)\);',
-                "c[0] += __uint_as_float(a[0] ^ b[0]);")],
     "no_softplus": _BF16_PARTS["softplus"],
-    "no_ldmatrix": _BF16_PARTS["ldmatrix"],
     "no_weight_copy": _BF16_PARTS["weight_copy"],
     # timing only: the products, the barriers and the stores alone
-    "mma_only": sum(_BF16_PARTS.values(), []),
+    "wgmma_only": sum(_BF16_PARTS.values(), []),
 }
 VARIANTS = {"f32": F32_VARIANTS, "bf16": BF16_VARIANTS}
-KEEPS_MATH = ("stages4", "kc32", "warps16", "c4_two_ctas")
 
 
 def variant_source(src: str, namespace: str, subs) -> str:
@@ -193,32 +177,59 @@ def kernel_ptxas(log: str, mangled: str) -> dict:
     return out
 
 
-def bind(path: Path, name: str):
-    """The library's entry ``name`` and its occupancy query, or None where
-    the entry takes no cluster size."""
-    lib = ctypes.CDLL(str(path))
-    ptr, c_int = ctypes.c_void_p, ctypes.c_int
-    slots = getattr(lib, f"{name}_slots", None)
-    fn = getattr(lib, name)
-    fn.argtypes = [ptr, c_int, c_int, c_int] + ([c_int] if slots else []) + [ptr] * 8
-    fn.restype = c_int
-    if slots:
-        slots.argtypes = [c_int, c_int, ctypes.POINTER(c_int)]
-        slots.restype = c_int
-    return fn, slots
+def entry_params(source: str, name: str) -> list:
+    """The parameter names of the C entry ``name`` in a version's source."""
+    m = re.search(r'extern "C" int ' + name + r"\((.*?)\)\s*\{", source, flags=re.S)
+    if not m:
+        raise ValueError(f"no entry {name} in the source")
+    return [p.split()[-1].lstrip("*") for p in m.group(1).split(",")]
 
 
-def lib_slots(query, k0: int, sizes=fm.CLUSTER_SIZES) -> dict:
+class Entry:
+    """A version's entry for the variant, bound as its source declares it:
+    whether it takes a cluster size, and which tensors.  ``own``: a build
+    of the current source (or a variant of it), whose tile at each C is
+    ``fused_mlp.TILES``'s; another version's is 64 points."""
+
+    def __init__(self, path: Path, source: str, name: str, own: bool):
+        params = entry_params(source, name)
+        lib = ctypes.CDLL(str(path))
+        ptr, c_int = ctypes.c_void_p, ctypes.c_int
+        self.clustered, self.own = "cluster" in params, own
+        self.pointers = [p for p in params[1:] if p not in ("n", "d_in", "k0", "cluster", "out",
+                                                            "stream")]
+        ints = [c_int] if self.clustered else []
+        self.fn = getattr(lib, name)
+        self.fn.argtypes = [ptr, c_int, c_int, c_int] + ints + [ptr] * (len(self.pointers) + 2)
+        self.fn.restype = c_int
+        self.query = getattr(lib, f"{name}_slots", None) if self.clustered else None
+        if self.query:
+            self.query.argtypes = [c_int] + ints + [ctypes.POINTER(c_int)]
+            self.query.restype = c_int
+
+    def tile(self, spec_name: str, c) -> int:
+        return fm.TILES[spec_name][c] if self.own else 64
+
+
+def lib_slots(entry: Entry, spec_name: str, k0: int, sizes=fm.CLUSTER_SIZES) -> dict:
     """C -> the library's slots at depth k0 for each C of ``sizes`` that its
     occupancy query takes (a source need not compile every C)."""
     slots = {}
     for c in sizes:
         got = ctypes.c_int(0)
-        if query(k0, c, ctypes.byref(got)) == 0:
+        if entry.query(k0, c, ctypes.byref(got)) == 0:
             slots[c] = got.value
     if not slots:
         raise RuntimeError(f"occupancy query K0={k0}: no cluster size of {sizes} is taken")
     return slots
+
+
+def both_forms(packed: dict, d_in: int) -> dict:
+    """A pack that every version's entry can read: the bf16 kernel's stream
+    ``w_img`` where ``pack_params`` built it, and ``w_in``/``w_mid``
+    (contiguous) for a version that takes the layers' weights."""
+    layers = {k: v.contiguous() for k, v in fm.plain_pack(packed, d_in).items()}
+    return {**layers, **packed}
 
 
 def main() -> int:
@@ -265,22 +276,22 @@ def main() -> int:
     built = build_all(sources, out_dir)
     libs = {}
     for name, (path, log) in built.items():
-        libs[name] = bind(path, spec["name"])
-        print(json.dumps({"version": name, "clustered": libs[name][1] is not None,
+        libs[name] = Entry(path, Path(sources[name]).read_text(), spec["name"],
+                           own=name in ("current", *args.variant))
+        print(json.dumps({"version": name, "clustered": libs[name].clustered,
+                          "pointers": libs[name].pointers,
                           "ptxas": kernel_ptxas(log, spec["mangled"]),
                           "ptxas_warnings": sorted({ln.strip() for ln in log.splitlines()
                                                     if "arning" in ln})}))
     sizes = fm.cluster_sizes(spec["name"])
-    slots = {k0: lib_slots(libs["current"][1], k0, sizes) for k0 in fm.KERNEL_DEPTHS}
+    slots = {k0: lib_slots(libs["current"], spec["name"], k0, sizes) for k0 in fm.KERNEL_DEPTHS}
     print(json.dumps({"slots": slots}))
 
     net = IDRNetwork(flagship_conf(num_pixels=2048).get_config("model"), device=dev,
                      seed=0).implicit_network
     assert net.dims[0] == D_IN
     k0 = fm.kernel_depth(D_IN)
-    packed = fm.pack_params(net.lin, D_IN, net.dims[1], dtype=spec["dtype"])
-    pointers = [packed[k].data_ptr() for k in ("w_in", "b_in", "w_mid", "b_mid", "w_out",
-                                               "b_out")]
+    packed = both_forms(fm.pack_params(net.lin, D_IN, net.dims[1], dtype=spec["dtype"]), D_IN)
     stream = torch.cuda.current_stream(dev).cuda_stream
     gen = torch.Generator(device=dev).manual_seed(1)
     wave_ms = fm.WAVE_MS[spec["name"]]
@@ -290,32 +301,31 @@ def main() -> int:
     # (version, C) -> (entry, its slots, its WAVE_MS); C is "auto", one of
     # the sizes the version compiles, or None (no cluster interface)
     entries = {}
-    for name, (fn, query) in libs.items():
-        if query is None:
-            entries[(name, None)] = (fn, None, None)
+    for name, entry in libs.items():
+        if not entry.clustered:
+            entries[(name, None)] = (entry, None, None)
             continue
-        this_source = name in ("current", *args.variant)
-        own = lib_slots(query, k0, sizes if this_source else fm.CLUSTER_SIZES)
-        own_wave = wave_ms if this_source else other_wave_ms or wave_ms
+        own = lib_slots(entry, spec["name"], k0, sizes if entry.own else fm.CLUSTER_SIZES)
+        own_wave = wave_ms if entry.own else other_wave_ms or wave_ms
         own_wave = {c: v for c, v in own_wave.items() if c in own}
         for c in ("auto",) + tuple(own):
-            entries[(name, c)] = (fn, own, own_wave)
+            entries[(name, c)] = (entry, own, own_wave)
 
-    def launcher(key, x, out, ptrs=pointers):
-        (fn, own, own_wave), (n, d_in) = entries[key], x.shape
-        if key[1] is None:
-            extra = []
-        elif key[1] == "auto":
-            extra = [fm.cluster_size(n, own, own_wave)]
-        else:
-            extra = [key[1]]
+    def launcher(key, x, out, pk=packed):
+        (entry, own, own_wave), (n, d_in) = entries[key], x.shape
+        c = key[1]
+        if c == "auto":
+            c = fm.cluster_size(n, own, own_wave,
+                                {d: entry.tile(spec["name"], d) for d in own_wave})
+        extra = [] if c is None else [c]
+        ptrs = [pk[p].data_ptr() for p in entry.pointers]
 
         def call():
-            err = fn(x.data_ptr(), n, d_in, fm.kernel_depth(d_in), *extra, *ptrs,
-                     out.data_ptr(), stream)
+            err = entry.fn(x.data_ptr(), n, d_in, fm.kernel_depth(d_in), *extra, *ptrs,
+                           out.data_ptr(), stream)
             if err:
                 raise RuntimeError(f"{key}: launch failed: CUDA error {err}")
-        return call, (extra[0] if extra else 1)
+        return call, (c if c is not None else 1)
 
     # each version's error at other first-layer depths (the occupancy of
     # another K0 is that of K0 64: the depth changes only l0's chunk count)
@@ -326,9 +336,8 @@ def main() -> int:
             conf.put(key_, v)
         dnet = IDRNetwork(conf.get_config("model"), device=dev, seed=0).implicit_network
         spread_input_weights(dnet, torch.Generator(device=dev).manual_seed(d_in))
-        dpacked = fm.pack_params(dnet.lin, d_in, dnet.dims[1], dtype=spec["dtype"])
-        dptrs = [dpacked[k].data_ptr() for k in ("w_in", "b_in", "w_mid", "b_mid", "w_out",
-                                                 "b_out")]
+        dpacked = both_forms(fm.pack_params(dnet.lin, d_in, dnet.dims[1], dtype=spec["dtype"]),
+                             d_in)
         for n in args.errors_n:
             pts = (torch.rand(n, 3, generator=gen, device=dev) * 2 - 1) * 0.6
             with torch.no_grad():
@@ -337,7 +346,7 @@ def main() -> int:
             errs = {}
             for key in entries:
                 out = torch.full((n,), float("nan"), device=dev)
-                launcher(key, x, out, dptrs)[0]()
+                launcher(key, x, out, dpacked)[0]()
                 torch.cuda.synchronize()
                 errs[f"{key[0]},{key[1]}"] = float((out - want).abs().max())
             print(json.dumps({"d_in": d_in, "k0": fm.kernel_depth(d_in), "n": n,
@@ -381,14 +390,16 @@ def main() -> int:
             with torch.no_grad():
                 lib_ms.append(time_ms(lambda: library_chain(x, packed)))
                 plain_ms.append(time_ms(lambda: fm.fused_sdf_raw_plain(x, packed)))
-        flops, nbytes = sdf_mlp_cost(n, D_IN, net.dims[1], packed["w_in"].element_size())
+        flops, nbytes = sdf_mlp_cost(n, D_IN, net.dims[1], packed["w_out"].element_size())
         bound_ms = max(spec["products"] * flops / H100_PEAK_FLOPS[spec["peak"]],
                        nbytes / H100_PEAK_BYTES_PER_S) * 1e3
         for key in entries:
             err = float((outs[key] - want).abs().max())
             signs = bool((torch.sign(outs[key][big]) == torch.sign(want[big])).all())
-            rec = {"version": key[0], "cluster": key[1], "n": n, "launched_cluster": calls[key][1],
-                   "keeps_math": key[0] not in variants or key[0] in KEEPS_MATH,
+            launched = calls[key][1]
+            rec = {"version": key[0], "cluster": key[1], "n": n, "launched_cluster": launched,
+                   "launched_tile": entries[key][0].tile(spec["name"], launched),
+                   "keeps_math": key[0] not in variants,
                    "ms": ms[key], "library_ms": lib_ms, "plain_ms": plain_ms,
                    "bound_ms": bound_ms, "max_abs_err": err,
                    "within_tol": bool(err <= spec["tol"]) and not math.isnan(err) and signs,
@@ -397,13 +408,15 @@ def main() -> int:
             print(json.dumps(rec))
 
     # wave_ms: one full wave of clusters of C, and four waves over four
-    for name, (fn, own, _) in {k[0]: v for k, v in entries.items() if k[1] == "auto"}.items():
-        rec = {"version": name, "slots": own, "wave_ms": {}, "four_waves_ms_per_wave": {}}
+    for name, (entry, own, _) in {k[0]: v for k, v in entries.items() if k[1] == "auto"}.items():
+        rec = {"version": name, "slots": own,
+               "tiles": {c: entry.tile(spec["name"], c) for c in own},
+               "wave_ms": {}, "four_waves_ms_per_wave": {}}
         for c in own:
             if own[c] < c:
                 continue
             for waves, field in ((1, "wave_ms"), (4, "four_waves_ms_per_wave")):
-                n = waves * own[c] // c * fm.TILE
+                n = waves * own[c] // c * entry.tile(spec["name"], c)
                 x, out = embedded(n), torch.empty(n, device=dev)
                 call, _ = launcher((name, c), x, out)
                 rec[field][c] = [time_ms(call) / waves for _ in range(2)]

@@ -4,11 +4,12 @@ the checks that need no sanitizer.
 
 Each variant (f32, bf16) is launched at every compiled first-layer depth
 K0 (64, 128, 256, 512; d_in 59, 102, 198 and 510, the depths the encoders
-and NerfPos give, as ``chip_smoke.py`` holds them), at every cluster size
-C it compiles (f32: 2, 4; bf16: 1, 2, 4: the CTAs that share a tile
-through distributed shared memory),
-and at N = 1, 63, 64, 65 and 4113 (the 64-point tile's
-edges and a ragged last tile), from seeded points and an ``IDRNetwork``
+and NerfPos give, as ``chip_smoke.py`` holds them), at every configuration
+it compiles (the cluster size C, the CTAs that share a tile through
+distributed shared memory, and the tile's points: f32 64 at C = 2 and 4;
+bf16 64 at C = 1 and 128 at C = 4, ``fused_mlp.TILES``), and at N =
+1, 63, 64, 65, 127, 128, 129 and 4113 (the edges of both tiles and a
+ragged last tile), from seeded points and an ``IDRNetwork``
 whose first-layer and skip weights are spread as
 ``chip_smoke.spread_input_weights`` spreads them, so that every input
 column counts.
@@ -59,12 +60,12 @@ DEPTHS = {64: ("StyleModNFFB", {}),
           128: ("NerfPos", {"model.implicit_network.multires": 16}),
           256: ("NerfPos", {"model.implicit_network.multires": 32}),
           512: ("NerfPos", {"model.implicit_network.multires": 84})}
-NS = (1, 63, 64, 65, 4113)
+NS = (1, 63, 64, 65, 127, 128, 129, 4113)
 TOOLS = ("memcheck", "racecheck", "initcheck", "synccheck")
 VARIANTS = (("fused_sdf_raw_f32", torch.float32, 1e-5), ("fused_sdf_raw_bf16", torch.bfloat16, 3e-2))
 GUARD = 64
 REPEATS = 10
-TOOL_TIMEOUT = 300  # seconds a sanitizer tool may take over the 120 launches
+TOOL_TIMEOUT = 300  # seconds a sanitizer tool may take over the 128 launches
 
 
 def cases(dev):
@@ -97,13 +98,12 @@ def cases(dev):
 
 def launch(fm, x, packed, out, cluster):
     """One launch of the variant that ``packed`` selects at cluster size
-    ``cluster``, writing ``out``."""
+    ``cluster`` (on that configuration's tile), writing ``out``."""
     lib = fm.load_library()
     n, d_in = x.shape
-    pointers = [packed[k].data_ptr() for k in ("w_in", "b_in", "w_mid", "b_mid", "w_out",
-                                               "b_out")]
+    name = "fused_sdf_raw_f32" if packed["w_out"].dtype == torch.float32 else "fused_sdf_raw_bf16"
+    pointers = [packed[k].data_ptr() for k in fm.POINTERS[name]]
     stream = torch.cuda.current_stream().cuda_stream
-    name = "fused_sdf_raw_f32" if packed["w_in"].dtype == torch.float32 else "fused_sdf_raw_bf16"
     err = getattr(lib, name)(x.data_ptr(), n, d_in, fm.kernel_depth(d_in), cluster, *pointers,
                              out.data_ptr(), stream)
     if err:
@@ -112,17 +112,22 @@ def launch(fm, x, packed, out, cluster):
 
 def make_poison(fm, dev, dtype):
     """Inputs of the variant of weight type ``dtype`` that poison shared
-    memory: NaN points and NaN weights, two tiles an SM, whose tile and ring
-    fill every SM's shared memory with NaN at any cluster size."""
+    memory: NaN points and NaN weights (the bf16 kernel's as its weight
+    image), at least two CTAs an SM at every configuration, whose tile and
+    ring fill every SM's shared memory with NaN."""
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     d_in, hidden = 59, fm.KERNEL_HIDDEN
     nan = float("nan")
-    packed = {"w_in": torch.full((d_in, hidden), nan, device=dev, dtype=dtype),
-              "b_in": torch.full((hidden,), nan, device=dev),
-              "w_mid": torch.full((fm.N_MID, hidden, hidden), nan, device=dev, dtype=dtype),
+    w_in = torch.full((d_in, hidden), nan, device=dev, dtype=dtype)
+    w_mid = torch.full((fm.N_MID, hidden, hidden), nan, device=dev, dtype=dtype)
+    packed = {"b_in": torch.full((hidden,), nan, device=dev),
               "b_mid": torch.full((fm.N_MID, hidden), nan, device=dev),
               "w_out": torch.full((hidden,), nan, device=dev, dtype=dtype),
               "b_out": torch.full((1,), nan, device=dev)}
+    if dtype == torch.bfloat16:
+        packed["w_img"] = fm.stream_image(w_in, w_mid)
+    else:
+        packed.update(w_in=w_in, w_mid=w_mid)
     n = 2 * sms * 64
     return torch.full((n, d_in), nan, device=dev), packed, torch.empty(n, device=dev)
 

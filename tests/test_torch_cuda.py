@@ -28,14 +28,15 @@ NET_KW = dict(feature_vector_size=256, d_in=3, d_out=1, dims=[512] * 8,
 # GPU expf/log1pf and the summation order differ from the CPU's; bf16 operands
 TOL = {"f32": 1e-5, "bf16": 3e-2}
 DTYPE = {"f32": torch.float32, "bf16": torch.bfloat16}
-# each variant: the edges of its 64-point tile (csrc/fused_mlp.cu, f32::TM
-# and bf16k::TM) and the tracer's batch sizes up to its largest call (on
-# the H100 the rule runs the f32 kernel's 2048 and up on clusters of 2, the
-# bf16 kernel's 2048 and 4096 on clusters of 2 and 69632 on one CTA a tile)
+# each variant: the edges of its tiles (csrc/fused_mlp.cu, f32::TM, 64
+# points; bf16k::Split<C>::TM, 64 points at C = 1 and 128 at C = 4)
+# and the tracer's batch sizes up to its largest call (on the H100 the rule
+# runs the f32 kernel's 2048 and up on clusters of 2)
 F32_TILE = 64
-BF16_TILE = 64
+BF16_TILES = (64, 128)
 CHECK_N = {"f32": (1, F32_TILE - 1, F32_TILE, F32_TILE + 1, 513, 2048, 4096, 49152),
-           "bf16": (1, BF16_TILE - 1, BF16_TILE, BF16_TILE + 1, 513, 4096, 69632)}
+           "bf16": (1,) + tuple(n for t in BF16_TILES for n in (t - 1, t, t + 1))
+           + (513, 4096, 49152, 69632)}
 # the f32 kernel at every compiled depth and cluster size against its plain
 # twin at the main path's sizes (chip_smoke.py F32_HELD_N)
 F32_HELD_N = (256, 2048, 4096, 24576, 49152, 69632)
@@ -97,6 +98,24 @@ def test_cuda_wrapper_refuses_what_the_kernel_does_not_take(net):
             fm._launch(x, fm.pack_params(net.lin, 59, 512, dtype=dtype), cluster=3)
     with pytest.raises(ValueError):                             # f32: no C = 1
         fm._launch(x, packed, cluster=1)
+    bf16 = fm.pack_params(net.lin, 59, 512, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="cluster must be one of"):  # bf16: no C = 2
+        fm._launch(x, bf16, cluster=2)
+    with pytest.raises(ValueError, match="w_img"):              # bf16: no weight stream
+        fm._launch(x, {k: v for k, v in bf16.items() if k != "w_img"})
+
+
+def test_cuda_bf16_pack_holds_only_the_kernels_stream(net):
+    """On the card a bf16 pack holds the kernel's weight stream ``w_img``
+    and no ``w_in``/``w_mid`` beside it (no second copy of the weights a
+    step); read back (``plain_pack``), they are the layers' weights in
+    bf16."""
+    packed = fm.pack_params(net.lin, 59, 512, dtype=torch.bfloat16)
+    assert "w_img" in packed and not {"w_in", "w_mid"} & set(packed)
+    back = fm.plain_pack(packed, 59)
+    with torch.no_grad():
+        assert torch.equal(back["w_in"], net.lin[0].weight().T.bfloat16())
+        assert torch.equal(back["w_mid"][0], net.lin[1].weight().T.bfloat16())
 
 
 @pytest.mark.parametrize("cluster", [2, 4])
@@ -150,12 +169,13 @@ def test_cuda_f32_every_depth_and_cluster_at_the_main_paths_sizes(cuda_device, d
             assert torch.equal(out.view(torch.int32), got[sizes[0]].view(torch.int32)), (n, c)
 
 
-@pytest.mark.parametrize("cluster", [1, 2, 4])
+@pytest.mark.parametrize("cluster", [1, 4])
 def test_cuda_bf16_cluster_matches_c1_bit_for_bit(net, cluster):
-    """The bf16 kernel at each cluster size: within the bf16 tolerance of
-    the plain twin with the signs agreeing, and equal to the C = 1 launch
-    bit for bit (every column keeps its k order and its m16n8k16 grouping);
-    at the tile's edges and the variant's batch sizes."""
+    """The bf16 kernel at each configuration (a 64-point tile at C = 1, a
+    128-point tile at C = 4): within the bf16 tolerance of the plain
+    twin with the signs agreeing, and equal to the C = 1 launch bit for bit
+    (every column keeps its k order and its k16 grouping); at the tiles'
+    edges and the variant's batch sizes."""
     packed = fm.pack_params(net.lin, 59, 512, dtype=torch.bfloat16)
     for n in CHECK_N["bf16"]:
         x = _points(net, n, seed=n)
@@ -181,7 +201,7 @@ def _takes_the_rules_cluster_size(net, precision, sizes):
         fm.reset_launch_counts()
         fm.fused_sdf_raw(_points(net, n, seed=n), packed)
         torch.cuda.synchronize()
-        want = fm.cluster_size(n, slots, fm.WAVE_MS[name])
+        want = fm.cluster_size(n, slots, fm.WAVE_MS[name], fm.TILES[name])
         assert fm.launch_counts[name][f"cluster_{want}"] == 1, (n, want)
 
 
@@ -193,7 +213,7 @@ def test_cuda_f32_wrapper_takes_the_rules_cluster_size(net):
 
 def test_cuda_bf16_wrapper_takes_the_rules_cluster_size(net):
     """The same for the bf16 kernel, at its calls on the main path."""
-    _takes_the_rules_cluster_size(net, "bf16", (256, 2048, 4096, 69632))
+    _takes_the_rules_cluster_size(net, "bf16", (256, 2048, 4096, 24576, 49152, 69632))
 
 
 # every encoder's first-layer depth (chip_smoke.py CHECK_D_IN): the kernel

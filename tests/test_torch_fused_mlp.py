@@ -3,9 +3,10 @@ kernel in interpret mode, at the flagship width 512 and d_in 59.
 
 Tolerances as in tests/test_fused_mlp.py: f32 atol 2e-6; bf16 atol 3e-2
 plus sign agreement where |sdf| > 5e-2.  The f32 CUDA kernel's split-TF32
-arithmetic is emulated here and held to the same f32 tolerance.  The CUDA
-kernel itself is held against the plain twin by tests/test_torch_cuda.py
-(skipped without a card) and by chip_smoke.py.
+arithmetic and the bf16 kernel's accumulation on ``wgmma`` are emulated
+here and held to the same tolerances.  The CUDA kernel itself is held
+against the plain twin by tests/test_torch_cuda.py (skipped without a
+card) and by chip_smoke.py.
 """
 
 import re
@@ -100,14 +101,16 @@ def _dot_one_tf32(h, w):
 
 def _emulated_sdf(x, packed, dot):
     """fused_sdf_raw_plain with the eight matrix layers' products taken by
-    ``dot``; the last layer stays a float32 dot, as in the kernel."""
+    ``dot``; the last layer stays a float32 dot of the activations in the
+    weight type, as in the kernel."""
     skip_cols = packed["w_in"].shape[1] - x.shape[1]
     h = softplus(dot(x, packed["w_in"]) + packed["b_in"])
     for l in range(packed["w_mid"].shape[0]):
         h = softplus(dot(h, packed["w_mid"][l]) + packed["b_mid"][l])
         if l == fm.SKIP_AFTER_MID:
             h = torch.cat([h[:, :skip_cols], x], dim=1) * (1.0 / np.sqrt(2.0))
-    return h @ packed["w_out"] + packed["b_out"][0]
+    wd = packed["w_out"].dtype
+    return h.to(wd).float() @ packed["w_out"].float() + packed["b_out"][0]
 
 
 _PALLAS_F32 = {}
@@ -193,6 +196,99 @@ def test_one_tf32_product_misses_the_card_tolerance(nets):
     assert np.abs(_emulated_sdf(x, packed, _dot_one_tf32).numpy() - want).max() > 1e-5
 
 
+def _dot_bf16_k16_truncated(h, w):
+    """The bf16 kernel's product on ``wgmma``: both operands bf16, exact
+    products, each 16-deep k-step's sum added into the float accumulator
+    rounded toward zero (the tensor cores' truncating adds), in k order,
+    the first k-step setting it; no fold into a separately rounded sum."""
+    hb, wb = h.to(torch.bfloat16).double(), w.double()
+    pad = -hb.shape[1] % 16  # the kernel's zero rows past d_in
+    hb = torch.nn.functional.pad(hb, (0, pad))
+    wb = torch.nn.functional.pad(wb, (0, 0, 0, pad))
+    acc = torch.zeros(h.shape[0], w.shape[1], dtype=torch.float32)
+    for k0 in range(0, hb.shape[1], 16):
+        exact = acc.double() + hb[:, k0:k0 + 16] @ wb[k0:k0 + 16]
+        near = exact.float()
+        acc = torch.where(near.double().abs() > exact.abs(),
+                          torch.nextafter(near, torch.zeros_like(near)), near)
+    return acc
+
+
+_PALLAS_BF16 = {}
+
+
+@pytest.mark.parametrize("n", [1, 96, 513])
+def test_bf16_wgmma_accumulation_matches_pallas_kernel(nets, n):
+    """The bf16 CUDA kernel's arithmetic (bf16 operands, float accumulators
+    that the tensor cores add into with truncation, 16 k at a time, with no
+    fold), emulated in torch, holds the bf16 Pallas kernel's tolerance with
+    the signs agreeing: the truncating adds stay far below bf16 rounding."""
+    _, params, net = nets
+    if n not in _PALLAS_BF16:
+        jpacked = jfm.pack_params(params["lin"], 59, 512, dtype=jnp.bfloat16)
+        x = _inputs(n, seed=n)
+        _PALLAS_BF16[n] = (x, np.asarray(jfm.fused_sdf_raw(jnp.asarray(x), jpacked, 59, 512,
+                                                             interpret=True)))
+    x, want = _PALLAS_BF16[n]
+    packed = fm.pack_params(net.lin, 59, 512, dtype=torch.bfloat16)
+    got = _emulated_sdf(torch.from_numpy(x), packed, _dot_bf16_k16_truncated).numpy()
+    np.testing.assert_allclose(got, want, rtol=0, atol=3e-2)
+    big = np.abs(want) > 5e-2
+    assert (np.sign(got[big]) == np.sign(want[big])).all()
+
+
+@pytest.mark.parametrize("d_in", [9, 59, 102, 198, 510])
+def test_stream_image_lays_out_the_bf16_weight_stream(d_in):
+    """``pack_params`` gives the bf16 kernel its weight stream: l0's rows
+    zero-padded to the compiled depth K0, then l1..l7's, element (k, n) at
+    [k // 8, n // 8, k % 8, n % 8], so that a CTA's columns of an 8-row
+    group are one run of bytes; only in bf16 and at the kernel's width."""
+    rng = np.random.default_rng(d_in)
+    w_in = torch.from_numpy(rng.normal(size=(d_in, 512)).astype(np.float32)).bfloat16()
+    w_mid = torch.from_numpy(rng.normal(size=(fm.N_MID, 512, 512)).astype(np.float32)).bfloat16()
+    img = fm.stream_image(w_in, w_mid)
+    k0 = fm.kernel_depth(d_in)
+    assert img.shape == ((k0 + fm.N_MID * 512) // 8, 64, 8, 8) and img.is_contiguous()
+    stream = torch.cat([w_in, torch.zeros(k0 - d_in, 512, dtype=torch.bfloat16),
+                        w_mid.reshape(-1, 512)])
+    k = torch.from_numpy(rng.integers(0, stream.shape[0], 4000))
+    n = torch.from_numpy(rng.integers(0, 512, 4000))
+    assert torch.equal(img[k // 8, n // 8, k % 8, n % 8], stream[k, n])
+    # a CTA's columns [c0, c0 + cols) of 8-row group g: one contiguous run
+    flat = img.reshape(-1)
+    g, c0, cols = 3, 128, 256
+    run = flat[(g * 64 + c0 // 8) * 64:(g * 64 + (c0 + cols) // 8) * 64].view(cols // 8, 8, 8)
+    assert torch.equal(run, stream[8 * g:8 * g + 8, c0:c0 + cols].view(8, cols // 8, 8)
+                       .transpose(0, 1))
+
+
+def test_pack_params_adds_the_stream_only_for_the_bf16_kernel(nets):
+    """The stream is the bf16 kernel's, which runs only on the card: a pack
+    on the CPU, in either weight type, holds ``w_in`` and ``w_mid``, the
+    plain twin's form, and no ``w_img``."""
+    _, _, net = nets
+    for dtype in (torch.bfloat16, torch.float32):
+        packed = fm.pack_params(net.lin, 59, 512, dtype=dtype)
+        assert "w_img" not in packed and {"w_in", "w_mid"} <= set(packed)
+        assert packed["w_in"].dtype == packed["w_mid"].dtype == dtype
+
+
+def test_plain_twin_reads_the_bf16_stream(nets):
+    """A pack that holds only the bf16 kernel's stream (``w_img``, as
+    ``pack_params`` builds it on the card) gives back ``w_in`` and ``w_mid``
+    bit for bit (``plain_pack``), and the plain twin the same bits on it."""
+    _, _, net = nets
+    packed = fm.pack_params(net.lin, 59, 512, dtype=torch.bfloat16)
+    img = {k: v for k, v in packed.items() if k not in ("w_in", "w_mid")}
+    img["w_img"] = fm.stream_image(packed["w_in"], list(packed["w_mid"]))
+    back = fm.plain_pack(img, 59)
+    assert set(back) == set(packed)
+    for k in packed:
+        assert torch.equal(back[k], packed[k]), k
+    x = torch.from_numpy(_inputs(97, seed=5))
+    assert torch.equal(fm.fused_sdf_raw_plain(x, img), fm.fused_sdf_raw_plain(x, packed))
+
+
 def test_fast_sdf_f32_matches_exact_sdf(nets):
     """``make_fast_sdf('f32')`` (the exact tracer's fused path) is the same
     math as ``sdf``."""
@@ -218,23 +314,25 @@ def test_wrapper_refuses_gradients(nets):
         fm.fused_sdf_raw(x, packed)
 
 
-# the kernels' cluster size from N (ops/fused_mlp.py:cluster_size): the waves
-# of clusters of C times each C's measured wave time, per variant, over the
-# sizes the variant compiles (f32: 2 and 4; bf16: 1, 2 and 4).  132 slots:
-# an H100's 132 SMs, one CTA an SM at every cluster size; the card's own
-# slots, by its occupancy query, are 132 / 132 / 120 (its GPCs seat 30
+# the kernels' configuration from N (ops/fused_mlp.py:cluster_size): the
+# waves of clusters of C times each C's measured wave time, per variant, over
+# the configurations the variant compiles (f32: 64-point tiles at C = 2 and
+# 4; bf16: a 64-point tile at C = 1, a 128-point tile at C = 4).  132
+# slots: an H100's 132 SMs, one CTA an SM at every cluster size; the card's
+# own slots, by its occupancy query, are 132 / 132 / 120 (its GPCs seat 30
 # clusters of 4)
 SLOTS_132 = {1: 132, 2: 132, 4: 132}
 SLOTS_H100 = {1: 132, 2: 132, 4: 120}
 F32, BF16 = fm.WAVE_MS["fused_sdf_raw_f32"], fm.WAVE_MS["fused_sdf_raw_bf16"]
-# the bf16 kernel's C at the card's slots
-BF16_AT_H100 = [(256, 4), (2048, 2), (4096, 2), (69632, 1)]
+F32_TILES, BF16_TILES = fm.TILES["fused_sdf_raw_f32"], fm.TILES["fused_sdf_raw_bf16"]
+# the bf16 kernel's (tile, C) at the card's slots
+BF16_AT_H100 = [(256, (128, 4)), (2048, (128, 4)), (4096, (64, 1)), (24576, (64, 1)),
+                (49152, (64, 1)), (69632, (64, 1))]
 
 
-def _cost(n, slots, wave_ms, c):
+def _cost(n, slots, wave_ms, tiles, c):
     """The modelled time of n points on clusters of c, in exact decimals."""
-    tiles = -(-n // fm.TILE)
-    return -(-tiles * c // slots[c]) * Fraction(str(wave_ms[c]))
+    return -(-(-(-n // tiles[c])) * c // slots[c]) * Fraction(str(wave_ms[c]))
 
 
 def test_each_variant_compiles_its_cluster_sizes():
@@ -242,14 +340,39 @@ def test_each_variant_compiles_its_cluster_sizes():
     one CTA a tile could not keep in registers: its clusters are of 2 and 4,
     and the wrapper refuses a tile on one CTA before it reaches the card."""
     assert fm.cluster_sizes("fused_sdf_raw_f32") == (2, 4)
-    assert fm.cluster_sizes("fused_sdf_raw_bf16") == (1, 2, 4)
+    assert fm.cluster_sizes("fused_sdf_raw_bf16") == (1, 4)
     assert set(fm.CLUSTER_SIZES) == set(F32) | set(BF16)
+    assert set(F32) == set(F32_TILES) and set(BF16) == set(BF16_TILES)
     x = torch.zeros(8, 59)
     packed = {"w_in": torch.zeros(59, 512), "b_in": torch.zeros(512),
               "w_mid": torch.zeros(fm.N_MID, 512, 512), "b_mid": torch.zeros(fm.N_MID, 512),
               "w_out": torch.zeros(512), "b_out": torch.zeros(1)}
     with pytest.raises(ValueError, match="cluster must be one of"):
         fm._launch(x, packed, cluster=1)
+
+
+@pytest.mark.parametrize("dtype, cluster", [(torch.bfloat16, 2), (torch.bfloat16, 3),
+                                            (torch.bfloat16, 8), (torch.float32, 1),
+                                            (torch.float32, 8)])
+def test_wrapper_refuses_a_configuration_the_kernel_does_not_compile(dtype, cluster):
+    """The cluster size fixes the tile (``TILES``): the bf16 kernel compiles
+    a 64-point tile at C = 1 (two consumer warpgroups of 64 x 256
+    accumulators; a 128-point tile would need 256 registers a thread) and a
+    128-point tile at C = 4 (its (128, 2) never wins on the H100), the f32
+    kernel 64-point tiles at C = 2 and 4; the wrapper refuses any other C
+    before it reaches the card, the bf16 one on a pack of the card's form
+    (``w_img`` only)."""
+    assert BF16_TILES == {1: 64, 4: 128} and F32_TILES == {2: 64, 4: 64}
+    x = torch.zeros(8, 59)
+    w_in, w_mid = torch.zeros(59, 512, dtype=dtype), torch.zeros(fm.N_MID, 512, 512, dtype=dtype)
+    packed = {"b_in": torch.zeros(512), "b_mid": torch.zeros(fm.N_MID, 512),
+              "w_out": torch.zeros(512, dtype=dtype), "b_out": torch.zeros(1)}
+    if dtype == torch.bfloat16:
+        packed["w_img"] = fm.stream_image(w_in, w_mid)
+    else:
+        packed.update(w_in=w_in, w_mid=w_mid)
+    with pytest.raises(ValueError, match="cluster must be one of"):
+        fm._launch(x, packed, cluster=cluster)
 
 
 @pytest.mark.parametrize("n, want", [(2048, 4), (4096, 2), (256, 4), (1, 4), (24576, 2),
@@ -259,25 +382,28 @@ def test_cluster_size_at_132_slots(n, want):
     march's (4096) on clusters of 2 (two waves of 4 cost more than one of
     2), the camera step's (256) on 4, the exact sweep's probes (24576,
     49152) and the ngp cells' (69632) on clusters of 2."""
-    assert fm.cluster_size(n, SLOTS_132, F32) == want
+    assert fm.cluster_size(n, SLOTS_132, F32, F32_TILES) == want
 
 
 @pytest.mark.parametrize("n, want", BF16_AT_H100)
 def test_bf16_cluster_size_at_the_h100s_slots(n, want):
-    """The bf16 kernel on the card's slots: the camera step's calls (256),
-    the guided secant's (2048), the mixed march's (4096) and the mixed
-    sweep's coarse probes (69632)."""
-    assert fm.cluster_size(n, SLOTS_H100, BF16) == want
+    """The bf16 kernel's (tile, C) on the card's slots: the camera step's
+    calls (256), the guided secant's (2048), the mixed march's (4096), the
+    fast sweep's (24576, 49152) and the mixed sweep's coarse probes
+    (69632)."""
+    c = fm.cluster_size(n, SLOTS_H100, BF16, BF16_TILES)
+    assert (BF16_TILES[c], c) == want
 
 
 def test_f32_cluster_size_at_69632_weighs_the_wave_time():
     """The ngp cells' largest f32 call: 37 waves of clusters of 4 are 18.5
     two-CTA waves' worth against 17 waves of clusters of 2, and a wave of
     clusters of 4 takes more than half of one of 2: the rule takes C = 2."""
-    tiles = 69632 // fm.TILE
+    tiles = 69632 // F32_TILES[2]
     assert -(-tiles * 2 // 132) == 17 and -(-tiles * 4 // 120) == 37
     assert 2 * F32[4] > F32[2]
-    assert fm.cluster_size(69632, SLOTS_H100, F32) == fm.cluster_size(69632, SLOTS_132, F32) == 2
+    assert fm.cluster_size(69632, SLOTS_H100, F32, F32_TILES) == \
+        fm.cluster_size(69632, SLOTS_132, F32, F32_TILES) == 2
 
 
 @pytest.mark.parametrize("variant", sorted(fm.WAVE_MS))
@@ -289,12 +415,12 @@ def test_cluster_size_never_worse_than_one_cta_a_tile(slots, variant):
     more than that of the smallest C the variant compiles (one CTA a tile
     for bf16, clusters of 2 for f32), the smaller C on a tie, and no C that
     the card cannot seat."""
-    wave_ms = fm.WAVE_MS[variant]
+    wave_ms, tiles = fm.WAVE_MS[variant], fm.TILES[variant]
     smallest = fm.cluster_sizes(variant)[0]
     for n in range(1, 200_000, 89):
-        c = fm.cluster_size(n, slots, wave_ms)
+        c = fm.cluster_size(n, slots, wave_ms, tiles)
         assert slots[c] > 0 and c in wave_ms
-        cost = {d: _cost(n, slots, wave_ms, d) for d in wave_ms if slots[d] > 0}
+        cost = {d: _cost(n, slots, wave_ms, tiles, d) for d in wave_ms if slots[d] > 0}
         best = min(cost.values())
         assert cost[c] == best <= cost[smallest]
         assert all(cost[d] > best for d in cost if d < c)
@@ -304,5 +430,5 @@ def test_cluster_size_moves_to_two_with_fewer_slots_for_four():
     """Where the card seats fewer clusters of 4 than 132 / 4 (GPCs whose SM
     count is not a multiple of 4), the f32 kernel's N=2048 needs two waves
     of clusters of 4, which cost more than one wave of clusters of 2."""
-    assert fm.cluster_size(2048, SLOTS_H100, F32) == 2
-    assert fm.cluster_size(4096, SLOTS_H100, F32) == 2
+    assert fm.cluster_size(2048, SLOTS_H100, F32, F32_TILES) == 2
+    assert fm.cluster_size(4096, SLOTS_H100, F32, F32_TILES) == 2
