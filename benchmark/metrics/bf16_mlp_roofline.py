@@ -1,0 +1,21 @@
+"""``bf16_mlp_roofline``: the bf16 fused SDF-MLP kernel's least time for
+the points and launches it ran in the traced steps (``ops/fused_mlp.py``
+``launch_counts``; ``harness/flops.py``), over its device time in the trace
+(``bf16k::fused_sdf_kernel<...>``), in %."""
+
+from harness import flops
+
+KERNEL = r"\bbf16k::fused_sdf_kernel<"
+VARIANT = "fused_sdf_raw_bf16"
+
+
+def read(ctx):
+    t, c = ctx.traced, ctx.traced_counts
+    if t is None or c is None:
+        return None
+    device_s = t.kernel_seconds(KERNEL)
+    counts = c.launches.get(VARIANT, {})
+    if device_s <= 0 or not counts.get("points"):
+        return None
+    return 100.0 * flops.fused_mlp_bound_s("bf16", counts["points"], counts["launches"],
+                                           ctx.d_in) / device_s
