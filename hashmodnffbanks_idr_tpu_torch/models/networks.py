@@ -16,6 +16,7 @@ from torch import nn
 from ..ops import encodings as enc
 from ..ops import fused_mlp as fm
 from ..ops.linear import Linear, softplus
+from ..utils.profiling import span
 from .embedders import SHEmbedder, build_embedder
 
 
@@ -104,15 +105,16 @@ class ImplicitNetwork(nn.Module):
         fill of the pruned levels is ``fill``, or the table's level means)."""
         if self.embedder is None:
             return x
-        if (max_level is not None or floor_interp) and self.supports_level_pruning():
-            if max_level is not None and max_level >= self.embedder.spec.num_levels:
-                max_level = None
-            if max_level is not None and fill is None:
-                fill = self.embedder.level_fill()
-            return self.embedder(x, fast=fast, max_level=max_level,
-                                 fill=fill if max_level is not None else None,
-                                 floor_interp=floor_interp)
-        return self.embedder(x, fast=fast)
+        with span("encoder.points"):
+            if (max_level is not None or floor_interp) and self.supports_level_pruning():
+                if max_level is not None and max_level >= self.embedder.spec.num_levels:
+                    max_level = None
+                if max_level is not None and fill is None:
+                    fill = self.embedder.level_fill()
+                return self.embedder(x, fast=fast, max_level=max_level,
+                                     fill=fill if max_level is not None else None,
+                                     floor_interp=floor_interp)
+            return self.embedder(x, fast=fast)
 
     def _mlp(self, inp: torch.Tensor, bf16: bool) -> torch.Tensor:
         """The layer chain on the embedded input, unclamped."""
@@ -255,9 +257,11 @@ class RenderingNetwork(nn.Module):
 
     def forward(self, points, normals, view_dirs, feature_vectors):
         if self.nerf_multires:
-            view_dirs = enc.nerf_embed(view_dirs, self.nerf_multires)
+            with span("encoder.views"):
+                view_dirs = enc.nerf_embed(view_dirs, self.nerf_multires)
         elif self.view_embedder is not None:
-            view_dirs = self.view_embedder(view_dirs)
+            with span("encoder.views"):
+                view_dirs = self.view_embedder(view_dirs)
         if self.mode == "idr":
             h = torch.cat([points, view_dirs, normals, feature_vectors], dim=-1)
         elif self.mode == "no_view_dir":

@@ -32,6 +32,7 @@ import torch
 
 from ..geometry.cameras import get_sphere_intersection
 from ..utils.graphs import while_loop
+from ..utils.profiling import span, spanned
 
 
 class RayTracerConfig(NamedTuple):
@@ -149,19 +150,21 @@ def ray_trace(cfg: RayTracerConfig, sdf: Callable[[torch.Tensor], torch.Tensor],
     stride = sweep_stride(cfg, sdf_coarse is not None, cam_flat.device.type == "cuda")
     if draws is None:
         draws = sweep_draws(cfg, sdf_coarse is not None, generator, cam_flat)
-    if stride is None:
-        lin01 = torch.linspace(0.0, 1.0, n, dtype=cam_flat.dtype, device=cam_flat.device)
-        rand01 = _uniform(draws, "dense", n, cam_flat)
-        u = torch.where(sampler_mask[:, None], lin01[None, :], rand01[None, :])
-        pts_intervals = t0[:, None] + u * (t1 - t0)[:, None]
-        points = cam_flat[:, None, :] + pts_intervals[..., None] * dirs_flat[:, None, :]
-        sdf_val = sdf(points.reshape(-1, 3)).reshape(R, n)
-        idx_grid = torch.arange(n, dtype=torch.int64, device=cam_flat.device)[None, :].expand(R, n)
-        exact_mask = None
-    else:
-        idx_grid, pts_intervals, points, sdf_val, exact_mask = _hierarchical_sweep(
-            cfg, sdf, cam_flat, dirs_flat, sampler_mask, t0, t1, stride, draws,
-            sdf_coarse=sdf_coarse)
+    with span("sweep"):
+        if stride is None:
+            lin01 = torch.linspace(0.0, 1.0, n, dtype=cam_flat.dtype, device=cam_flat.device)
+            rand01 = _uniform(draws, "dense", n, cam_flat)
+            u = torch.where(sampler_mask[:, None], lin01[None, :], rand01[None, :])
+            pts_intervals = t0[:, None] + u * (t1 - t0)[:, None]
+            points = cam_flat[:, None, :] + pts_intervals[..., None] * dirs_flat[:, None, :]
+            sdf_val = sdf(points.reshape(-1, 3)).reshape(R, n)
+            idx_grid = torch.arange(n, dtype=torch.int64,
+                                    device=cam_flat.device)[None, :].expand(R, n)
+            exact_mask = None
+        else:
+            idx_grid, pts_intervals, points, sdf_val, exact_mask = _hierarchical_sweep(
+                cfg, sdf, cam_flat, dirs_flat, sampler_mask, t0, t1, stride, draws,
+                sdf_coarse=sdf_coarse)
 
     sampler_pts, sampler_net_obj_mask, sampler_dists = _ray_sampler(
         cfg, sdf, cam_flat, dirs_flat, object_mask, idx_grid, points, pts_intervals,
@@ -267,6 +270,7 @@ def _march(cfg, sdf, cam, dirs, mask_intersect, near, far, *, iters, threshold,
     def line_cond(st):
         return (st["not_ps"] | st["not_pe"]).any()
 
+    @spanned("line_search")
     def line_body(st, _):
         """A backstep of (1 - line_search_step) / 2**k for overshoot
         (ray_tracing.py:164-183), k the loop's counter on the device."""
@@ -280,6 +284,7 @@ def _march(cfg, sdf, cam, dirs, mask_intersect, near, far, *, iters, threshold,
         not_ps.copy_(st["next_s"] < 0)
         not_pe.copy_(st["next_e"] < 0)
 
+    @spanned("march")
     def march_body(st, _):
         st["acc_s"].add_(st["curr_s"])
         st["acc_e"].sub_(st["curr_e"])
@@ -400,8 +405,9 @@ def _ray_sampler(cfg, sdf, cam, dirs, object_mask, idx_grid, points, pts_interva
     secant_pts = (net_surface_pts & object_mask) if training else net_surface_pts
     secant_pts = secant_pts & sampler_mask
     sdf_low, z_low, _ = extract((ind - 1) % n)
-    z_pred = _secant(cfg, sdf, sdf_low, sdf_at_ind, z_low, t_at_ind, cam, dirs, secant_pts,
-                     sdf_guide=sdf_guide)
+    with span("secant"):
+        z_pred = _secant(cfg, sdf, sdf_low, sdf_at_ind, z_low, t_at_ind, cam, dirs, secant_pts,
+                         sdf_guide=sdf_guide)
 
     sampler_pts = torch.where(secant_pts[:, None], cam + z_pred[:, None] * dirs, sampler_pts)
     sampler_dists = torch.where(secant_pts, z_pred, sampler_dists)

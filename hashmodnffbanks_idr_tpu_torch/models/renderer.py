@@ -2,8 +2,9 @@
 
 Counterpart of ``hashmodnffbanks_idr_tpu/models/renderer.py``
 (impl..._renderer.py:225-329 of the reference): the tracer runs without
-gradient on the current parameters; the SDF is re-evaluated with gradient
-at the found points; one batched spatial gradient over
+gradient on the current parameters (the ``tracer`` span; what follows is
+the ``render`` span, ``utils/profiling.py``); the SDF is re-evaluated with
+gradient at the found points; one batched spatial gradient over
 ``[detached points, eikonal samples]`` gives both the detached surface
 normals for the sample network and the eikonal term; misses render white.
 
@@ -33,6 +34,7 @@ from torch import nn
 from .. import resolve_device
 from ..config.hocon import Config
 from ..geometry.cameras import get_camera_params
+from ..utils.profiling import span
 from .networks import ImplicitNetwork, RenderingNetwork
 from .ray_tracing import RayTracerConfig, ray_trace, sweep_draws
 from .sample_network import sample_network
@@ -145,7 +147,7 @@ class IDRNetwork(nn.Module):
         object_mask = inputs["object_mask"].reshape(-1).to(torch.bool)
         pose = inputs["pose"]
 
-        with torch.no_grad():
+        with torch.no_grad(), span("tracer"):
             ray_dirs, cam_loc = get_camera_params(inputs["uv"], pose, inputs["intrinsics"])
             B, P, _ = ray_dirs.shape
             R = B * P
@@ -156,48 +158,51 @@ class IDRNetwork(nn.Module):
             trace = ray_trace(self.ray_tracer, sdf, cam_loc, object_mask, ray_dirs,
                               generator=generator, training=training,
                               sdf_guidance=guidance, draws=draws)
-        if pose.requires_grad:
-            # trainable cameras: the differentiable rays (the same values) are
-            # built after the tracer, so that the graphed step's autograd graph
-            # starts past the tracer's loops
-            ray_dirs, cam_loc = get_camera_params(inputs["uv"], pose, inputs["intrinsics"])
-        network_object_mask = trace.network_object_mask
-        dists = trace.dists
+        with span("render"):
+            if pose.requires_grad:
+                # trainable cameras: the differentiable rays (the same values) are
+                # built after the tracer, so that the graphed step's autograd graph
+                # starts past the tracer's loops
+                ray_dirs, cam_loc = get_camera_params(inputs["uv"], pose, inputs["intrinsics"])
+            network_object_mask = trace.network_object_mask
+            dists = trace.dists
 
-        cam_flat = cam_loc[:, None, :].expand(B, P, 3).reshape(R, 3)
-        dirs_flat = ray_dirs.reshape(R, 3)
-        points = cam_flat + dists[:, None] * dirs_flat
+            cam_flat = cam_loc[:, None, :].expand(B, P, 3).reshape(R, 3)
+            dirs_flat = ray_dirs.reshape(R, 3)
+            points = cam_flat + dists[:, None] * dirs_flat
 
-        sdf_output = self.implicit_network(points)[:, 0:1]
+            sdf_output = self.implicit_network(points)[:, 0:1]
 
-        grad_theta = None
-        if training:
-            surface_mask = network_object_mask & object_mask
-            eik_points = torch.as_tensor(draws["eik"], dtype=points.dtype, device=points.device)
-            g = self.implicit_network.gradient(torch.cat([points.detach(), eik_points], dim=0))
-            surface_points_grad = g[:R].detach()
-            grad_theta = torch.cat([g[R:], g[:R]], dim=0)
-            differentiable_points = sample_network(
-                sdf_output, sdf_output.detach(), surface_points_grad, dists[:, None],
-                cam_flat, dirs_flat, valid_mask=surface_mask)
-        else:
-            surface_mask = network_object_mask
-            differentiable_points = points
+            grad_theta = None
+            if training:
+                surface_mask = network_object_mask & object_mask
+                eik_points = torch.as_tensor(draws["eik"], dtype=points.dtype,
+                                             device=points.device)
+                g = self.implicit_network.gradient(torch.cat([points.detach(), eik_points],
+                                                             dim=0))
+                surface_points_grad = g[:R].detach()
+                grad_theta = torch.cat([g[R:], g[:R]], dim=0)
+                differentiable_points = sample_network(
+                    sdf_output, sdf_output.detach(), surface_points_grad, dists[:, None],
+                    cam_flat, dirs_flat, valid_mask=surface_mask)
+            else:
+                surface_mask = network_object_mask
+                differentiable_points = points
 
-        rgb_raw = self._get_rgb_value(differentiable_points, -dirs_flat)
-        rgb_values = torch.where(surface_mask[:, None], rgb_raw, torch.ones_like(rgb_raw))
+            rgb_raw = self._get_rgb_value(differentiable_points, -dirs_flat)
+            rgb_values = torch.where(surface_mask[:, None], rgb_raw, torch.ones_like(rgb_raw))
 
-        out = {
-            "points": points,
-            "rgb_values": rgb_values,
-            "sdf_output": sdf_output,
-            "network_object_mask": network_object_mask,
-            "object_mask": object_mask,
-            "dists": dists,
-        }
-        if training:
-            out["grad_theta"] = grad_theta
-        return out
+            out = {
+                "points": points,
+                "rgb_values": rgb_values,
+                "sdf_output": sdf_output,
+                "network_object_mask": network_object_mask,
+                "object_mask": object_mask,
+                "dists": dists,
+            }
+            if training:
+                out["grad_theta"] = grad_theta
+            return out
 
     def _get_rgb_value(self, points, view_dirs):
         """Normals from the SDF gradient feed the appearance net with the

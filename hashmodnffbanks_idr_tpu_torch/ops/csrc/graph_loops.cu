@@ -40,6 +40,8 @@
 
 #include <cuda_runtime.h>
 
+#include <vector>
+
 __global__ void set_while(cudaGraphConditionalHandle handle, const bool* pred,
                           const long long* counter, long long max_iters,
                           unsigned long long* total, int add) {
@@ -131,6 +133,29 @@ int gl_end_body(void* body, void** last, unsigned long long handle, const void* 
                 const void* counter, long long max_iters, void* total) {
   return add_set_while(static_cast<cudaGraph_t>(body), last, handle, pred, counter, max_iters,
                        total, 1);
+}
+
+// counts[0..3] <- the nodes of `graph`, a captured segment (flat: stream
+// capture records no child graphs), by type: kernel, memset, memcpy, and
+// any other (empty, event).
+int gl_count_nodes(void* graph, unsigned long long* counts) {
+  cudaGraph_t g = static_cast<cudaGraph_t>(graph);
+  size_t n = 0;
+  cudaError_t err = cudaGraphGetNodes(g, nullptr, &n);
+  if (err != cudaSuccess || n == 0) return err;
+  std::vector<cudaGraphNode_t> nodes(n);
+  err = cudaGraphGetNodes(g, nodes.data(), &n);
+  for (size_t i = 0; err == cudaSuccess && i < n; ++i) {
+    cudaGraphNodeType type;
+    err = cudaGraphNodeGetType(nodes[i], &type);
+    if (err == cudaSuccess) {
+      counts[type == cudaGraphNodeTypeKernel   ? 0
+             : type == cudaGraphNodeTypeMemset ? 1
+             : type == cudaGraphNodeTypeMemcpy ? 2
+                                               : 3] += 1;
+    }
+  }
+  return err;
 }
 
 int gl_instantiate(void** exec, void* graph) {

@@ -8,7 +8,9 @@ counter < max_iters`` and totals the iterations, and the host functions
 that assemble captured graphs into one executable graph.  ``Assembler`` is
 what ``utils/graphs.py`` builds a captured program with: a child-graph node
 per captured segment, a ``set_while`` node and a while-node per loop, a
-``set_while`` node closing each body.
+``set_while`` node closing each body; ``count_nodes`` counts a captured
+graph's nodes by type (``utils/graphs.py`` folds them a step with tracing
+on).
 
 The library is built with ``nvcc`` for ``sm_90a`` into the build cache
 (``utils/compile_cache.py``) on first use and loaded with ctypes.
@@ -34,6 +36,8 @@ _CSRC = Path(__file__).resolve().parent / "csrc" / "graph_loops.cu"
 # (``utils/graphs.py``): one before each while-node is entered and one at
 # the end of each body
 launch_counts: Dict[str, int] = {"set_while": 0}
+# what ``Assembler.count_nodes`` counts a captured graph's nodes by
+NODE_TYPES = ("kernel", "memset", "memcpy", "other")
 
 _lib = None
 
@@ -58,6 +62,7 @@ def load_library() -> ctypes.CDLL:
         "gl_add_child": [ptr, pptr, ptr],
         "gl_add_while": [ptr, pptr, ptr, ptr, c_ll, ptr, pptr, ctypes.POINTER(ctypes.c_ulonglong)],
         "gl_end_body": [ptr, pptr, ctypes.c_ulonglong, ptr, ptr, c_ll, ptr],
+        "gl_count_nodes": [ptr, ctypes.POINTER(ctypes.c_ulonglong)],
         "gl_instantiate": [pptr, ptr],
         "gl_launch": [ptr, ptr],
         "gl_destroy": [ptr, ptr],
@@ -147,3 +152,10 @@ class Assembler:
 
     def instantiate(self, root: _Body) -> Executable:
         return Executable(root, self.keep)
+
+    @staticmethod
+    def count_nodes(captured: "torch.cuda.CUDAGraph") -> Dict[str, int]:
+        """The nodes of a captured graph by type (``NODE_TYPES``)."""
+        counts = (ctypes.c_ulonglong * len(NODE_TYPES))()
+        _call("gl_count_nodes", ctypes.c_void_p(captured.raw_cuda_graph()), counts)
+        return dict(zip(NODE_TYPES, counts))

@@ -11,7 +11,9 @@ multi-host flags join the process group (``parallel/multihost.py:
 initialize``; every process runs this same command with its own
 ``--process_id``).  As the JAX CLI does, it then builds the runner without
 a mesh: each process trains the whole step on its own device, and rank 0
-alone writes the run directory.
+alone writes the run directory.  ``--trace_spans`` (the port's own) turns
+the step's spans on (``utils/profiling.py``): each epoch's scalars then hold
+``span_ms/<span>`` and ``launch_gap_ms``.
 """
 
 from __future__ import annotations
@@ -41,6 +43,9 @@ def main(argv=None):
     p.add_argument("--num_processes", type=int, default=None)
     p.add_argument("--process_id", type=int, default=None)
     p.add_argument("--seed", type=int, default=42)
+    p.add_argument("--trace_spans", action="store_true",
+                   help="time the step's layers on the device and log span_ms/<span> and "
+                        "launch_gap_ms an epoch")
     args = p.parse_args(argv)
 
     from ..parallel import multihost
@@ -64,6 +69,7 @@ def main(argv=None):
         seed=args.seed,
         log_tensorboard=not args.no_tensorboard,
         device=args.platform,
+        trace_spans=args.trace_spans,
     )
     runner.run()
     return runner

@@ -30,6 +30,7 @@ step on every rank; rank 0 alone writes the run directory.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import time
@@ -46,7 +47,7 @@ from ..data.scene_dataset import SceneDataset, rgb_to_pm1
 from ..models.loss import IDRLossConfig, idr_loss
 from ..models.renderer import IDRNetwork
 from ..ops import fused_mlp as fm
-from ..utils import graphs
+from ..utils import graphs, profiling
 from ..utils.compile_cache import build_once, enable_compile_cache
 from ..utils.logging import ScalarLogger
 from ..utils.sampling import sample_pixels
@@ -173,18 +174,19 @@ def loss_fn(model: IDRNetwork, loss_cfg: IDRLossConfig, scene: Dict[str, torch.T
         "object_mask": mask,
     }
     outputs = model(inputs, generator=generator, training=True, draws=draws)
-    if n_rays is None:
-        losses = idr_loss(loss_cfg, outputs, rgb_gt, alpha)
-    else:  # the eikonal rows: R // 2 samples and every traced point
-        losses = idr_loss(loss_cfg, outputs, rgb_gt, alpha, n_rays=n_rays,
-                          n_eik=n_rays // 2 + n_rays)
-    if loss_cfg.tv_weight > 0.0:
-        tv = model.implicit_network.tv_loss(outputs["points"].detach())
-        if tv is not None:
-            if n_rays is not None:  # a mean over this rank's points
-                tv = tv * (outputs["points"].shape[0] / n_rays)
-            losses["tv_loss"] = tv
-            losses["loss"] = losses["loss"] + loss_cfg.tv_weight * tv
+    with profiling.span("render"):
+        if n_rays is None:
+            losses = idr_loss(loss_cfg, outputs, rgb_gt, alpha)
+        else:  # the eikonal rows: R // 2 samples and every traced point
+            losses = idr_loss(loss_cfg, outputs, rgb_gt, alpha, n_rays=n_rays,
+                              n_eik=n_rays // 2 + n_rays)
+        if loss_cfg.tv_weight > 0.0:
+            tv = model.implicit_network.tv_loss(outputs["points"].detach())
+            if tv is not None:
+                if n_rays is not None:  # a mean over this rank's points
+                    tv = tv * (outputs["points"].shape[0] / n_rays)
+                losses["tv_loss"] = tv
+                losses["loss"] = losses["loss"] + loss_cfg.tv_weight * tv
     return losses
 
 
@@ -225,17 +227,20 @@ def build_train_step(model: IDRNetwork, loss_cfg: IDRLossConfig,
                                 capture=on_cuda)
 
     def step(scene, img_idx, pixel_idx, generator, alpha, draws=None):
-        optimizer.zero_grad(set_to_none=True)
-        if pose_vecs is not None:
-            pose_vecs.grad = None
-        losses = loss_fn(model, loss_cfg, scene, img_idx, pixel_idx, generator, alpha,
-                         draws=draws, pose_vecs=pose_vecs)
-        losses["loss"].backward()
-        g_norm = clip_by_global_norm(params, MAX_GRAD_NORM)
-        if update_is_finite(step, g_norm, pose_vecs, losses):
-            optimizer.step()
+        with profiling.span("step"):
+            optimizer.zero_grad(set_to_none=True)
             if pose_vecs is not None:
-                sparse_adam_update(pose_vecs, pose_vecs.grad, cam_opt, img_idx, lr_cam)
+                pose_vecs.grad = None
+            losses = loss_fn(model, loss_cfg, scene, img_idx, pixel_idx, generator, alpha,
+                             draws=draws, pose_vecs=pose_vecs)
+            with profiling.span("backward"):
+                losses["loss"].backward()
+            with profiling.span("update"):
+                g_norm = clip_by_global_norm(params, MAX_GRAD_NORM)
+                if update_is_finite(step, g_norm, pose_vecs, losses):
+                    optimizer.step()
+                    if pose_vecs is not None:
+                        sparse_adam_update(pose_vecs, pose_vecs.grad, cam_opt, img_idx, lr_cam)
         return {k: v.detach() for k, v in losses.items()}
 
     step.skipped = 0
@@ -256,6 +261,14 @@ def init_adam_state(optimizer: torch.optim.Adam, p: torch.Tensor) -> None:
     state["exp_avg_sq"] = torch.zeros_like(p, memory_format=torch.preserve_format)
     if group.get("amsgrad"):
         state["max_exp_avg_sq"] = torch.zeros_like(p, memory_format=torch.preserve_format)
+
+
+def _host_range(name: str):
+    """A ``torch.profiler`` range named ``name`` with tracing on, else
+    nothing."""
+    if profiling.tracing():
+        return torch.profiler.record_function(name)
+    return contextlib.nullcontext()
 
 
 class GraphedTrainStep:
@@ -289,7 +302,13 @@ class GraphedTrainStep:
       no eager fallback.
 
     ``captures`` counts the captures and ``capture_s`` holds the last one's
-    host seconds (warm-up, capture, assembly and instantiation)."""
+    host seconds (warm-up, capture, assembly and instantiation).
+
+    With tracing on (``utils/profiling.py:set_tracing``; switching it makes
+    the next call capture again) the graph holds the step's spans, and a
+    call records the host ranges ``step.inputs`` (the signature and the
+    inputs' copies), ``step.launch`` and ``step.outputs`` (the signature
+    kept and the losses' copies) for ``torch.profiler``."""
 
     def __init__(self, model: IDRNetwork, loss_cfg: IDRLossConfig,
                  optimizer: torch.optim.Optimizer, pose_vecs: Optional[torch.Tensor],
@@ -328,17 +347,20 @@ class GraphedTrainStep:
         if draws is None:
             draws = self.model.draw_uniforms(generator, img_idx.shape[0] * pixel_idx.shape[0],
                                              self.device)
-        if self._signature(scene, img_idx, pixel_idx, draws) != self._key:
-            self._setup(scene, img_idx, pixel_idx, draws)
-        self._fill(img_idx, pixel_idx, alpha, draws)
+        with _host_range("step.inputs"):
+            if self._signature(scene, img_idx, pixel_idx, draws) != self._key:
+                self._setup(scene, img_idx, pixel_idx, draws)
+            self._fill(img_idx, pixel_idx, alpha, draws)
         if self.capture:
             if self.program is None:
                 self._capture()
-            self.program.replay()
+            with _host_range("step.launch"):
+                self.program.replay()
         else:
             self._run()
-        self._key = self._signature(scene, img_idx, pixel_idx, draws)
-        return {k: v.clone() for k, v in self._losses.items()}
+        with _host_range("step.outputs"):
+            self._key = self._signature(scene, img_idx, pixel_idx, draws)
+            return {k: v.clone() for k, v in self._losses.items()}
 
     def _signature(self, scene, img_idx, pixel_idx, draws):
         """What the captured graphs hold by address or shape."""
@@ -350,7 +372,8 @@ class GraphedTrainStep:
             tensors += [self.pose_vecs] + list(self.cam_opt.values())
         return (tuple((t.data_ptr(), tuple(t.shape)) for t in tensors),
                 tuple(img_idx.shape), tuple(pixel_idx.shape),
-                tuple((k, tuple(v.shape)) for k, v in sorted(draws.items())))
+                tuple((k, tuple(v.shape)) for k, v in sorted(draws.items())),
+                profiling.tracing())
 
     def _setup(self, scene, img_idx, pixel_idx, draws) -> None:
         """Static input buffers; the old program, if any, is dropped (what
@@ -389,7 +412,8 @@ class GraphedTrainStep:
         losses = loss_fn(self.model, self.loss_cfg, self.scene, inp["img_idx"],
                          inp["pixel_idx"], None, inp["alpha"], draws=inp["draws"],
                          pose_vecs=self.pose_vecs)
-        losses["loss"].backward()
+        with profiling.span("backward"):
+            losses["loss"].backward()
         return losses
 
     def _update_tensors(self) -> List[torch.Tensor]:
@@ -406,25 +430,26 @@ class GraphedTrainStep:
 
     def _run(self) -> None:
         """The step's program: forward, backward, clip, the masked update."""
-        losses = self._forward_backward()
-        with torch.no_grad():
-            g_norm = clip_by_global_norm(self.params, MAX_GRAD_NORM)
-            ok = torch.isfinite(g_norm)
-            if self.pose_vecs is not None and self.pose_vecs.grad is not None:
-                ok = ok & torch.isfinite(self.pose_vecs.grad).all()
-            written = self._update_tensors()
-            saved = [t.clone() for t in written]
-            self.optimizer.step()
-            if self.pose_vecs is not None:
-                sparse_adam_update(self.pose_vecs, self.pose_vecs.grad, self.cam_opt,
-                                   self._inputs["img_idx"], self.lr_cam)
-            for t, old in zip(written, saved):
-                t.copy_(torch.where(ok, t, old))
-            self._skipped.add_(~ok)
-            terms = torch.stack([v.detach() for v in losses.values()])
-            if self._skip_terms is None:
-                self._skip_terms = torch.full_like(terms, float("nan"))
-            self._skip_terms.copy_(torch.where(ok, self._skip_terms, terms))
+        with profiling.span("step"):
+            losses = self._forward_backward()
+            with torch.no_grad(), profiling.span("update"):
+                g_norm = clip_by_global_norm(self.params, MAX_GRAD_NORM)
+                ok = torch.isfinite(g_norm)
+                if self.pose_vecs is not None and self.pose_vecs.grad is not None:
+                    ok = ok & torch.isfinite(self.pose_vecs.grad).all()
+                written = self._update_tensors()
+                saved = [t.clone() for t in written]
+                self.optimizer.step()
+                if self.pose_vecs is not None:
+                    sparse_adam_update(self.pose_vecs, self.pose_vecs.grad, self.cam_opt,
+                                       self._inputs["img_idx"], self.lr_cam)
+                for t, old in zip(written, saved):
+                    t.copy_(torch.where(ok, t, old))
+                self._skipped.add_(~ok)
+                terms = torch.stack([v.detach() for v in losses.values()])
+                if self._skip_terms is None:
+                    self._skip_terms = torch.full_like(terms, float("nan"))
+                self._skip_terms.copy_(torch.where(ok, self._skip_terms, terms))
         self._losses = {k: v.detach() for k, v in losses.items()}
 
     def _capture(self) -> None:
@@ -588,7 +613,12 @@ class IDRTrainRunner:
     group of more than one rank, rank 0 builds the CUDA kernel first
     (``utils/compile_cache.py:build_once``) and alone writes the run
     directory, checkpoints, scalars and plots; a checkpoint holds the
-    tables' Adam moments whole, so it resumes with or without a mesh."""
+    tables' Adam moments whole, so it resumes with or without a mesh.
+
+    With ``trace_spans`` the step's spans are on (``utils/profiling.py``)
+    and each epoch logs ``span_ms/<span>`` (ms a step) and
+    ``launch_gap_ms`` (the card's mean wait between one step's work and the
+    next), folded at the epoch's one host read."""
 
     def __init__(
         self,
@@ -607,8 +637,12 @@ class IDRTrainRunner:
         log_tensorboard: bool = True,
         device=None,
         mesh=None,
+        trace_spans: bool = False,
     ):
         self.device = resolve_device(device)
+        self.trace_spans = trace_spans
+        if trace_spans:
+            profiling.set_tracing(True, self.device)
         self.conf = parse_file(conf) if isinstance(conf, str) else conf
         self.batch_size = batch_size
         self.nepochs = nepochs
@@ -766,6 +800,7 @@ class IDRTrainRunner:
             pixel_idx = sample_pixels(self.generator, self.total_pixels, self.num_pixels)
             order = torch.randperm(self.n_images, generator=self.order_generator).to(self.device)
             launched = fm.snapshot_launch_counts()
+            spans_before = profiling.snapshot_spans() if self.trace_spans else None
 
             t0 = time.perf_counter()
             for i in range(self.steps_per_epoch):
@@ -788,10 +823,11 @@ class IDRTrainRunner:
             # folded in here, one host read an epoch
             kernel_launches = {f"{k}_launches": c["launches"]
                                for k, c in fm.launch_counts_since(launched).items()}
+            spans = self._span_scalars(spans_before) if self.trace_spans else {}
             if not self.is_writer:
                 continue
             self.logger.log(epoch, rays_per_s=rays_per_s, alpha=alpha, **host_losses,
-                            skipped_steps=skipped_steps, **kernel_launches)
+                            skipped_steps=skipped_steps, **kernel_launches, **spans)
             if epoch % 10 == 0:
                 print(f"[{epoch}] loss={host_losses['loss']:.5f} "
                       f"rgb={host_losses['rgb_loss']:.5f} "
@@ -801,6 +837,17 @@ class IDRTrainRunner:
         self._save(self.nepochs)
         if self.is_writer:
             self.logger.close()
+
+    def _span_scalars(self, before: Dict[str, Dict[str, int]]) -> Dict[str, float]:
+        """Each span's ms a step, and the mean wait between steps, since
+        ``before`` (``profiling.snapshot_spans``; the epoch's fold is made)."""
+        now = profiling.snapshot_spans()
+        out = {f"span_ms/{k}": (now[k]["ns"] - before[k]["ns"]) / self.steps_per_epoch / 1e6
+               for k in profiling.SPANS}
+        gaps = now["between_steps"]["count"] - before["between_steps"]["count"]
+        out["launch_gap_ms"] = ((now["between_steps"]["ns"] - before["between_steps"]["ns"])
+                                / max(gaps, 1) / 1e6)
+        return out
 
     def _plot(self, epoch: int):
         """Per-plot-epoch artifacts (idr_train.py:231-273 role; JAX

@@ -40,6 +40,13 @@ with one host read, before ``fused_mlp``'s counts are read.
 ``loop_iterations`` holds the iterations by loop (its body's name): the
 eager loop counts them on the host, a program's are folded in from the
 device totals.
+
+With tracing on (``utils/profiling.py:set_tracing``) the same read folds
+the spans' device totals, and a program instantiated then counts each
+captured segment's nodes by type (the span stamps left out) and its
+``set_while`` nodes; ``node_counts`` holds the nodes run, folded as the
+launches are: a launch adds its top-level segments' nodes, a loop's
+iterations its body's.
 """
 
 from __future__ import annotations
@@ -53,6 +60,7 @@ import torch
 
 from ..ops import fused_mlp as fm
 from ..ops import graph_loops
+from . import profiling
 
 _recorder: Optional["_Recorder"] = None
 _side_streams: Dict[int, "torch.cuda.Stream"] = {}
@@ -60,6 +68,8 @@ _side_streams: Dict[int, "torch.cuda.Stream"] = {}
 _programs: "weakref.WeakSet[Program]" = weakref.WeakSet()
 # iterations of each loop, by its body's name
 loop_iterations: Dict[str, int] = {}
+# nodes the instantiated programs ran, by type (counted with tracing on)
+node_counts: Dict[str, int] = {k: 0 for k in graph_loops.NODE_TYPES}
 
 
 def side_stream(device: torch.device) -> "torch.cuda.Stream":
@@ -104,11 +114,15 @@ def while_loop(cond: Callable[[Dict[str, torch.Tensor]], torch.Tensor],
 
 
 class _Segment:
-    """One captured straight-line graph and the fused-kernel launches it
-    recorded."""
+    """One captured straight-line graph, the fused-kernel launches it
+    recorded and the span stamps among its kernel nodes; ``nodes``, its
+    nodes by type without the stamps, is set when a program is instantiated
+    with tracing on."""
 
-    def __init__(self, graph: "torch.cuda.CUDAGraph", launches: Dict[str, Dict[str, int]]):
-        self.graph, self.launches = graph, launches
+    def __init__(self, graph: "torch.cuda.CUDAGraph", launches: Dict[str, Dict[str, int]],
+                 stamps: int = 0):
+        self.graph, self.launches, self.stamps = graph, launches, stamps
+        self.nodes: Optional[Dict[str, int]] = None
 
 
 class _Loop:
@@ -117,7 +131,8 @@ class _Loop:
     cap, its body, and its iterations totalled on the device (``total``;
     ``folded`` of them already counted on the host); ``launched``, the
     fused-kernel launches of one iteration, is set when the program is
-    instantiated."""
+    instantiated, and ``nodes``, an iteration's nodes, when it is
+    instantiated with tracing on."""
 
     def __init__(self, name: str, pred: torch.Tensor, counter: torch.Tensor, max_iters: int,
                  body: "Program"):
@@ -125,6 +140,18 @@ class _Loop:
             name, pred, counter, max_iters, body)
         self.total = torch.zeros((), dtype=torch.int64, device=pred.device)
         self.folded = 0
+        self.nodes: Optional[Dict[str, int]] = None
+
+
+def _sum_nodes(program: "Program") -> Dict[str, int]:
+    """The nodes a run of ``program``'s own items adds (not the bodies of its
+    loops): its segments' nodes, and one ``set_while`` kernel node before
+    each of its loops."""
+    out = {k: 0 for k in graph_loops.NODE_TYPES}
+    for item in program.items:
+        for k, v in (item.nodes.items() if isinstance(item, _Segment) else [("kernel", 1)]):
+            out[k] += v
+    return out
 
 
 def _sum_launches(program: "Program") -> Dict[str, Dict[str, int]]:
@@ -147,6 +174,7 @@ class Program:
         self.items: List = []
         self.executable = None
         self.launches = 0
+        self._nodes: Optional[Dict[str, int]] = None
 
     def graphs(self) -> int:
         """The number of captured segments, loop bodies included."""
@@ -160,10 +188,27 @@ class Program:
                 out += [it] + it.body.loops()
         return out
 
+    def segments(self) -> List[_Segment]:
+        """Every captured segment, loop bodies' included."""
+        out = []
+        for it in self.items:
+            out += [it] if isinstance(it, _Segment) else it.body.segments()
+        return out
+
     def instantiate(self, assembler=None) -> None:
         """Assemble the program into one executable graph with
-        ``assembler`` (``ops.graph_loops.Assembler`` by default)."""
+        ``assembler`` (``ops.graph_loops.Assembler`` by default); with
+        tracing on, count its nodes first."""
         asm = graph_loops.Assembler() if assembler is None else assembler
+        if profiling.tracing():
+            for seg in self.segments():
+                seg.nodes = asm.count_nodes(seg.graph)
+                seg.nodes["kernel"] -= seg.stamps
+            self._nodes = _sum_nodes(self)
+            for lp in self.loops():
+                # an iteration: the body's nodes, and the set_while closing it
+                lp.nodes = _sum_nodes(lp.body)
+                lp.nodes["kernel"] += 1
 
         def add(body, program: Program) -> None:
             for it in program.items:
@@ -188,28 +233,46 @@ class Program:
         self.launches += 1
         fm.add_launch_counts(self._launched)
         graph_loops.launch_counts["set_while"] += sum(isinstance(it, _Loop) for it in self.items)
+        _add_nodes(self._nodes)
+
+
+def _add_nodes(nodes: Optional[Dict[str, int]], times: int = 1) -> None:
+    for k, v in (nodes or {}).items():
+        node_counts[k] += times * v
 
 
 def fold_device_counts() -> None:
     """Add what the instantiated programs' loops ran since the last fold to
-    the counts, reading every loop's device total in one host read: each
-    iteration of a loop counts its body's own segments' launches in
-    ``fused_mlp.launch_counts``, one in ``loop_iterations``, and its
-    ``set_while`` runs (its own, and one for each loop its body enters).
-    Nothing while a capture records."""
+    the counts, reading every loop's device total, and the spans' totals,
+    in one host read: each iteration of a loop counts its body's own
+    segments' launches in ``fused_mlp.launch_counts`` (and nodes in
+    ``node_counts``), one in ``loop_iterations``, and its ``set_while``
+    runs (its own, and one for each loop its body enters); the spans' go to
+    ``profiling.fold_totals``.  Nothing while a capture records."""
     if _recorder is not None:
         return
     loops = [lp for p in list(_programs) for lp in p.loops()]
-    if not loops:
+    spans = profiling.device_totals()
+    parts = ([torch.stack([lp.total for lp in loops])] if loops else []) + (
+        [spans] if spans is not None else [])
+    if not parts:
         return
-    totals = torch.stack([lp.total for lp in loops]).tolist()
-    for lp, total in zip(loops, totals):
+    values = _host_read(torch.cat(parts))
+    for lp, total in zip(loops, values):
         delta, lp.folded = total - lp.folded, total
         if delta:
             fm.add_launch_counts(lp.launched, times=delta)
             loop_iterations[lp.name] = loop_iterations.get(lp.name, 0) + delta
             nested = sum(isinstance(it, _Loop) for it in lp.body.items)
             graph_loops.launch_counts["set_while"] += delta * (1 + nested)
+            _add_nodes(lp.nodes, times=delta)
+    if spans is not None:
+        profiling.fold_totals(values[len(loops):])
+
+
+def _host_read(t: torch.Tensor) -> List[int]:
+    """The one device-to-host read of a fold."""
+    return t.tolist()
 
 
 fm.device_folds.append(fold_device_counts)
@@ -224,6 +287,7 @@ class _Recorder:
     def begin(self) -> None:
         self.graph = torch.cuda.CUDAGraph(keep_graph=True)
         self.before = fm.snapshot_launch_counts()
+        self.stamps = profiling.stamps_launched
         self.ctx = torch.cuda.graph(self.graph, pool=self.pool, stream=self.stream)
         self.ctx.__enter__()
 
@@ -232,7 +296,8 @@ class _Recorder:
         ctx.__exit__(None, None, None)
         launched = fm.launch_counts_since(self.before)
         fm.add_launch_counts(launched, times=-1)   # the capture ran nothing
-        self.programs[-1].items.append(_Segment(self.graph, launched))
+        self.programs[-1].items.append(
+            _Segment(self.graph, launched, profiling.stamps_launched - self.stamps))
 
     def abort(self) -> None:
         """End a capture that an exception cut short (its error is raised)."""

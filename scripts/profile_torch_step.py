@@ -125,12 +125,7 @@ def count(fn, step, reps: int) -> dict:
     """Per call of ``fn`` over ``reps`` calls: the graphed step's graph
     launches, each loop's iterations (``graphs.loop_iterations``: the
     device totals of a graph, folded in after the calls, or the eager
-    loop's host counts) and the host's synchronisations inside the calls;
-    for the graphed step also ``graph_span_ms``, the device time from the
-    start to the end of one launch of its graph alone (CUDA events around
-    ``reps`` launches back to back, on the inputs of the last call): wall
-    ms less it is the host's work around the launch, it less device-busy
-    ms the gaps between the graph's nodes."""
+    loop's host counts) and the host's synchronisations inside the calls."""
     program = getattr(step, "program", None)
     launched = program.launches if program is not None else 0
     graphs.fold_device_counts()
@@ -141,21 +136,12 @@ def count(fn, step, reps: int) -> dict:
             fn()
     torch.cuda.synchronize()
     graphs.fold_device_counts()
-    rec = {"graph_launches_per_step": ((program.launches - launched) / reps
-                                       if program is not None else 0),
-           "loop_iterations_per_step": {k: (v - before.get(k, 0)) / reps
-                                        for k, v in graphs.loop_iterations.items()
-                                        if v != before.get(k, 0)},
-           "host_syncs_per_step": syncs[0] / reps, "graph_span_ms": None}
-    if program is not None:
-        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        start.record()
-        for _ in range(reps):
-            program.replay()
-        end.record()
-        end.synchronize()
-        rec["graph_span_ms"] = start.elapsed_time(end) / reps
-    return rec
+    return {"graph_launches_per_step": ((program.launches - launched) / reps
+                                        if program is not None else 0),
+            "loop_iterations_per_step": {k: (v - before.get(k, 0)) / reps
+                                         for k, v in graphs.loop_iterations.items()
+                                         if v != before.get(k, 0)},
+            "host_syncs_per_step": syncs[0] / reps}
 
 
 def run_variant(dev, scene, conf, graphed: bool, steps: int, with_tracer: bool) -> dict:

@@ -466,6 +466,90 @@ def test_cuda_graphed_step_loop_totals_equal_the_eager_loops(cuda_device, case):
         assert "line_body" not in eager[1]["iterations"]
 
 
+def test_cuda_spans_are_stamped_inside_the_graph(cuda_device):
+    """The mixed flagship step (512 rays) captured with tracing off, then
+    again with it on: the second's captured segments hold the same nodes by
+    type as the first's, and the span stamps besides (so a step captured
+    with tracing off is the graph without spans); under the profiler, with
+    tracing on, every stamp of three steps is one ``span_stamp`` kernel
+    record (as many as the ring holds), the spans nest on the card's clock
+    in device order, a step's four top-level spans lie within its ``step``
+    span, and the loop bodies' spans count their loops' iterations."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from hashmodnffbanks_idr_tpu_torch.ops import graph_loops as gl
+    from hashmodnffbanks_idr_tpu_torch.utils import graphs, profiling
+    from hashmodnffbanks_idr_tpu_torch.utils.sampling import sample_pixels
+
+    activities = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    with profile(activities=activities):   # device tracing up before any capture
+        torch.zeros(1, device=cuda_device).add_(1)
+    scene = _graph_scene(cuda_device)
+    _, _, step, _ = _flagship_step(cuda_device, "mixed", True)
+    gen = torch.Generator(device=cuda_device).manual_seed(1)
+
+    def run(i):
+        step(scene, torch.tensor([i % 2], device=cuda_device),
+             sample_pixels(gen, 240 * 320, GRAPH_RAYS), gen, 50.0)
+
+    def nodes():
+        out = dict.fromkeys(gl.NODE_TYPES, 0)
+        for seg in step.program.segments():
+            for k, v in gl.Assembler.count_nodes(seg.graph).items():
+                out[k] += v
+        return out
+
+    try:
+        stamps = profiling.stamps_launched
+        run(0)
+        off = nodes()
+        assert profiling.stamps_launched == stamps and step.captures == 1
+        profiling.set_tracing(True, cuda_device)
+        run(1)
+        on = nodes()
+        stamped = profiling.stamps_launched - stamps
+        assert step.captures == 2 and stamped > 0
+        assert sum(seg.stamps for seg in step.program.segments()) == stamped
+        assert on == dict(off, kernel=off["kernel"] + stamped)
+        with profile(activities=activities):
+            run(2)
+            torch.cuda.synchronize()
+        profiling.reset_spans()
+        loops = dict(graphs.loop_iterations)
+        with profile(activities=activities) as prof:
+            for i in range(3):
+                run(i)
+            torch.cuda.synchronize()
+        ring, n = profiling.read_ring()
+        records = [e for e in prof.events() if "span_stamp" in e.name
+                   and e.device_type == torch.autograd.DeviceType.CUDA]
+        assert len(records) == n == len(ring) > 0
+        assert [t for t, _, _ in ring] == sorted(t for t, _, _ in ring)
+        stack, top = [], {}
+        for t, name, end in ring:
+            if not end:
+                stack.append((name, t))
+                continue
+            opened, t0 = stack.pop()
+            assert opened == name
+            if len(stack) == 1:
+                top[name] = top.get(name, 0) + t - t0
+            elif not stack:
+                assert sum(top.values()) <= t - t0
+                assert set(top) == {"tracer", "render", "backward", "update"}
+                top = {}
+        assert not stack
+        fm.snapshot_launch_counts()
+        totals = profiling.span_totals
+        assert totals["step"]["count"] == 3 and profiling.between_steps["count"] == 2
+        assert totals["march"]["count"] == (graphs.loop_iterations["march_body"]
+                                            - loops["march_body"])
+        assert totals["line_search"]["count"] == (graphs.loop_iterations["line_body"]
+                                                  - loops["line_body"])
+    finally:
+        profiling.set_tracing(False)
+
+
 def test_cuda_graphed_step_skips_a_nonfinite_step_on_the_device(cuda_device):
     """A step whose loss is NaN (alpha NaN, a static input of the graphs):
     the parameters and the Adam state bit-unchanged, the device counter one

@@ -12,7 +12,8 @@ device's semantics, for the tests of ``utils/graphs.py``.
   segment by replaying its graph, a loop as a while-node whose condition
   ``set_while_plain`` sets before the node and at the end of each body,
   so the predicate is evaluated only after a body (or before the first).
-  ``log`` records what ran, in order.
+  ``log`` records what ran, in order; ``count_nodes`` counts a fake
+  graph's recorded operations as its nodes.
 """
 
 from __future__ import annotations
@@ -135,3 +136,14 @@ class FakeAssembler:
 
     def instantiate(self, root: _Body) -> _Executable:
         return _Executable(root)
+
+    @staticmethod
+    def count_nodes(graph: FakeGraph) -> dict:
+        """A captured graph's recorded operations as its nodes: fills as
+        memsets, copies as memcpys, every other operation a kernel."""
+        kinds = {torch.ops.aten.fill_.Scalar: "memset", torch.ops.aten.zero_.default: "memset",
+                 torch.ops.aten.copy_.default: "memcpy"}
+        out = dict.fromkeys(gl.NODE_TYPES, 0)
+        for func, *_ in graph.ops:
+            out[kinds.get(func, "kernel")] += 1
+        return out
