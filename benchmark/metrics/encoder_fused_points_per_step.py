@@ -1,0 +1,15 @@
+"""``encoder_fused_points_per_step``: the points the NFFB encode kernel
+(``ops/nffb_encode.py``) encoded in the run's window, both precisions
+(``ops/fused_mlp.py`` ``launch_counts``: ``nffb_encode_f32`` and
+``nffb_encode_bf16``), a step.  A program without the kernel counts
+neither, and the metric is not reported."""
+
+VARIANTS = ("nffb_encode_f32", "nffb_encode_bf16")
+
+
+def read(ctx):
+    w = ctx.window
+    points = sum(w.launches.get(v, {}).get("points", 0) for v in VARIANTS)
+    if not w.steps or not points:
+        return None
+    return points / w.steps

@@ -448,6 +448,116 @@ def phase_kernels(dev, fm, model):
     return records
 
 
+# the NFFB encode kernel (ops/nffb_encode.py): the main path's call sizes
+# (secant 2048, march and line search 4096, sweep probes 24576 / 49152,
+# mixed coarse probes 69632), its tolerances (float32 1e-5 in every column;
+# bf16 99.9% of the elements within one bf16 ulp of the plain path, whose
+# sums run in another order) and the sizes it is timed at
+ENCODE_CHECK_N = (1, 31, 32, 33, 2048, 4096, 24576, 49152, 69632)
+ENCODE_TIME_N = (4096, 24576, 69632)
+ENCODE_TOL_F32 = 1e-5
+ENCODE_BF16_WITHIN_ULP = 0.999
+
+
+def graph_ms(fn, reps: int = 20) -> float:
+    """Device time of one ``fn`` call, ``reps`` calls captured in a CUDA
+    graph and replayed (as the train step runs them: no host work between
+    launches), the least of 5 replays."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(2):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    times = []
+    for _ in range(5):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / reps)
+    return min(times)
+
+
+def encode_cost(enc, n: int):
+    """FLOPs (2 a multiply-add, the used levels only), sines and bytes (each
+    point read once, its output written once, the weights once) of the
+    encode kernel's n points."""
+    w, L = enc.out_width, enc.n_levels
+    used = L - 2
+    macs = (used * w * w if enc.style_modulation else 0) + 3 * w + (L - 2) * w * w + w * w
+    sines = 2 * L + used * (2 * L) * 4 + (L - 1) * w
+    weights = sum(p.numel() for p in enc.parameters()) * 4
+    return 2 * n * macs, n * sines, n * (3 + 3 + w) * 4 + weights
+
+
+@torch.no_grad()
+def phase_nffb_encode(dev, fm, model) -> dict:
+    """The NFFB encode kernel against the module's plain forward on the
+    flagship's points encoder and view-direction encoder, in both
+    precisions, at ``ENCODE_CHECK_N``; timed through a CUDA graph at
+    ``ENCODE_TIME_N`` beside the plain forward so replayed and the bound
+    (FP32 FMA at the data sheet's peak, or bytes)."""
+    from hashmodnffbanks_idr_tpu_torch.ops import nffb_encode
+
+    encoders = {"points": model.implicit_network.embedder,
+                "views": model.rendering_network.view_embedder}
+    gen = torch.Generator(device=dev).manual_seed(2)
+    records = {}
+    for role, enc in encoders.items():
+        if not getattr(enc, "fused_encode", False):
+            raise AssertionError(f"the flagship's {role} encoder does not take the kernel")
+        for fast in (False, True):
+            variant = nffb_encode.VARIANTS[fast]
+            max_err, within = 0.0, 1.0
+            for n in ENCODE_CHECK_N:
+                x = (torch.rand(n, 3, generator=gen, device=dev) * 2 - 1) * 0.6
+                fm.reset_launch_counts()
+                got = enc(x, fast=fast)
+                enc.fused_encode = False
+                want = enc(x, fast=fast)
+                enc.fused_encode = True
+                torch.cuda.synchronize()
+                if fm.launch_counts[variant] != {"launches": 1, "points": n}:
+                    raise AssertionError(f"{variant} {role} N={n}: {fm.launch_counts[variant]}")
+                err = (got - want).abs()
+                max_err = max(max_err, float(err.max()))
+                if fast:
+                    ref = want.to(torch.bfloat16).float()
+                    ulp = torch.ldexp(torch.ones_like(ref), torch.frexp(
+                        ref.abs().clamp_min(torch.finfo(torch.float32).tiny))[1] - 8)
+                    within = min(within, float((err <= ulp).float().mean()))
+            print(f"[encode] {variant} {role}: max_abs_err={max_err:.3e}"
+                  + (f", within one bf16 ulp {within:.6f}" if fast else ""))
+            if (not fast and not max_err <= ENCODE_TOL_F32) or within < ENCODE_BF16_WITHIN_ULP:
+                raise AssertionError(f"{variant} {role}: max abs err {max_err}, "
+                                     f"within one ulp {within}")
+            timed = []
+            for n in ENCODE_TIME_N:
+                x = (torch.rand(n, 3, generator=gen, device=dev) * 2 - 1) * 0.6
+                ms = graph_ms(lambda: enc(x, fast=fast))
+                enc.fused_encode = False
+                plain_ms = graph_ms(lambda: enc(x, fast=fast), reps=5)
+                enc.fused_encode = True
+                flops, sines, nbytes = encode_cost(enc, n)
+                t_ops, t_bytes = flops / PEAK_FLOPS["f32"] * 1e3, nbytes / PEAK_BYTES_PER_S * 1e3
+                timed.append({"n": n, "ms": ms, "plain_ms": plain_ms,
+                              "bound_ms": max(t_ops, t_bytes),
+                              "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+                              "sines": sines})
+            records[f"{variant}.{role}"] = {"max_abs_err": max_err, "timed": timed,
+                                            **({"within_one_ulp": within} if fast else {})}
+            print(f"[encode] {variant} {role}: " + json.dumps(timed))
+    fm.reset_launch_counts()
+    return records
+
+
 def counting_loop(dev, limit: int, max_iters: int):
     """A loop state and a function that runs ``x = 0; while x < limit (at
     most max_iters times): x += 1`` on ``while_loop``."""
@@ -1943,6 +2053,7 @@ def main() -> int:
 
     model = IDRNetwork(flagship_conf(num_pixels=N_RAYS).get_config("model"), device=dev, seed=0)
     kernels = phase_kernels(dev, fm, model)
+    encode = phase_nffb_encode(dev, fm, model)
     del model
     depth_records = phase_depths(dev, fm)
     phase_reference(dev, fm)
@@ -2029,6 +2140,21 @@ def main() -> int:
             raise AssertionError(f"{cell}: {name} never ran on clusters of {march_c}, the "
                                  f"rule's size at N=4096: {rec['launches_by_cluster']}")
         out.append(rec)
+    # the NFFB encode kernel: its runs in the main path's cells, where it
+    # encodes every query of the fused kernel of the cell's precision
+    enc_rec = {"name": "nffb_encode", "route": "cuda",
+               "source": "hashmodnffbanks_idr_tpu_torch/ops/csrc/nffb_encode.cu",
+               "replaces": "none (the JAX package leaves NFFBEmbedder.forward to XLA)",
+               "launches_by_phase": {p: {v: c[v]["launches"] for v in c if v.startswith("nffb")}
+                                     for p, c in phases.items() if "nffb_encode_f32" in c},
+               "checks": encode}
+    for cell, enc_name, mlp in (("exact+fused", "nffb_encode_f32", "fused_sdf_raw_f32"),
+                                ("mixed", "nffb_encode_bf16", "fused_sdf_raw_bf16")):
+        if phases[cell][enc_name]["points"] != phases[cell][mlp]["points"]:
+            raise AssertionError(f"{cell}: {enc_name} encoded {phases[cell][enc_name]} points, "
+                                 f"{mlp} ran {phases[cell][mlp]}")
+        enc_rec[f"points_{cell}"] = phases[cell][enc_name]["points"]
+    out.append(enc_rec)
     # set_while: its runs in the exact+fused cell (before each while-node
     # and after each body), its check and times per iteration
     out.append({"name": "set_while", "route": "cuda",

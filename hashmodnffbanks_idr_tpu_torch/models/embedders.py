@@ -31,6 +31,7 @@ from torch import nn
 
 from ..ops import encodings as enc
 from ..ops import hashgrid as hg
+from ..ops import nffb_encode
 from ..ops.linear import Linear
 
 
@@ -226,7 +227,13 @@ class NFFBEmbedder(nn.Module):
     ``grid_backend='ngp'`` ('FFBTcnn', FFB_encoder.py:23-255): the ngp grid,
     per-level width F, no doubling.  Quirks kept: the include-input slot is
     duplicated; SIREN ``w0 = L^F - L``; the output is divided by L, not by
-    the L-2 levels used."""
+    the L-2 levels used.
+
+    A gradient-free query on a CUDA tensor (the tracer's, eval's) runs as one
+    kernel (``ops/nffb_encode.py``) where ``fused_encode``: the torch grid
+    with floor interpolation at a shape the kernel is built for.  Everything
+    else, autograd and the CPU included, runs the plain forward below, the
+    kernel's plain twin."""
 
     def __init__(self, *, in_dim: int, n_levels: int, max_points_per_level: int,
                  log2_hashmap_size: int, base_resolution: int,
@@ -260,6 +267,9 @@ class NFFBEmbedder(nn.Module):
         self.sin_w0 = float(n_levels**max_points_per_level - n_levels)  # nffb3d.py:83
         self.out_width = self.nffb_lin_dims[-1]
         self.embeddings_dim = self.out_width + in_dim
+        self.fused_encode = (grid_backend == "torch" and self.grid.spec.interpolation == "floor"
+                             and (in_dim, n_levels, max_points_per_level, self.out_width)
+                             in nffb_encode.SHAPES)
 
         self.ff_lin = nn.ModuleList(
             Linear(self.nffb_lin_dims[i], self.nffb_lin_dims[i + 1])
@@ -303,7 +313,14 @@ class NFFBEmbedder(nn.Module):
     def tv_loss(self, inp):
         return self.grid.tv_loss((inp + self.bound) / (2 * self.bound))  # nffb3d.py:132
 
+    def takes_kernel(self, inp) -> bool:
+        """Whether ``forward(inp)`` runs the encode kernel: a CUDA input,
+        no autograd, and a module the kernel is built for."""
+        return self.fused_encode and inp.is_cuda and not torch.is_grad_enabled()
+
     def forward(self, inp, fast: bool = False):
+        if self.takes_kernel(inp):
+            return nffb_encode.encode(self, inp.contiguous(), fast)
         x = inp / self.bound                                   # nffb3d.py:131
         input01 = (inp + self.bound) / (2 * self.bound)
 
