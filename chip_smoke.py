@@ -30,7 +30,12 @@ against the loop that reads its predicate on the host and times an
 iteration of each (``[set_while]``), then drives
 the flagship StyleModNFFB training step
 (2048 rays, 1200x1600 synthetic two-view scene, random weights from a seed)
-in four tracer configurations and times it.  Every train step on the card,
+in four tracer configurations, and FFB_TCNN's (``benchmark/configs/
+idr-ffbtcnn-log2-15.conf``, NFFB on the instant-ngp grid) in ``mixed``,
+and times them.  Before them the ``[encode]`` phase holds the NFFB encode
+kernel on both grids (the flagship's and FFB_TCNN's points and view
+encoders) against the plain forward in both precisions and times it
+beside its bound.  Every train step on the card,
 there and in every phase after, is the step launched as one CUDA graph a
 step, its tracer loops conditional while-nodes (``build_train_step``'s
 default on the card; each runner's step must be one, captured once).  The
@@ -488,7 +493,7 @@ def graph_ms(fn, reps: int = 20) -> float:
 def encode_cost(enc, n: int):
     """FLOPs (2 a multiply-add, the used levels only), sines and bytes (each
     point read once, its output written once, the weights once) of the
-    encode kernel's n points."""
+    torch-grid encode kernel's n points."""
     w, L = enc.out_width, enc.n_levels
     used = L - 2
     macs = (used * w * w if enc.style_modulation else 0) + 3 * w + (L - 2) * w * w + w * w
@@ -497,63 +502,92 @@ def encode_cost(enc, n: int):
     return 2 * n * macs, n * sines, n * (3 + 3 + w) * 4 + weights
 
 
+def encode_bound_ms(enc, n: int) -> dict:
+    """The encode kernel's least time for one launch of n points and what
+    sets it: on the torch grid ``encode_cost`` at the FP32 FMA peak or the
+    bytes; on the ngp grid the benchmark's yardstick
+    (``benchmark/harness/nffb_ngp_encode.py``: the used levels' trilinear
+    weights, the style transform, trunk and out layer at the FP32 FMA peak,
+    or the points' bytes with the weights and the used levels' rows)."""
+    if enc.grid_backend == "torch":
+        flops, sines, nbytes = encode_cost(enc, n)
+        t_ops, t_bytes = flops / PEAK_FLOPS["f32"] * 1e3, nbytes / PEAK_BYTES_PER_S * 1e3
+        return {"bound_ms": max(t_ops, t_bytes),
+                "bound_by": "operations" if t_ops >= t_bytes else "bytes", "sines": sines}
+    sys.path.insert(0, str(Path(__file__).resolve().parent / "benchmark"))
+    from harness import nffb_ngp_encode
+
+    spec = enc.grid.spec
+    return {"bound_ms": 1e3 * nffb_ngp_encode.bound_s(
+        n, 1, enc.n_levels, enc.F, spec.log2_hashmap_size, spec.base_resolution,
+        spec.desired_resolution, enc.style_modulation)}
+
+
+def ffbtcnn_conf():
+    """The FFB_TCNN configuration's conf as the benchmark freezes it (FFBTcnn
+    points and view encoders on the instant-ngp grid, 2^15 rows a level)."""
+    from hashmodnffbanks_idr_tpu_torch.config.hocon import parse_file
+
+    return parse_file(str(Path(__file__).resolve().parent / "benchmark" / "configs"
+                          / "idr-ffbtcnn-log2-15.conf"))
+
+
 @torch.no_grad()
-def phase_nffb_encode(dev, fm, model) -> dict:
-    """The NFFB encode kernel against the module's plain forward on the
-    flagship's points encoder and view-direction encoder, in both
-    precisions, at ``ENCODE_CHECK_N``; timed through a CUDA graph at
-    ``ENCODE_TIME_N`` beside the plain forward so replayed and the bound
-    (FP32 FMA at the data sheet's peak, or bytes)."""
+def phase_nffb_encode(dev, fm, models: dict) -> dict:
+    """The NFFB encode kernel against the module's plain forward on each
+    model's points encoder and view-direction encoder (the flagship's
+    StyleModNFFB on the torch grid, FFB_TCNN's FFBTcnn on the ngp grid), in
+    both precisions, at ``ENCODE_CHECK_N`` (inputs in [-0.6, 0.6]^3, which
+    the points' bound 0.45 maps outside [0, 1]); timed through a CUDA graph
+    at ``ENCODE_TIME_N`` beside the plain forward so replayed and the bound
+    (``encode_bound_ms``)."""
     from hashmodnffbanks_idr_tpu_torch.ops import nffb_encode
 
-    encoders = {"points": model.implicit_network.embedder,
-                "views": model.rendering_network.view_embedder}
     gen = torch.Generator(device=dev).manual_seed(2)
     records = {}
-    for role, enc in encoders.items():
-        if not getattr(enc, "fused_encode", False):
-            raise AssertionError(f"the flagship's {role} encoder does not take the kernel")
-        for fast in (False, True):
-            variant = nffb_encode.VARIANTS[fast]
-            max_err, within = 0.0, 1.0
-            for n in ENCODE_CHECK_N:
-                x = (torch.rand(n, 3, generator=gen, device=dev) * 2 - 1) * 0.6
-                fm.reset_launch_counts()
-                got = enc(x, fast=fast)
-                enc.fused_encode = False
-                want = enc(x, fast=fast)
-                enc.fused_encode = True
-                torch.cuda.synchronize()
-                if fm.launch_counts[variant] != {"launches": 1, "points": n}:
-                    raise AssertionError(f"{variant} {role} N={n}: {fm.launch_counts[variant]}")
-                err = (got - want).abs()
-                max_err = max(max_err, float(err.max()))
-                if fast:
-                    ref = want.to(torch.bfloat16).float()
-                    ulp = torch.ldexp(torch.ones_like(ref), torch.frexp(
-                        ref.abs().clamp_min(torch.finfo(torch.float32).tiny))[1] - 8)
-                    within = min(within, float((err <= ulp).float().mean()))
-            print(f"[encode] {variant} {role}: max_abs_err={max_err:.3e}"
-                  + (f", within one bf16 ulp {within:.6f}" if fast else ""))
-            if (not fast and not max_err <= ENCODE_TOL_F32) or within < ENCODE_BF16_WITHIN_ULP:
-                raise AssertionError(f"{variant} {role}: max abs err {max_err}, "
-                                     f"within one ulp {within}")
-            timed = []
-            for n in ENCODE_TIME_N:
-                x = (torch.rand(n, 3, generator=gen, device=dev) * 2 - 1) * 0.6
-                ms = graph_ms(lambda: enc(x, fast=fast))
-                enc.fused_encode = False
-                plain_ms = graph_ms(lambda: enc(x, fast=fast), reps=5)
-                enc.fused_encode = True
-                flops, sines, nbytes = encode_cost(enc, n)
-                t_ops, t_bytes = flops / PEAK_FLOPS["f32"] * 1e3, nbytes / PEAK_BYTES_PER_S * 1e3
-                timed.append({"n": n, "ms": ms, "plain_ms": plain_ms,
-                              "bound_ms": max(t_ops, t_bytes),
-                              "bound_by": "operations" if t_ops >= t_bytes else "bytes",
-                              "sines": sines})
-            records[f"{variant}.{role}"] = {"max_abs_err": max_err, "timed": timed,
-                                            **({"within_one_ulp": within} if fast else {})}
-            print(f"[encode] {variant} {role}: " + json.dumps(timed))
+    for label, model in models.items():
+        for role, enc in (("points", model.implicit_network.embedder),
+                          ("views", model.rendering_network.view_embedder)):
+            if not getattr(enc, "fused_encode", False):
+                raise AssertionError(f"the {label} {role} encoder does not take the kernel")
+            for fast in (False, True):
+                variant = nffb_encode.VARIANTS[enc.grid_backend][fast]
+                max_err, within = 0.0, 1.0
+                for n in ENCODE_CHECK_N:
+                    x = (torch.rand(n, 3, generator=gen, device=dev) * 2 - 1) * 0.6
+                    fm.reset_launch_counts()
+                    got = enc(x, fast=fast)
+                    enc.fused_encode = False
+                    want = enc(x, fast=fast)
+                    enc.fused_encode = True
+                    torch.cuda.synchronize()
+                    if fm.launch_counts[variant] != {"launches": 1, "points": n}:
+                        raise AssertionError(f"{variant} {role} N={n}: "
+                                             f"{fm.launch_counts[variant]}")
+                    err = (got - want).abs()
+                    max_err = max(max_err, float(err.max()))
+                    if fast:
+                        ref = want.to(torch.bfloat16).float()
+                        ulp = torch.ldexp(torch.ones_like(ref), torch.frexp(
+                            ref.abs().clamp_min(torch.finfo(torch.float32).tiny))[1] - 8)
+                        within = min(within, float((err <= ulp).float().mean()))
+                print(f"[encode] {variant} {label} {role}: max_abs_err={max_err:.3e}"
+                      + (f", within one bf16 ulp {within:.6f}" if fast else ""))
+                if (not fast and not max_err <= ENCODE_TOL_F32) or within < ENCODE_BF16_WITHIN_ULP:
+                    raise AssertionError(f"{variant} {role}: max abs err {max_err}, "
+                                         f"within one ulp {within}")
+                timed = []
+                for n in ENCODE_TIME_N:
+                    x = (torch.rand(n, 3, generator=gen, device=dev) * 2 - 1) * 0.6
+                    ms = graph_ms(lambda: enc(x, fast=fast))
+                    enc.fused_encode = False
+                    plain_ms = graph_ms(lambda: enc(x, fast=fast), reps=5)
+                    enc.fused_encode = True
+                    timed.append({"n": n, "ms": ms, "plain_ms": plain_ms,
+                                  **encode_bound_ms(enc, n)})
+                records[f"{variant}.{role}"] = {"max_abs_err": max_err, "timed": timed,
+                                                **({"within_one_ulp": within} if fast else {})}
+                print(f"[encode] {variant} {label} {role}: " + json.dumps(timed))
     fm.reset_launch_counts()
     return records
 
@@ -2053,8 +2087,9 @@ def main() -> int:
 
     model = IDRNetwork(flagship_conf(num_pixels=N_RAYS).get_config("model"), device=dev, seed=0)
     kernels = phase_kernels(dev, fm, model)
-    encode = phase_nffb_encode(dev, fm, model)
-    del model
+    ffbtcnn = IDRNetwork(ffbtcnn_conf().get_config("model"), device=dev, seed=0)
+    encode = phase_nffb_encode(dev, fm, {"StyleModNFFB": model, "FFBTcnn": ffbtcnn})
+    del model, ffbtcnn
     depth_records = phase_depths(dev, fm)
     phase_reference(dev, fm)
     ngp_ref = ngp_conf("ngp_log2_15", num_pixels=256)
@@ -2076,6 +2111,9 @@ def main() -> int:
         "fast": phase_step(dev, fm, scene, "fast", "fast", False, 2, 10,
                            expect="fused_sdf_raw_bf16"),
         "exact (unfused)": phase_step(dev, fm, scene, "exact (unfused)", "exact", False, 1, 3),
+        "ffbtcnn mixed": phase_step(dev, fm, scene, "ffbtcnn mixed", "mixed", False, 2, 10,
+                                    expect="nffb_ngp_encode_bf16", conf=ffbtcnn_conf(),
+                                    tag="ffbtcnn mixed"),
     }
     phases.update({f"graph {k}": v for k, v in phase_graph(dev, fm, scene, smi).items()})
     ngp_counts, ngp_largest = phase_ngp_steps(dev, fm, scene)
@@ -2147,7 +2185,7 @@ def main() -> int:
                "replaces": "none (the JAX package leaves NFFBEmbedder.forward to XLA)",
                "launches_by_phase": {p: {v: c[v]["launches"] for v in c if v.startswith("nffb")}
                                      for p, c in phases.items() if "nffb_encode_f32" in c},
-               "checks": encode}
+               "checks": {k: v for k, v in encode.items() if not k.startswith("nffb_ngp")}}
     for cell, enc_name, mlp in (("exact+fused", "nffb_encode_f32", "fused_sdf_raw_f32"),
                                 ("mixed", "nffb_encode_bf16", "fused_sdf_raw_bf16")):
         if phases[cell][enc_name]["points"] != phases[cell][mlp]["points"]:
@@ -2155,6 +2193,28 @@ def main() -> int:
                                  f"{mlp} ran {phases[cell][mlp]}")
         enc_rec[f"points_{cell}"] = phases[cell][enc_name]["points"]
     out.append(enc_rec)
+    # the same kernel on the ngp grid: its runs in the graphed FFB_TCNN mixed
+    # step (counts reset just before its timed steps), where its bf16 launches
+    # encode every guidance query of the bf16 kernel, its f32 launches the
+    # decisions, and the torch grid's kernel never runs
+    ngp = phases["ffbtcnn mixed"]
+    if ngp["nffb_ngp_encode_bf16"]["points"] != ngp["fused_sdf_raw_bf16"]["points"]:
+        raise AssertionError(f"ffbtcnn mixed: nffb_ngp_encode_bf16 encoded "
+                             f"{ngp['nffb_ngp_encode_bf16']} points, fused_sdf_raw_bf16 ran "
+                             f"{ngp['fused_sdf_raw_bf16']}")
+    if not ngp["nffb_ngp_encode_f32"]["launches"] or any(
+            ngp[v]["launches"] for v in ("nffb_encode_f32", "nffb_encode_bf16")):
+        raise AssertionError(f"ffbtcnn mixed: {ngp}")
+    out.append({"name": "nffb_ngp_encode", "route": "cuda",
+                "source": "hashmodnffbanks_idr_tpu_torch/ops/csrc/nffb_encode.cu",
+                "kernel": "nffb_encode_kernel<NgpGrid, L, W, STYLE, BF16>",
+                "replaces": "none (the JAX package leaves NFFBEmbedder.forward on the ngp "
+                            "grid to XLA)",
+                "launches": {v: ngp[v]["launches"]
+                             for v in ("nffb_ngp_encode_f32", "nffb_ngp_encode_bf16")},
+                "points": {v: ngp[v]["points"]
+                           for v in ("nffb_ngp_encode_f32", "nffb_ngp_encode_bf16")},
+                "checks": {k: v for k, v in encode.items() if k.startswith("nffb_ngp")}})
     # set_while: its runs in the exact+fused cell (before each while-node
     # and after each body), its check and times per iteration
     out.append({"name": "set_while", "route": "cuda",

@@ -231,8 +231,9 @@ class NFFBEmbedder(nn.Module):
 
     A gradient-free query on a CUDA tensor (the tracer's, eval's) runs as one
     kernel (``ops/nffb_encode.py``) where ``fused_encode``: the torch grid
-    with floor interpolation at a shape the kernel is built for.  Everything
-    else, autograd and the CPU included, runs the plain forward below, the
+    with floor interpolation or the ngp grid with linear (trilinear)
+    interpolation, at a shape the kernel is built for.  Everything else,
+    autograd and the CPU included, runs the plain forward below, the
     kernel's plain twin."""
 
     def __init__(self, *, in_dim: int, n_levels: int, max_points_per_level: int,
@@ -241,6 +242,7 @@ class NFFBEmbedder(nn.Module):
                  grid_backend: str = "torch", grid_interpolation: Optional[str] = None):
         super().__init__()
         self.bound = bound
+        self.grid_backend = grid_backend
         self.n_levels = n_levels
         self.F = max_points_per_level
         self.style_modulation = style_modulation
@@ -267,9 +269,7 @@ class NFFBEmbedder(nn.Module):
         self.sin_w0 = float(n_levels**max_points_per_level - n_levels)  # nffb3d.py:83
         self.out_width = self.nffb_lin_dims[-1]
         self.embeddings_dim = self.out_width + in_dim
-        self.fused_encode = (grid_backend == "torch" and self.grid.spec.interpolation == "floor"
-                             and (in_dim, n_levels, max_points_per_level, self.out_width)
-                             in nffb_encode.SHAPES)
+        self.fused_encode = nffb_encode.supports(self)
 
         self.ff_lin = nn.ModuleList(
             Linear(self.nffb_lin_dims[i], self.nffb_lin_dims[i + 1])

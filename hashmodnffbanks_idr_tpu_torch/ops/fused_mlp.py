@@ -86,10 +86,11 @@ launch_counts: Dict[str, Dict[str, int]] = {
     name: {"launches": 0, "points": 0, **{f"cluster_{c}": 0 for c in CLUSTER_SIZES}}
     for name in WAVE_MS
 }
-# the NFFB encode kernel's (ops/nffb_encode.py), by precision, counted the
-# same way
+# the NFFB encode kernel's (ops/nffb_encode.py), by grid and precision,
+# counted the same way
 launch_counts.update({name: {"launches": 0, "points": 0}
-                      for name in ("nffb_encode_f32", "nffb_encode_bf16")})
+                      for name in ("nffb_encode_f32", "nffb_encode_bf16",
+                                   "nffb_ngp_encode_f32", "nffb_ngp_encode_bf16")})
 # what adds in the launches only the device has counted (``utils/graphs.py``
 # registers its fold)
 device_folds: List[Callable[[], None]] = []

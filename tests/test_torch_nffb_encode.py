@@ -1,4 +1,5 @@
-"""NFFB's gradient-free encode kernel (``ops/nffb_encode.py``).
+"""NFFB's gradient-free encode kernel (``ops/nffb_encode.py``), on the torch
+grid ('FFB', 'StyleModNFFB') and the ngp grid ('FFBTcnn').
 
 On the CPU: which encoders of the repo's confs take the kernel, that the
 plain forward runs (bit for bit, nothing counted) with autograd or on a CPU
@@ -27,7 +28,8 @@ from hashmodnffbanks_idr_tpu_torch.ops import nffb_encode
 
 CONF_DIR = Path(__file__).resolve().parents[1] / "hashmodnffbanks_idr_tpu" / "config" / "confs"
 CONFS = sorted(str(p.relative_to(CONF_DIR)) for p in CONF_DIR.rglob("*.conf"))
-KERNEL_TYPES = ("FFB", "StyleModNFFB")
+KERNEL_TYPES = ("FFB", "StyleModNFFB", "FFBTcnn")
+GRID = {"FFB": "torch", "StyleModNFFB": "torch", "FFBTcnn": "ngp"}
 
 # the points encoder of the NFFB confs (benchmark/configs/idr-stylemodnffb)
 # and RenderingNetwork's view-direction NFFB (multires_view 4)
@@ -37,13 +39,18 @@ ENCODERS = {
     "views": dict(input_dims=3, multires=4, log2_max_hash_size=3, max_points_per_entry=2,
                   base_resolution=16, desired_resolution=512, bound=1.0),
 }
+# the FFB_TCNN conf's points grid (benchmark/configs/idr-ffbtcnn-log2-15):
+# 2^15 rows a level, so the bf16 path rounds its corner values
+LOG2 = {("points", "FFBTcnn"): 15}
 CHECK_N = (1, 4095, 4096, 24576, 69632)
 F32_TOL = 1e-5
 BF16_WITHIN_ULP = 0.999
 
 
 def _encoder(kind, embed_type, device="cpu", seed=0):
-    enc = build_embedder(embed_type, **ENCODERS[kind])
+    kw = dict(ENCODERS[kind])
+    kw["log2_max_hash_size"] = LOG2.get((kind, embed_type), kw["log2_max_hash_size"])
+    enc = build_embedder(embed_type, **kw)
     enc.reset_parameters(torch.Generator().manual_seed(seed))
     return enc.to(device)
 
@@ -70,9 +77,9 @@ def _plain(enc, x, fast):
 @pytest.mark.parametrize("conf", CONFS)
 def test_nffb_kernel_takes_the_torch_grid_nffbs_of_every_conf(conf):
     """In every conf of the repo, an encoder takes the kernel exactly when
-    it is an 'FFB' or 'StyleModNFFB' (the torch grid, floor corner): the
-    points and the view directions alike; 'FFBTcnn' (the ngp grid) and every
-    other encoder do not."""
+    it is an NFFB: 'FFB' or 'StyleModNFFB' (the torch grid, floor corner) or
+    'FFBTcnn' (the ngp grid, trilinear), the points and the view directions
+    alike; every other encoder does not."""
     model_conf = parse_file(str(CONF_DIR / conf)).get_config("model")
     model = IDRNetwork(model_conf, device="cpu")
     # the points encoder's type as IDRNetwork reads it: embedding_network's
@@ -87,30 +94,34 @@ def test_nffb_kernel_takes_the_torch_grid_nffbs_of_every_conf(conf):
         takes = getattr(enc, "fused_encode", False)
         assert takes == (enc is not None and embed_type in KERNEL_TYPES), (role, embed_type)
         if takes:
-            assert (enc.grid.spec.input_dim, enc.n_levels, enc.F,
-                    enc.out_width) in nffb_encode.SHAPES
+            grid, dims = nffb_encode.shape(enc)
+            assert grid == GRID[embed_type] and dims in nffb_encode.SHAPES[grid]
 
 
 def test_nffb_kernel_is_built_for_every_torch_grid_nffb_the_confs_use():
-    """Both shapes of the repo's confs take the kernel, with and without
-    style modulation: the points encoder (L 6, width 56) and the view
-    directions' (L 4, width 40); a linear-interpolation grid and the ngp
-    grid do not."""
+    """Every shape of the repo's confs takes the kernel: on the torch grid
+    with and without style modulation, the points encoder (L 6, width 56)
+    and the view directions' (L 4, width 40); on the ngp grid ('FFBTcnn',
+    the style preset) the points (L 6, width 28) and the view directions (L
+    4, width 20).  A torch grid with linear interpolation, and an ngp grid
+    with floor interpolation, do not."""
     for kind in ENCODERS:
         for embed_type in KERNEL_TYPES:
             assert _encoder(kind, embed_type).fused_encode, (kind, embed_type)
-        assert not build_embedder("FFBTcnn", **ENCODERS[kind]).fused_encode
         assert not build_embedder("StyleModNFFB", grid_interpolation="linear",
+                                  **ENCODERS[kind]).fused_encode
+        assert not build_embedder("FFBTcnn", grid_interpolation="floor",
                                   **ENCODERS[kind]).fused_encode
     seen = set()
     for conf in CONFS:
         model = IDRNetwork(parse_file(str(CONF_DIR / conf)).get_config("model"), device="cpu")
         for enc in (model.implicit_network.embedder, model.rendering_network.view_embedder):
             if getattr(enc, "fused_encode", False):
-                seen.add((enc.grid.spec.input_dim, enc.n_levels, enc.F, enc.out_width,
-                          enc.style_modulation))
-    assert {s[:4] for s in seen} == set(nffb_encode.SHAPES)
-    assert {s[4] for s in seen} == {False, True}
+                seen.add((*nffb_encode.shape(enc), enc.style_modulation))
+    assert {s[:2] for s in seen} == {(g, d) for g, dims in nffb_encode.SHAPES.items()
+                                     for d in dims}
+    assert {s[2] for s in seen if s[0] == "torch"} == {False, True}
+    assert {s[2] for s in seen if s[0] == "ngp"} == {True}
 
 
 @pytest.mark.parametrize("grad", [True, False])
@@ -133,7 +144,7 @@ def test_nffb_forward_stays_plain_with_grad_or_on_the_cpu(monkeypatch, embed_typ
             got = enc(x, fast=fast)
         assert torch.equal(got, _plain(enc, x, fast)), fast
     assert all(fm.launch_counts[v] == {"launches": 0, "points": 0}
-               for v in nffb_encode.VARIANTS.values())
+               for by_fast in nffb_encode.VARIANTS.values() for v in by_fast.values())
     cuda_like = SimpleNamespace(is_cuda=True)
     with torch.set_grad_enabled(grad):
         assert enc.takes_kernel(cuda_like) == (not grad)
@@ -164,6 +175,27 @@ def test_nffb_encode_refuses_what_the_kernel_does_not_take(monkeypatch, case):
         nffb_encode.check_input(x, 3)
     with pytest.raises(ValueError):
         nffb_encode.encode(enc, x, fast=False)
+
+
+@pytest.mark.parametrize("case", ["levels", "interpolation"])
+def test_nffb_encode_refuses_an_ngp_module_it_is_not_built_for(monkeypatch, case):
+    """An 'FFBTcnn' the kernel is not built for (5 levels, or the floor
+    corner) keeps the plain forward, and ``encode`` refuses it with
+    ValueError before it looks at the input or loads the library."""
+    def refuse():
+        raise AssertionError("the library was loaded")
+
+    monkeypatch.setattr(nffb_encode, "load_library", refuse)
+    kw = dict(ENCODERS["points"])
+    if case == "levels":
+        kw["multires"] = 5
+    else:
+        kw["grid_interpolation"] = "floor"
+    enc = build_embedder("FFBTcnn", **kw)
+    assert not enc.fused_encode
+    assert not enc.takes_kernel(SimpleNamespace(is_cuda=True))
+    with pytest.raises(ValueError, match="not built"):
+        nffb_encode.encode(enc, _points(8, seed=2, device="cpu"), fast=False)
 
 
 # ---------------------------------------------------------------------------
@@ -210,7 +242,7 @@ def test_cuda_nffb_encode_matches_the_plain_forward(cuda_device, kind, embed_typ
     rounding point can land on the other side of a tie).  One launch a call,
     its points counted."""
     enc = _trained(kind, embed_type, cuda_device)
-    variant = nffb_encode.VARIANTS[fast]
+    variant = nffb_encode.VARIANTS[GRID[embed_type]][fast]
     for n in CHECK_N:
         x = _points(n, seed=n, device=cuda_device)
         fm.reset_launch_counts()
