@@ -2179,7 +2179,8 @@ def main() -> int:
                                  f"rule's size at N=4096: {rec['launches_by_cluster']}")
         out.append(rec)
     # the NFFB encode kernel: its runs in the main path's cells, where it
-    # encodes every query of the fused kernel of the cell's precision
+    # encodes every query of the fused kernel of its precision (in mixed,
+    # bf16 the guidance, f32 the decisions)
     enc_rec = {"name": "nffb_encode", "route": "cuda",
                "source": "hashmodnffbanks_idr_tpu_torch/ops/csrc/nffb_encode.cu",
                "replaces": "none (the JAX package leaves NFFBEmbedder.forward to XLA)",
@@ -2187,21 +2188,23 @@ def main() -> int:
                                      for p, c in phases.items() if "nffb_encode_f32" in c},
                "checks": {k: v for k, v in encode.items() if not k.startswith("nffb_ngp")}}
     for cell, enc_name, mlp in (("exact+fused", "nffb_encode_f32", "fused_sdf_raw_f32"),
-                                ("mixed", "nffb_encode_bf16", "fused_sdf_raw_bf16")):
+                                ("mixed", "nffb_encode_bf16", "fused_sdf_raw_bf16"),
+                                ("mixed", "nffb_encode_f32", "fused_sdf_raw_f32")):
         if phases[cell][enc_name]["points"] != phases[cell][mlp]["points"]:
             raise AssertionError(f"{cell}: {enc_name} encoded {phases[cell][enc_name]} points, "
                                  f"{mlp} ran {phases[cell][mlp]}")
-        enc_rec[f"points_{cell}"] = phases[cell][enc_name]["points"]
+        enc_rec[f"points_{cell}_{enc_name}"] = phases[cell][enc_name]["points"]
     out.append(enc_rec)
     # the same kernel on the ngp grid: its runs in the graphed FFB_TCNN mixed
     # step (counts reset just before its timed steps), where its bf16 launches
     # encode every guidance query of the bf16 kernel, its f32 launches the
-    # decisions, and the torch grid's kernel never runs
+    # decisions of the f32 kernel, and the torch grid's kernel never runs
     ngp = phases["ffbtcnn mixed"]
-    if ngp["nffb_ngp_encode_bf16"]["points"] != ngp["fused_sdf_raw_bf16"]["points"]:
-        raise AssertionError(f"ffbtcnn mixed: nffb_ngp_encode_bf16 encoded "
-                             f"{ngp['nffb_ngp_encode_bf16']} points, fused_sdf_raw_bf16 ran "
-                             f"{ngp['fused_sdf_raw_bf16']}")
+    for prec in ("bf16", "f32"):
+        enc_name, mlp = f"nffb_ngp_encode_{prec}", f"fused_sdf_raw_{prec}"
+        if ngp[enc_name]["points"] != ngp[mlp]["points"]:
+            raise AssertionError(f"ffbtcnn mixed: {enc_name} encoded {ngp[enc_name]} points, "
+                                 f"{mlp} ran {ngp[mlp]}")
     if not ngp["nffb_ngp_encode_f32"]["launches"] or any(
             ngp[v]["launches"] for v in ("nffb_encode_f32", "nffb_encode_bf16")):
         raise AssertionError(f"ffbtcnn mixed: {ngp}")

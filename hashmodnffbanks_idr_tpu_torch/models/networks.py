@@ -157,7 +157,11 @@ class ImplicitNetwork(nn.Module):
         ``ops.fused_mlp.fused_sdf_raw`` (the CUDA kernel on a CUDA tensor, its
         plain twin on a CPU one); other architectures, or ``fused=False``,
         run the layer chain with bf16 or f32 operands.  ``precision='f32'``
-        is the same math as :meth:`sdf`.
+        is the same math as :meth:`sdf` (the kernel's split-TF32 products
+        within 1e-5 of it), computing the SDF column alone: the exact
+        tracer's queries with ``tracer_exact_fused`` and the mixed tracer's
+        decisions wherever the kernel launches (``models/renderer.py``).
+        The weights are packed when the closure is made, so once a forward.
 
         ``max_level=K``/``floor_interp`` (where :meth:`supports_level_pruning`)
         make a guidance SDF: the encoder gathers only the K coarsest levels,

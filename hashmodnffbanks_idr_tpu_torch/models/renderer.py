@@ -14,10 +14,14 @@ Tracer precision (``model.tracer_fast``; JAX :49-74):
              level-pruned guidance (``prune_*``) runs float32 too;
   'mixed' -- bf16 guidance (march phase A, sweep coarse probes, the first
              ``prune_secant_iters`` secant steps) through the fused bf16
-             kernel, float32 decisions;
+             kernel, float32 decisions through the fused float32 kernel
+             where it launches (``fused_mlp.kernel_takes``: the network's
+             parameters on a CUDA device, the architecture it is built
+             for), else the float32 layer chain (``sdf``);
   'fast'  -- every tracer query through the fused bf16 kernel.
-The fused path is chosen from the config alone: ``fused_sdf_raw`` launches
-the CUDA kernel for a CUDA tensor and runs its plain twin for a CPU one.
+Elsewhere the fused path is chosen from the config alone: ``fused_sdf_raw``
+launches the CUDA kernel for a CUDA tensor and runs its plain twin for a
+CPU one.
 ``tracer_exact_fused`` is read from the conf only.  The JAX package also
 takes its default from the ``HMNFFB_EXACT_FUSED`` environment variable
 (JAX :72-74); the port ignores that variable, so a run is reproduced from
@@ -34,6 +38,7 @@ from torch import nn
 from .. import resolve_device
 from ..config.hocon import Config
 from ..geometry.cameras import get_camera_params
+from ..ops import fused_mlp as fm
 from ..utils.profiling import span
 from .networks import ImplicitNetwork, RenderingNetwork
 from .ray_tracing import RayTracerConfig, ray_trace, sweep_draws
@@ -73,7 +78,9 @@ class IDRNetwork(nn.Module):
         ``prune_levels_*`` ask for it and the encoder supports it: bf16
         (the bf16 kernel) in 'mixed' and 'fast', f32 in 'exact' (the f32
         kernel with ``tracer_exact_fused``); with ``prune_secant_iters`` the
-        first secant iterations run on the coarse (else march) guide."""
+        first secant iterations run on the coarse (else march) guide.  The
+        mixed tracer's float32 decisions take the f32 kernel wherever it
+        launches (``fm.kernel_takes``), the layer chain elsewhere."""
         net, rt = self.implicit_network, self.ray_tracer
 
         def fast(max_level=None, floor=False):
@@ -105,7 +112,9 @@ class IDRNetwork(nn.Module):
             return sdf, build_guidance(precision="f32")
         if self.tracer_mode == "fast":
             return fast(), build_guidance()
-        return net.sdf, build_guidance(make_base=fast)
+        on_kernel = fm.kernel_takes(net.dims, net.skip_in, net.lin[0].b.device)
+        decide = net.make_fast_sdf("f32") if on_kernel else net.sdf
+        return decide, build_guidance(make_base=fast)
 
     def has_coarse_guide(self) -> bool:
         """Whether ``_tracer_sdfs``'s guidance has a ``'coarse'`` SDF (which

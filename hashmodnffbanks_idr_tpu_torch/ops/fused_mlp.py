@@ -144,6 +144,15 @@ def supports_fusion(dims: List[int], skip_in: Tuple[int, ...]) -> bool:
     return dims[0] < h and h % 128 == 0
 
 
+def kernel_takes(dims: List[int], skip_in: Tuple[int, ...], device) -> bool:
+    """Whether the CUDA kernel launches for an SDF network of widths ``dims``
+    and skip ``skip_in`` whose parameters are on ``device``: a CUDA device,
+    the architecture of ``supports_fusion`` at the compiled hidden width
+    (every d_in under it has a compiled depth, ``kernel_depth``)."""
+    return (torch.device(device).type == "cuda" and supports_fusion(dims, skip_in)
+            and dims[1] == KERNEL_HIDDEN)
+
+
 @torch.no_grad()
 def pack_params(lins: List[Linear], d_in: int, hidden: int,
                 dtype: torch.dtype = torch.bfloat16) -> Dict[str, torch.Tensor]:

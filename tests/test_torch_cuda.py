@@ -329,8 +329,14 @@ def test_cuda_pose7_step_matches_cpu(cuda_device):
 
 GRAPH_RAYS = 512
 # (tracer_fast, tracer_exact_fused, the kernel its tracer launches)
-GRAPH_MODES = {"exact+fused": ("exact", True, "fused_sdf_raw_f32"),
-               "mixed": ("mixed", False, "fused_sdf_raw_bf16")}
+# the tracer settings of the flagship steps: (tracer_fast,
+# tracer_exact_fused, the fused kernels a step launches); the mixed tracer
+# decides on the f32 kernel and guides on the bf16 one
+TRACER_MODES = {"exact+fused": ("exact", True, ("fused_sdf_raw_f32",)),
+                "mixed": ("mixed", False, ("fused_sdf_raw_bf16", "fused_sdf_raw_f32")),
+                "exact": ("exact", False, ()),
+                "fast": ("fast", False, ("fused_sdf_raw_bf16",))}
+GRAPH_MODES = {k: TRACER_MODES[k] for k in ("exact+fused", "mixed")}
 
 
 def _flagship_step(device, mode, graphed, seed=0, ray_tracer=None):
@@ -339,7 +345,7 @@ def _flagship_step(device, mode, graphed, seed=0, ray_tracer=None):
     from hashmodnffbanks_idr_tpu_torch.testing import flagship_conf
     from hashmodnffbanks_idr_tpu_torch.train.trainer import build_train_step, make_optimizer
 
-    tracer, fused, _ = GRAPH_MODES[mode]
+    tracer, fused, _ = TRACER_MODES[mode]
     conf = flagship_conf(num_pixels=GRAPH_RAYS)
     conf.put("model.tracer_fast", tracer)
     conf.put("model.tracer_exact_fused", fused)
@@ -426,22 +432,95 @@ def test_cuda_graphed_step_matches_the_eager_step(cuda_device, mode):
 
 @pytest.mark.parametrize("mode", sorted(GRAPH_MODES))
 def test_cuda_graphed_step_counts_its_kernel_launches(cuda_device, mode):
-    """The fused kernel's launches, points and cluster sizes folded in from
+    """The fused kernels' launches, points and cluster sizes folded in from
     the loops' device totals, step by step, as the eager step counts them
     on the same inputs (with deterministic index ops, so that the march
-    makes the same iterations on both sides), its kernel launched in every
-    step; each loop's iterations equal to the eager loop's; one graph launch
-    a step."""
-    kernel = GRAPH_MODES[mode][2]
+    makes the same iterations on both sides), each of the mode's kernels
+    launched in every step; each loop's iterations equal to the eager
+    loop's; one graph launch a step."""
+    kernels = GRAPH_MODES[mode][2]
     with deterministic():
         eager, *_ = _run_steps(cuda_device, mode, False, 3)
         graphed, *_ = _run_steps(cuda_device, mode, True, 3)
     assert [g["graph_launches"] for g in graphed] == [1, 1, 1]
     for i in range(1, 3):   # step 1 of the graphed step also ran its warm-up
         assert graphed[i]["launches"] == eager[i]["launches"], i
-        assert graphed[i]["launches"][kernel]["launches"] > 0
+        for kernel in kernels:
+            assert graphed[i]["launches"][kernel]["launches"] > 0, (i, kernel)
         assert graphed[i]["iterations"] == eager[i]["iterations"], i
         assert graphed[i]["iterations"]["march_body"] > 0
+
+
+@pytest.mark.parametrize("mode", sorted(TRACER_MODES))
+def test_cuda_step_launches_its_modes_kernels(cuda_device, mode):
+    """One eager flagship step launches its mode's fused kernels and no
+    other: the f32 one in exact+fused and in mixed (its float32 decisions),
+    the bf16 one in mixed and fast, neither in exact without the fused
+    kernel."""
+    run, *_ = _run_steps(cuda_device, mode, False, 1)
+    launched = {k for k in ("fused_sdf_raw_f32", "fused_sdf_raw_bf16")
+                if run[0]["launches"][k]["launches"]}
+    assert launched == set(TRACER_MODES[mode][2])
+
+
+def test_cuda_mixed_decisions_are_the_f32_kernels_queries(cuda_device):
+    """The graphed mixed flagship step, step by step: every float32 decision
+    runs the f32 kernel, so its points are the f32 encode kernel's (the
+    decisions' encode), as the bf16 kernel's are the bf16 encode's (the
+    guidance's)."""
+    graphed, *_ = _run_steps(cuda_device, "mixed", True, 3)
+    for i in range(1, 3):   # step 1 of the graphed step also ran its warm-up
+        c = graphed[i]["launches"]
+        assert c["fused_sdf_raw_f32"]["points"] == c["nffb_encode_f32"]["points"] > 0, (i, c)
+        assert c["fused_sdf_raw_bf16"]["points"] == c["nffb_encode_bf16"]["points"] > 0, (i, c)
+
+
+def test_cuda_mixed_trace_on_the_f32_kernel_agrees_with_the_chain(cuda_device):
+    """The mixed flagship forward (2048 rays of the synthetic scene) with
+    its float32 decisions on the f32 kernel against the same forward with
+    them on the layer chain, same weights, guidance and draws: hit masks
+    equal on at least 99.9% of the rays and the SDF at the rays' points
+    within 5e-6 in the median (the exact+fused tolerances: the eval render's
+    mask agreement, the benchmark's ``sdf_ray_gap``), the points on the rays
+    both hit within the tracer's ``sdf_threshold`` in the median."""
+    from hashmodnffbanks_idr_tpu_torch.models.loss import IDRLossConfig
+    from hashmodnffbanks_idr_tpu_torch.models.renderer import IDRNetwork
+    from hashmodnffbanks_idr_tpu_torch.testing import flagship_conf
+    from hashmodnffbanks_idr_tpu_torch.train.trainer import loss_fn
+    from hashmodnffbanks_idr_tpu_torch.utils.sampling import sample_pixels
+
+    n_rays = 2048
+    conf = flagship_conf(num_pixels=n_rays)
+    conf.put("model.tracer_fast", "mixed")
+    scene = _graph_scene(cuda_device)
+    outs = {}
+    for side in ("kernel", "chain"):
+        model = IDRNetwork(conf.get_config("model"), device=cuda_device, seed=0)
+        if side == "chain":
+            tracer_sdfs = model._tracer_sdfs
+            model._tracer_sdfs = lambda: (model.implicit_network.sdf, tracer_sdfs()[1])
+        gen = torch.Generator(device=cuda_device).manual_seed(3)
+        pix = sample_pixels(gen, 240 * 320, n_rays)
+        draws = model.draw_uniforms(gen, n_rays, cuda_device)
+        captured = {}
+        model.register_forward_hook(lambda m, a, o: captured.update(o))
+        seen = fm.snapshot_launch_counts()
+        loss_fn(model, IDRLossConfig(0.1, 200.0, 50.0), scene,
+                torch.tensor([0], device=cuda_device), pix, None, 50.0, draws=draws)
+        launched = fm.launch_counts_since(seen)
+        outs[side] = ({k: captured[k].detach() for k in
+                       ("network_object_mask", "points", "sdf_output")},
+                      launched["fused_sdf_raw_f32"]["launches"])
+    (kernel, f32_k), (chain, f32_c) = outs["kernel"], outs["chain"]
+    assert f32_k > 0 and f32_c == 0
+    hit_k, hit_c = kernel["network_object_mask"], chain["network_object_mask"]
+    assert float((hit_k == hit_c).float().mean()) >= 0.999
+    sdf_gap = (kernel["sdf_output"] - chain["sdf_output"]).abs().reshape(-1)
+    assert float(sdf_gap.median()) <= 5e-6
+    both = hit_k & hit_c
+    assert int(both.sum()) > 0
+    points_gap = (kernel["points"] - chain["points"]).norm(dim=-1)[both]
+    assert float(points_gap.median()) <= model.ray_tracer.sdf_threshold
 
 
 @pytest.mark.parametrize("case", ["cap", "none"])
